@@ -1,0 +1,21 @@
+"""opencv_tpu_torch — the PyTorch/CUDA port of ``opencv_tpu``.
+
+The same cv2-style API, enum values and batched NHWC layout as the JAX
+package, over torch tensors.  A result lives on its input's device: CUDA
+tensors run the hand-written Hopper kernels in ``csrc/`` where the JAX
+package has a Pallas kernel, and plain PyTorch elsewhere; CPU tensors run
+plain PyTorch throughout.  This package imports neither jax nor
+``opencv_tpu``.
+
+Ported so far: the flagship preprocess path (cvtColor gray family,
+GaussianBlur, resize, warpAffine) and the fused gray+blur+downsample entry.
+"""
+
+from .constants import *  # noqa: F401,F403
+from .ops.color import cvtColor  # noqa: F401
+from .ops.filter import GaussianBlur, getGaussianKernel  # noqa: F401
+from .ops.resize import resize  # noqa: F401
+from .ops.warp import getRotationMatrix2D, invertAffineTransform, warpAffine  # noqa: F401
+
+# fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
+from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401

@@ -1,0 +1,122 @@
+"""Build and load the hand-written CUDA kernels (``opencv_tpu_torch/csrc``).
+
+At the first launch, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
+library with a plain C interface, which is loaded with ``ctypes``.  The
+library lands in ``opencv_tpu_torch/_build/`` under a name that carries a
+hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the file.  It is written to a temporary name and moved into place
+with ``os.replace``, so concurrent processes never load a half-written file.
+
+Nothing here runs for CPU tensors: importing the package needs no CUDA
+toolkit.  A missing ``nvcc``, a failed build or a launch that returns a CUDA
+error raises; there is no fallback.
+
+ctypes notes: every pointer and the stream are declared ``c_void_p`` (an
+undeclared Python int is passed as a 32-bit C int and cuts the pointer),
+pointers come from ``Tensor.data_ptr()`` and the stream from
+``torch.cuda.current_stream().cuda_stream``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["NVCC_FLAGS", "Kernel", "library", "stream_of"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _library_path() -> Path:
+    sources, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources + headers:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libopencv_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def _build(so: Path) -> None:
+    sources, _ = _sources()
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this tree has no copy."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = _library_path()
+            if not so.exists():
+                _build(so)
+            lib = ctypes.CDLL(str(so))
+            lib.opencv_tpu_torch_error_string.argtypes = [ctypes.c_int]
+            lib.opencv_tpu_torch_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class Kernel:
+    """One C entry point of the library, with its launch count.
+
+    ``launches`` goes up by one for every successful launch, and nowhere
+    else, so a run can show that its main path went through the kernel.
+    """
+
+    def __init__(self, symbol: str, argtypes: list):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, device: torch.device, *args) -> None:
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            err = self._fn(*args)
+        if err != 0:
+            msg = library().opencv_tpu_torch_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
+        self.launches += 1

@@ -1,0 +1,95 @@
+"""Fused BGR→GRAY + GaussianBlur(5×5) + 2×2 AREA downsample on u8: the
+CUDA kernel ``csrc/fused_preproc.cu`` and its plain PyTorch version.
+
+Twin of ``opencv_tpu/kernels/fused_preproc.py``: ``gauss5_down2_u8`` and
+``gauss5_down2_u8_db`` (gray input) and ``fused_gray_gauss5_down2`` (BGR
+input, the public ``fusedPreprocessGrayBlurDown2``) are one kernel here,
+with the gray conversion folded in when the input is BGR.
+
+Bit-exact with the composed ops: Q15 gray, separable Q8·Q8 MAC with one
+round ``(v + 2^15) >> 16`` and saturate, then ``(a+b+c+d+2) >> 2``.
+A CPU tensor takes the plain version, a CUDA tensor the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import constants as K
+from ..core.arrays import as_tensor
+from ..core.fixedpoint import descale
+from ..ops.color import BY15, GRAY_SHIFT, GY15, RY15
+from ..ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
+from ._build import Kernel, stream_of
+from .sepfilter import sep_filter_int_plain
+
+__all__ = ["GAUSS5_DOWN2", "gauss5_down2_u8", "fused_gray_gauss5_down2",
+           "gauss5_down2_u8_plain", "fused_gray_gauss5_down2_plain"]
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+GAUSS5_DOWN2 = Kernel("opencv_gauss5_down2",
+                      [_vp, _vp, _i, _i, _i, _i, ctypes.POINTER(ctypes.c_int), _vp])
+
+
+def _taps(sigma: float) -> list:
+    return [int(v) for v in gaussian_kernel_fixedpoint_ed(gaussian_kernel_bitexact(5, sigma), 8)]
+
+
+def _check(x, ndim: int, what: str):
+    if x.dtype != torch.uint8 or x.ndim != ndim or (ndim == 4 and x.shape[3] != 3):
+        raise ValueError(f"{what}: expected {'(N,H,W,3)' if ndim == 4 else '(N,H,W)'} "
+                         f"uint8, got {tuple(x.shape)} {x.dtype}")
+    H, W = x.shape[1], x.shape[2]
+    if H % 2 or W % 2:
+        raise ValueError(f"{what}: H and W must be even, got {H}x{W}")
+
+
+def gauss5_down2_u8_plain(gray, sigma: float = 0.0):
+    """gray (N,H,W) u8 → (N,H/2,W/2) u8 on any device: GaussianBlur 5×5
+    REFLECT_101, then the 2×2 AREA mean."""
+    kq = _taps(sigma)
+    b = sep_filter_int_plain(gray[..., None], kq, kq, shift=16,
+                             border=K.BORDER_REFLECT_101)[..., 0].to(torch.int32)
+    s = b[:, 0::2, 0::2] + b[:, 0::2, 1::2] + b[:, 1::2, 0::2] + b[:, 1::2, 1::2]
+    return ((s + 2) >> 2).to(torch.uint8)
+
+
+def fused_gray_gauss5_down2_plain(imgs, sigma: float = 0.0):
+    """(N,H,W,3) BGR u8 → (N,H/2,W/2) u8 on any device."""
+    xi = imgs.to(torch.int32)
+    gray = descale(xi[..., 2] * RY15 + xi[..., 1] * GY15 + xi[..., 0] * BY15, GRAY_SHIFT)
+    return gauss5_down2_u8_plain(gray.to(torch.uint8), sigma)
+
+
+def _launch(x, sigma: float, has_bgr: bool):
+    if x.device.type != "cuda":
+        raise RuntimeError(f"gauss5_down2: no kernel for device {x.device}")
+    N, H, W = x.shape[:3]
+    x = x.contiguous()
+    out = torch.empty((N, H // 2, W // 2), dtype=torch.uint8, device=x.device)
+    GAUSS5_DOWN2(x.device, x.data_ptr(), out.data_ptr(), N, H, W, int(has_bgr),
+                 (ctypes.c_int * 5)(*_taps(sigma)), stream_of(x))
+    return out
+
+
+def gauss5_down2_u8(gray, sigma: float = 0.0):
+    """gray: (N, H, W) u8 with H, W even. Returns (N, H//2, W//2) u8 ==
+    resize(GaussianBlur(gray, (5,5), sigma), (W//2, H//2), INTER_AREA)."""
+    gray = as_tensor(gray)
+    _check(gray, 3, "gauss5_down2_u8")
+    if gray.device.type == "cpu":
+        return gauss5_down2_u8_plain(gray, sigma)
+    return _launch(gray, sigma, has_bgr=False)
+
+
+def fused_gray_gauss5_down2(imgs, sigma: float = 0.0):
+    """(N, H, W, 3) BGR u8 → (N, H//2, W//2) u8: cvtColor(BGR2GRAY) +
+    GaussianBlur(5×5) + 2× AREA downsample, bit-exact with the composed
+    ops, in one kernel on the card."""
+    imgs = as_tensor(imgs)
+    _check(imgs, 4, "fused_gray_gauss5_down2")
+    if imgs.device.type == "cpu":
+        return fused_gray_gauss5_down2_plain(imgs, sigma)
+    return _launch(imgs, sigma, has_bgr=True)

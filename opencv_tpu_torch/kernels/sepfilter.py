@@ -1,0 +1,156 @@
+"""Separable integer stencil: the CUDA kernel ``csrc/sepfilter.cu`` and its
+plain PyTorch version.
+
+Twin of ``opencv_tpu/kernels/sepfilter.py::sep_filter_int`` /
+``sep_filter_u8`` (the Pallas kernel behind GaussianBlur u8).  Both dispatch
+registrations (``sep_filter_u8`` and ``sep_filter_int``) launch the same
+kernel, under the JAX package's predicates.
+
+:func:`sep_filter_int` takes the plain version for a CPU tensor and launches
+the kernel for a CUDA tensor; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import constants as K
+from ..core.borders import constant_vector, pad_nhwc
+from ..core.dispatch import register
+from ..core.fixedpoint import saturate_cast
+from ._build import Kernel, stream_of
+
+__all__ = ["SEP_FILTER", "sep_filter_int", "sep_filter_int_plain", "sep_filter_u8"]
+
+_vp, _i, _ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+SEP_FILTER = Kernel("opencv_sep_filter",
+                    [_vp, _vp, _i, _i, _i, _i, _ip, _i, _ip, _i, _i, _i, _i,
+                     ctypes.c_float, _i, _ip, _i, _vp])
+
+_OUT_DTYPES = {"uint8": torch.uint8, "int16": torch.int16}
+
+
+def _out_dtype(out_dtype) -> torch.dtype:
+    return _OUT_DTYPES.get(out_dtype, out_dtype) if isinstance(out_dtype, str) else out_dtype
+
+
+def _correlate_int(x, kx, ky, border, border_value=0):
+    """Bit-exact separable correlate in int32, no intermediate rounding —
+    ``opencv_tpu/ops/filter.py::_sep_correlate_int``.  Returns the int32
+    (N,H,W,C) accumulator."""
+    kw, kh = len(kx), len(ky)
+    ax, ay = kw // 2, kh // 2
+    xi = pad_nhwc(x, ay, kh - 1 - ay, ax, kw - 1 - ax, border, border_value).to(torch.int32)
+    N, H, W, C = x.shape
+    h = None
+    for i, c in enumerate(kx):
+        term = xi[:, :, i:i + W, :] * int(c)
+        h = term if h is None else h + term
+    v = None
+    for j, c in enumerate(ky):
+        term = h[:, j:j + H, :, :] * int(c)
+        v = term if v is None else v + term
+    return v
+
+
+def sep_filter_int_plain(x, kx, ky, shift: int = 0, delta: int = 0, scale=None,
+                         out_dtype=torch.uint8, border: int = K.BORDER_DEFAULT,
+                         border_value=0):
+    """Plain PyTorch version of the kernel, on any device: the int32
+    correlation, then ``(acc + 2^(shift-1)) >> shift``, ``+ delta``,
+    ``rint(f32(acc) * f32(scale))`` and the saturate."""
+    v = _correlate_int(x, kx, ky, border, border_value)
+    if shift > 0:
+        v = (v + (1 << (shift - 1))) >> shift
+    if delta:
+        v = v + int(delta)
+    if scale is not None:
+        v = torch.round(v.to(torch.float32) * torch.tensor(scale, dtype=torch.float32))
+    return saturate_cast(v, _out_dtype(out_dtype))
+
+
+def _check(x):
+    if x.dtype != torch.uint8 or x.ndim != 4:
+        raise ValueError(f"sep_filter: expected (N,H,W,C) uint8, got {tuple(x.shape)} {x.dtype}")
+
+
+def sep_filter_int(x, kx, ky, shift: int = 0, delta: int = 0, scale=None,
+                   out_dtype=torch.uint8, border: int = K.BORDER_DEFAULT,
+                   border_value=0):
+    """x: (N,H,W,C) u8.  Separable integer correlation with the full
+    finishing chain:  acc = Σ ky ⊗ kx · x  (int32);
+    shift>0 → (acc + 2^(shift-1)) >> shift;  +delta;
+    scale → rint(acc·scale);  saturate to out_dtype (u8 or i16).
+
+    kx/ky: sequences of ints (anchor = center), each at most 31 long."""
+    _check(x)
+    out_dtype = _out_dtype(out_dtype)
+    if x.device.type == "cpu":
+        return sep_filter_int_plain(x, kx, ky, shift, delta, scale, out_dtype, border,
+                                    border_value)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"sep_filter: no kernel for device {x.device}")
+    if out_dtype not in (torch.uint8, torch.int16):
+        raise ValueError(f"sep_filter: out_dtype {out_dtype} is not uint8 or int16")
+    kx = [int(v) for v in kx]
+    ky = [int(v) for v in ky]
+    N, H, W, C = x.shape
+    x = x.contiguous()
+    out = torch.empty((N, H, W, C), dtype=out_dtype, device=x.device)
+    bval = [int(v) for v in constant_vector(border_value, C)] + [0] * (4 - C)
+    SEP_FILTER(
+        x.device, x.data_ptr(), out.data_ptr(), N, H, W, C,
+        (ctypes.c_int * len(kx))(*kx), len(kx), (ctypes.c_int * len(ky))(*ky), len(ky),
+        int(shift), int(delta), int(scale is not None),
+        float(scale) if scale is not None else 0.0,
+        border & ~K.BORDER_ISOLATED, (ctypes.c_int * 4)(*bval),
+        int(out_dtype == torch.int16), stream_of(x))
+    return out
+
+
+def sep_filter_u8(x, kx, ky, shift: int, border: int = K.BORDER_DEFAULT, border_value=0):
+    """u8 → u8 separable Q·Q correlation
+    `clip((Σ ky⊗kx · x + 2^(shift-1)) >> shift, 0, 255)`."""
+    return sep_filter_int(x, kx, ky, shift=shift, out_dtype=torch.uint8, border=border,
+                          border_value=border_value)
+
+
+# ---------------------------------------------------------------------------
+# dispatch registrations (predicates of opencv_tpu/kernels/sepfilter.py)
+# ---------------------------------------------------------------------------
+
+def _tile_ok(ctx):
+    return (ctx.get("dtype") == "uint8" and ctx.get("kw", 99) <= 31
+            and ctx.get("kh", 99) <= 31
+            and 1 <= ctx.get("channels", 1) <= 4)
+
+
+def _sep_pred(ctx):
+    return _tile_ok(ctx) and ctx.get("shift", 0) >= 1
+
+
+@register("sep_filter_u8", _sep_pred)
+def _sep_filter_u8_kernel(ctx, x, kx, ky):
+    return sep_filter_u8(x, kx, ky, ctx["shift"],
+                         border=ctx.get("border", K.BORDER_DEFAULT),
+                         border_value=ctx.get("border_value", 0))
+
+
+def _sep_int_pred(ctx):
+    if not _tile_ok(ctx):
+        return False
+    # int32 accumulator headroom
+    if ctx.get("max_abs_acc", 1 << 31) >= (1 << 31):
+        return False
+    return ctx.get("out") in ("uint8", "int16")
+
+
+@register("sep_filter_int", _sep_int_pred)
+def _sep_filter_int_kernel(ctx, x, kx, ky):
+    return sep_filter_int(
+        x, kx, ky, shift=ctx.get("shift", 0), delta=ctx.get("delta", 0),
+        scale=ctx.get("scale"), out_dtype=ctx["out"],
+        border=ctx.get("border", K.BORDER_DEFAULT),
+        border_value=ctx.get("border_value", 0))

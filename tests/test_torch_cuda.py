@@ -1,0 +1,94 @@
+"""The port's CUDA kernels on the card, each against its plain version.
+
+Needs a CUDA device and nvcc; skips otherwise.  Imports no JAX, so it runs
+on a GPU machine without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import opencv_tpu_torch as tcv
+from opencv_tpu_torch import entry as E
+from opencv_tpu_torch.core.dispatch import reset_tier_stats, tier_stats
+from opencv_tpu_torch.kernels import GAUSS5_DOWN2, SEP_FILTER
+from opencv_tpu_torch.kernels.fused_preproc import (
+    fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
+    gauss5_down2_u8_plain)
+from opencv_tpu_torch.kernels.sepfilter import sep_filter_int, sep_filter_int_plain
+from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
+
+pytestmark = pytest.mark.gpu
+
+BORDERS = [tcv.BORDER_CONSTANT, tcv.BORDER_REPLICATE, tcv.BORDER_REFLECT,
+           tcv.BORDER_WRAP, tcv.BORDER_REFLECT_101]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _q8(k, sigma):
+    return tuple(int(v) for v in gaussian_kernel_fixedpoint_ed(gaussian_kernel_bitexact(k, sigma), 8))
+
+
+def _rand(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, shape, np.uint8))
+
+
+@pytest.mark.parametrize("border", BORDERS)
+@pytest.mark.parametrize("cn", [1, 3, 4])
+def test_sep_filter_kernel_equals_plain(cuda, border, cn):
+    x = _rand((2, 45, 141, cn), border * 10 + cn).to(cuda)
+    for k, sigma in ((3, 0.8), (9, 2.0), (31, 5.0)):
+        kw = dict(kx=_q8(k, sigma), ky=_q8(k, sigma), shift=16, border=border,
+                  border_value=(3, 200, 17, 90)[:cn])
+        before = SEP_FILTER.launches
+        got = sep_filter_int(x, **kw)
+        torch.cuda.synchronize()
+        assert SEP_FILTER.launches == before + 1
+        assert torch.equal(got, sep_filter_int_plain(x, **kw)), (k, sigma)
+
+
+def test_sep_filter_kernel_sobel_and_box(cuda):
+    x = _rand((2, 70, 90, 1), 4).to(cuda)
+    for kw in (dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype=torch.int16),
+               dict(kx=(1,) * 9, ky=(1,) * 9, scale=1.0 / 81, border=tcv.BORDER_REPLICATE)):
+        got = sep_filter_int(x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sep_filter_int_plain(x, **kw))
+
+
+@pytest.mark.parametrize("shape", [(2, 98, 262, 3), (1, 4, 6, 3), (2, 192, 256, 3)])
+def test_gauss5_down2_kernel_equals_plain(cuda, shape):
+    x = _rand(shape, shape[1]).to(cuda)
+    for sigma in (0.0, 1.5):
+        before = GAUSS5_DOWN2.launches
+        got = fused_gray_gauss5_down2(x, sigma)
+        torch.cuda.synchronize()
+        assert GAUSS5_DOWN2.launches == before + 1
+        assert torch.equal(got, fused_gray_gauss5_down2_plain(x, sigma))
+        g = x[..., 0].contiguous()
+        assert torch.equal(gauss5_down2_u8(g, sigma), gauss5_down2_u8_plain(g, sigma))
+
+
+def test_gaussian_blur_dispatches_to_the_kernel(cuda):
+    x = _rand((1, 40, 60, 3), 7)
+    reset_tier_stats()
+    got = tcv.GaussianBlur(x.to(cuda), (5, 5), 1.1)
+    assert tier_stats() == {"tier.sep_filter_u8.cuda": 1}
+    assert torch.equal(got.cpu(), tcv.GaussianBlur(x, (5, 5), 1.1))
+
+
+def test_slice_on_the_card_equals_cpu(cuda):
+    imgs = torch.from_numpy(E.make_batch((2, 96, 128, 3)))
+    pre = E.preprocess(imgs.to(cuda))
+    assert torch.equal(pre.cpu(), E.preprocess(imgs))
+    assert torch.equal(E.preprocess_fused(imgs.to(cuda)).cpu(), E.preprocess(imgs))
+    d = (E.forward(imgs.to(cuda)).cpu().int() - E.forward(imgs).int()).abs()
+    assert int(d.max()) <= 1 and int(d.count_nonzero()) <= d.numel() // 1000

@@ -1,0 +1,118 @@
+"""The port's kernel modules on the CPU: each plain version against the JAX
+package's Pallas kernel in interpret mode (as tests/test_kernels.py runs
+it), and the wrappers' CPU routing.  The CUDA kernels themselves are held
+against these plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import opencv_tpu.constants as JK
+from opencv_tpu.kernels.fused_preproc import fused_gray_gauss5_down2 as j_fused
+from opencv_tpu.kernels.fused_preproc import gauss5_down2_u8 as j_gauss5_down2
+from opencv_tpu.kernels.sepfilter import sep_filter_int as j_sep_filter_int
+from opencv_tpu.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
+
+import opencv_tpu_torch as tcv
+from opencv_tpu_torch.kernels import KERNELS
+from opencv_tpu_torch.kernels.fused_preproc import (
+    fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
+    gauss5_down2_u8_plain)
+from opencv_tpu_torch.kernels.sepfilter import sep_filter_int, sep_filter_int_plain
+
+# test_kernels.py's Gaussian cases: (H, W, C, ksize, sigma, border)
+GAUSS_CASES = [
+    (100, 150, 1, 5, 0.0, JK.BORDER_REFLECT_101),
+    (64, 200, 3, 5, 1.5, JK.BORDER_REPLICATE),
+    (130, 257, 1, 9, 2.0, JK.BORDER_CONSTANT),
+    (33, 65, 3, 3, 0.8, JK.BORDER_WRAP),
+    (128, 130, 1, 31, 5.0, JK.BORDER_REFLECT),
+]
+
+
+def _q8(k, sigma):
+    return tuple(int(v) for v in gaussian_kernel_fixedpoint_ed(gaussian_kernel_bitexact(k, sigma), 8))
+
+
+@pytest.mark.parametrize("case", GAUSS_CASES, ids=[str(c) for c in GAUSS_CASES])
+def test_sep_filter_gaussian_vs_pallas(case):
+    H, W, C, k, sigma, border = case
+    x = np.random.default_rng(H + W).integers(0, 256, (2, H, W, C), np.uint8)
+    kq = _q8(k, sigma)
+    want = np.asarray(j_sep_filter_int(x, kq, kq, shift=16, border=border, interpret=True))
+    got = sep_filter_int_plain(torch.from_numpy(x), kq, kq, shift=16, border=border)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sep_filter_sobel_i16_vs_pallas():
+    x = np.random.default_rng(4).integers(0, 256, (2, 70, 90, 1), np.uint8)
+    want = np.asarray(j_sep_filter_int(x, (-1, 0, 1), (1, 2, 1), shift=0,
+                                       out_dtype=jnp.int16, interpret=True))
+    got = sep_filter_int_plain(torch.from_numpy(x), (-1, 0, 1), (1, 2, 1), shift=0,
+                               out_dtype=torch.int16)
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,border", [(3, JK.BORDER_REFLECT_101), (9, JK.BORDER_REPLICATE)])
+def test_sep_filter_box_scale_vs_pallas(k, border):
+    x = np.random.default_rng(4).integers(0, 256, (2, 70, 90, 1), np.uint8)
+    ones = (1,) * k
+    want = np.asarray(j_sep_filter_int(x, ones, ones, shift=0, scale=1.0 / (k * k),
+                                       out_dtype=jnp.uint8, border=border, interpret=True))
+    got = sep_filter_int_plain(torch.from_numpy(x), ones, ones, scale=1.0 / (k * k),
+                               border=border)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sep_filter_constant_per_channel_and_delta_vs_pallas():
+    x = np.random.default_rng(6).integers(0, 256, (1, 21, 34, 3), np.uint8)
+    kq = _q8(7, 1.2)
+    want = np.asarray(j_sep_filter_int(x, kq, _q8(3, 0.0), shift=16, delta=3,
+                                       border=JK.BORDER_CONSTANT, border_value=(5, 99, 250),
+                                       interpret=True))
+    got = sep_filter_int_plain(torch.from_numpy(x), kq, _q8(3, 0.0), shift=16, delta=3,
+                               border=JK.BORDER_CONSTANT, border_value=(5, 99, 250))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("sigma", [0.0, 1.5])
+def test_fused_gray_gauss5_down2_vs_pallas(sigma):
+    imgs = np.random.default_rng(0).integers(0, 256, (2, 192, 256, 3), np.uint8)
+    want = np.asarray(j_fused(imgs, sigma, interpret=True))
+    got = fused_gray_gauss5_down2_plain(torch.from_numpy(imgs), sigma)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the public entry on a CPU tensor is the plain version
+    np.testing.assert_array_equal(tcv.fusedPreprocessGrayBlurDown2(imgs, sigma).numpy(), want)
+
+
+def test_gauss5_down2_gray_vs_pallas():
+    gray = np.random.default_rng(1).integers(0, 256, (2, 66, 130), np.uint8)
+    want = np.asarray(j_gauss5_down2(gray, 1.1, interpret=True))
+    got = gauss5_down2_u8_plain(torch.from_numpy(gray), 1.1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(gauss5_down2_u8(gray, 1.1).numpy(), want)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    before = [k.launches for k in KERNELS]
+    x = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (1, 8, 10, 3), np.uint8))
+    kq = _q8(5, 0.0)
+    assert torch.equal(sep_filter_int(x, kq, kq, shift=16),
+                       sep_filter_int_plain(x, kq, kq, shift=16))
+    assert torch.equal(fused_gray_gauss5_down2(x), fused_gray_gauss5_down2_plain(x))
+    assert [k.launches for k in KERNELS] == before
+
+
+def test_fused_rejects_odd_sizes_and_wrong_inputs():
+    with pytest.raises(ValueError, match="even"):
+        fused_gray_gauss5_down2(torch.zeros((1, 5, 8, 3), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="even"):
+        gauss5_down2_u8(torch.zeros((1, 6, 7), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        fused_gray_gauss5_down2(torch.zeros((1, 6, 8, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        sep_filter_int(torch.zeros((1, 6, 8, 1), dtype=torch.int16), (1,), (1,))

@@ -1,0 +1,167 @@
+"""opencv_tpu_torch ops vs opencv_tpu (and the cv2 oracle): cvtColor gray
+family, GaussianBlur, resize, warpAffine, on the CPU (plain tier)."""
+
+import numpy as np
+import pytest
+import torch
+
+from common import cv2
+
+import opencv_tpu as jcv
+import opencv_tpu_torch as tcv
+
+BORDERS = [tcv.BORDER_CONSTANT, tcv.BORDER_REPLICATE, tcv.BORDER_REFLECT,
+           tcv.BORDER_WRAP, tcv.BORDER_REFLECT_101]
+GRAY_CODES = [tcv.COLOR_BGR2GRAY, tcv.COLOR_RGB2GRAY, tcv.COLOR_BGRA2GRAY, tcv.COLOR_RGBA2GRAY]
+
+
+def _port(fn, x, *args, **kwargs):
+    return np.asarray(fn(torch.from_numpy(x), *args, **kwargs))
+
+
+def _assert_warp_close(ours, ref, msg=""):
+    """The warp bound of tests/test_warp.py: max |d| <= 1 on at most 0.1% of
+    pixels (f64 vs double-float coordinates, FMA contraction, rint ties)."""
+    assert ours.shape == ref.shape, msg
+    d = np.abs(ours.astype(int) - ref.astype(int))
+    assert d.max() <= 1, f"{msg} max |d| = {d.max()}"
+    assert np.count_nonzero(d) <= d.size // 1000, f"{msg} {np.count_nonzero(d)} differ"
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("code", GRAY_CODES)
+def test_cvtcolor_gray(code, dtype):
+    rng = np.random.default_rng(code)
+    cn = 4 if code in (tcv.COLOR_BGRA2GRAY, tcv.COLOR_RGBA2GRAY) else 3
+    if dtype == np.uint8:
+        x = rng.integers(0, 256, (2, 9, 13, cn), np.uint8)
+    else:
+        x = rng.random((2, 9, 13, cn), dtype=np.float32)
+    want = np.asarray(jcv.cvtColor(x, code))
+    got = _port(tcv.cvtColor, x, code)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if dtype == np.uint8:
+        np.testing.assert_array_equal(got[1, ..., 0], cv2.cvtColor(x[1], code))
+
+
+def test_cvtcolor_unported_code_raises():
+    x = torch.zeros((4, 4, 3), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcv.cvtColor(x, tcv.COLOR_BGR2HSV)
+
+
+@pytest.mark.parametrize("border", BORDERS)
+@pytest.mark.parametrize("sigma", [0.0, 1.5])
+@pytest.mark.parametrize("k", [3, 5, 9, 31])
+def test_gaussian_blur_u8(k, sigma, border):
+    rng = np.random.default_rng(k * 10 + border)
+    for cn in (1, 3):
+        x = rng.integers(0, 256, (2, 23, 37, cn), np.uint8)
+        want = np.asarray(jcv.GaussianBlur(x, (k, k), sigma, borderType=border))
+        got = _port(tcv.GaussianBlur, x, (k, k), sigma, borderType=border)
+        np.testing.assert_array_equal(got, want, err_msg=f"C={cn}")
+        ref = cv2.GaussianBlur(x[0] if cn > 1 else x[0, ..., 0], (k, k), sigma,
+                               borderType=border)
+        np.testing.assert_array_equal(got[0] if cn > 1 else got[0, ..., 0], ref)
+
+
+def test_gaussian_blur_per_image_auto_ksize_and_float():
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (31, 40), np.uint8)
+    for ks, sx, sy in (((0, 0), 1.2, 0.0), ((7, 3), 2.0, 0.7), ((0, 5), 1.1, 0.0)):
+        want = np.asarray(jcv.GaussianBlur(img, ks, sx, sy))
+        got = _port(tcv.GaussianBlur, img, ks, sx, sy)
+        assert got.shape == img.shape
+        np.testing.assert_array_equal(got, want)
+    xf = rng.random((2, 17, 19, 3), dtype=np.float32)
+    want = np.asarray(jcv.GaussianBlur(xf, (5, 5), 1.5))
+    got = _port(tcv.GaussianBlur, xf, (5, 5), 1.5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_get_gaussian_kernel():
+    for n, s in ((3, 0), (5, 1.1), (9, 0), (31, 4.0), (11, 0)):
+        np.testing.assert_array_equal(tcv.getGaussianKernel(n, s), jcv.getGaussianKernel(n, s))
+        # cv2's double path rounds the last bit differently for sigma > 0
+        np.testing.assert_allclose(tcv.getGaussianKernel(n, s), cv2.getGaussianKernel(n, s),
+                                   rtol=0, atol=1e-15)
+
+
+RESIZE_CASES = [
+    # (H, W, C, dsize, interpolation)
+    (48, 64, 1, (32, 24), tcv.INTER_LINEAR),       # the 2x reroute to fast AREA
+    (48, 64, 3, (32, 24), tcv.INTER_LINEAR),
+    (48, 66, 3, (33, 24), tcv.INTER_AREA),         # AREA x2
+    (45, 63, 1, (21, 15), tcv.INTER_AREA),         # AREA x3
+    (48, 64, 3, (16, 12), tcv.INTER_AREA),         # AREA x4
+    (37, 53, 3, (20, 31), tcv.INTER_LINEAR),       # non-integer ratios
+    (37, 53, 1, (71, 90), tcv.INTER_LINEAR),       # upscale
+    (30, 40, 3, (47, 55), tcv.INTER_AREA),         # AREA upscale = linear on area coords
+]
+
+
+@pytest.mark.parametrize("case", RESIZE_CASES, ids=[str(c) for c in RESIZE_CASES])
+def test_resize_u8(case):
+    H, W, C, dsize, interp = case
+    x = np.random.default_rng(H * W).integers(0, 256, (2, H, W, C), np.uint8)
+    want = np.asarray(jcv.resize(x, dsize, interpolation=interp))
+    got = _port(tcv.resize, x, dsize, interpolation=interp)
+    np.testing.assert_array_equal(got, want)
+    ref = cv2.resize(x[1] if C > 1 else x[1, ..., 0], dsize, interpolation=interp)
+    np.testing.assert_array_equal(got[1] if C > 1 else got[1, ..., 0], ref)
+
+
+def test_resize_area_float_and_fx():
+    xf = np.random.default_rng(8).random((1, 24, 36, 3), dtype=np.float32)
+    want = np.asarray(jcv.resize(xf, (12, 8), interpolation=jcv.INTER_AREA))
+    np.testing.assert_array_equal(_port(tcv.resize, xf, (12, 8), interpolation=tcv.INTER_AREA),
+                                  want)
+    x = np.random.default_rng(9).integers(0, 256, (24, 36), np.uint8)
+    got = _port(tcv.resize, x, None, fx=0.5, fy=0.5)
+    np.testing.assert_array_equal(got, np.asarray(jcv.resize(x, None, fx=0.5, fy=0.5)))
+    assert _port(tcv.resize, x, (36, 24)).shape == (24, 36)
+
+
+@pytest.mark.parametrize("interp", [tcv.INTER_NEAREST, tcv.INTER_CUBIC, tcv.INTER_LANCZOS4])
+def test_resize_unported_mode_raises(interp):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcv.resize(torch.zeros((8, 8), dtype=torch.uint8), (5, 3), interpolation=interp)
+
+
+def test_rotation_and_inverse_matrix():
+    for center, angle, scale in (((480.0, 270.0), 15.0, 0.9), ((31.5, 23.4), -30.0, 1.3)):
+        M = tcv.getRotationMatrix2D(center, angle, scale)
+        np.testing.assert_array_equal(M, jcv.getRotationMatrix2D(center, angle, scale))
+        # cv2 takes the centre as a Point2f, hence the f32-sized tolerance
+        np.testing.assert_allclose(M, cv2.getRotationMatrix2D(center, angle, scale),
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(tcv.invertAffineTransform(M),
+                                      jcv.invertAffineTransform(M))
+
+
+@pytest.mark.parametrize("cn", [1, 3])
+@pytest.mark.parametrize("border", BORDERS)
+def test_warp_affine_linear(border, cn):
+    rng = np.random.default_rng(border)
+    x = rng.integers(0, 256, (2, 48, 64, cn), np.uint8)
+    M = cv2.getRotationMatrix2D((31.5, 23.4), 30.0, 0.8)
+    bval = (11, 22, 33, 44) if cn == 3 else 200
+    want = np.asarray(jcv.warpAffine(x, M, (70, 50), borderMode=border, borderValue=bval))
+    got = _port(tcv.warpAffine, x, M, (70, 50), borderMode=border, borderValue=bval)
+    _assert_warp_close(got, want, "vs opencv_tpu")
+    for i in range(2):
+        ref = cv2.warpAffine(x[i] if cn > 1 else x[i, ..., 0], M, (70, 50),
+                             borderMode=border, borderValue=bval)
+        _assert_warp_close(got[i] if cn > 1 else got[i, ..., 0], ref, f"vs cv2 img {i}")
+
+
+def test_warp_affine_inverse_map_and_unported():
+    x = np.random.default_rng(1).integers(0, 256, (40, 40), np.uint8)
+    M = cv2.getRotationMatrix2D((20.0, 20.0), 10.0, 1.1)
+    flags = tcv.INTER_LINEAR | tcv.WARP_INVERSE_MAP
+    got = _port(tcv.warpAffine, x, M, (40, 40), flags=flags)
+    _assert_warp_close(got, np.asarray(jcv.warpAffine(x, M, (40, 40), flags=flags)))
+    _assert_warp_close(got, cv2.warpAffine(x, M, (40, 40), flags=flags))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcv.warpAffine(torch.from_numpy(x), M, (40, 40), flags=tcv.INTER_NEAREST)
