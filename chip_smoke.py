@@ -7,15 +7,27 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
 
 1. device: a CUDA device is present; prints nvidia-smi's name and power limit;
 2. build: compiles the CUDA kernels from ``opencv_tpu_torch/csrc`` (nvcc);
-3. kernels: each kernel equals its plain PyTorch version bit for bit
-   (``torch.equal``) at the main path's shapes and on small edge cases;
-4. main path: ``entry("cuda")``'s forward and the fused forward on the
-   (8, 1080, 1920, 3) batch; every kernel must have launched in that run, the
-   fused path must equal the composed one, and images 0 and 1 must equal the
-   CPU plain forward (exact before the warp; after it max |d| <= 1 on at most
-   0.1% of pixels, the warp tolerance of the tests);
+3. kernels: each kernel (sep_filter, gauss5_down2, pyr_down) equals its
+   plain PyTorch version bit for bit (``torch.equal``) on the whole batch at
+   the main paths' shapes, with the taps and borders those paths give it,
+   and on edge cases (borders, channel counts, odd and tiny sizes);
+4. main paths, each read with the launch counts set to 0 just before it:
+   a. the flagship: ``entry("cuda")``'s forward and the fused forward on the
+      (8, 1080, 1920, 3) batch; sep_filter and gauss5_down2 must have
+      launched, the fused path must equal the composed one, and images 0 and
+      1 must equal the CPU plain forward (exact before the warp; after it
+      max |d| <= 1 on at most 0.1% of pixels, the warp tolerance of the
+      tests);
+   b. BASELINE config 3: ``entry_pyr_corner_edge("cuda")``'s forward
+      (pyrDown, cornerHarris, Sobel, Canny) on the (8, 1080, 1920, 1) batch;
+      pyr_down must have launched once and sep_filter at least 3 times, and
+      on images 0 and 1 pyrDown, Sobel and Canny must equal the CPU plain
+      forward exactly and cornerHarris be within HARRIS_RTOL/HARRIS_ATOL;
+      then Canny on the batch smoothed by GaussianBlur 7x7 sigma 2.5, exact
+      against the CPU, with its hysteresis iterations and host syncs;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
-   runs: each kernel beside its plain version, and the whole forwards.
+   runs: each kernel beside its plain version, each op of config 3, and the
+   whole forwards.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -37,6 +49,11 @@ import torch
 # pixels that may differ: the bound tests/test_warp.py uses against cv2
 WARP_ATOL = 1
 WARP_MAX_FRACTION = 1e-3
+# (cornerHarris) float32 on the card vs the CPU: |d| <= HARRIS_RTOL * |ref|
+# + HARRIS_ATOL * max |ref|, the bound tests/test_torch_analysis.py holds the
+# port to against opencv_tpu
+HARRIS_RTOL = 1e-5
+HARRIS_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -86,14 +103,55 @@ def check_equal(name, got, want) -> int:
     return int(d.max())
 
 
+def check_close(name, got, want, rtol, atol) -> float:
+    """Raise unless |got - want| <= rtol * |want| + atol * max |want|
+    elementwise; print and return max |got - want|."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    d = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    ref_max = float(want.abs().max())
+    bound = rtol * want.to(torch.float64).abs() + atol * ref_max
+    log(f"{name}: max |d| {float(d.max()):.6g}, max |ref| {ref_max:.6g} "
+        f"(rtol {rtol}, atol {atol} * max |ref|)")
+    if bool((d > bound).any()):
+        raise AssertionError(f"{name}: {int((d > bound).sum())} values out of tolerance")
+    return float(d.max())
+
+
+def pyr_cases(K):
+    """(name, shape, border) for phase 3's pyr_down cases."""
+    borders = {"REPLICATE": K.BORDER_REPLICATE, "REFLECT": K.BORDER_REFLECT,
+               "WRAP": K.BORDER_WRAP, "REFLECT_101": K.BORDER_REFLECT_101}
+    cases = [(f"main {b}", (8, 1080, 1920, 1), border) for b, border in borders.items()]
+    for bname, border in borders.items():
+        for C in (1, 3, 4):
+            for hw in ((40, 52), (41, 53), (40, 53), (16, 16), (17, 16), (67, 261),
+                       (1, 1), (2, 3), (5, 7), (9, 15)):
+                cases.append((f"{hw} C{C} {bname}", (2, *hw, C), border))
+    return cases
+
+
 def sep_cases(K, gauss_taps):
     """(name, shape, kwargs of sep_filter_int) for phase 3."""
     borders = {"CONSTANT": K.BORDER_CONSTANT, "REPLICATE": K.BORDER_REPLICATE,
                "REFLECT": K.BORDER_REFLECT, "WRAP": K.BORDER_WRAP,
                "REFLECT_101": K.BORDER_REFLECT_101}
-    cases = [("main gauss k5 s0 REFLECT_101", (8, 1080, 1920, 1),
+    main = (8, 1080, 1920, 1)
+    cases = [("main gauss k5 s0 REFLECT_101", main,
               dict(kx=gauss_taps(5, 0.0), ky=gauss_taps(5, 0.0), shift=16,
-                   border=K.BORDER_REFLECT_101))]
+                   border=K.BORDER_REFLECT_101)),
+             # config 3: Sobel(x, CV_16S, 1, 0), and Canny's dx and dy
+             ("main sobel dx i16 REFLECT_101", main,
+              dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16",
+                   border=K.BORDER_REFLECT_101)),
+             ("main canny dx i16 REPLICATE", main,
+              dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16", border=K.BORDER_REPLICATE)),
+             ("main canny dy i16 REPLICATE", main,
+              dict(kx=(1, 2, 1), ky=(-1, 0, 1), out_dtype="int16", border=K.BORDER_REPLICATE))]
     for bname, border in borders.items():
         for C in (1, 3, 4):
             for k, sigma in ((3, 0.8), (9, 2.0), (31, 5.0)):
@@ -146,7 +204,9 @@ def main() -> int:
     from opencv_tpu_torch.kernels.fused_preproc import (
         fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
         gauss5_down2_u8_plain)
-    from opencv_tpu_torch.kernels.sepfilter import sep_filter_int, sep_filter_int_plain
+    from opencv_tpu_torch.kernels.sepfilter import (
+        pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain)
+    from opencv_tpu_torch.ops.canny import HYST_CHECK_EVERY
     from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
 
     # -- 2. build
@@ -167,7 +227,7 @@ def main() -> int:
         err = check_equal(f"sep_filter {name}", sep_filter_int(x, **kw),
                           sep_filter_int_plain(x, **kw))
         if name.startswith("main"):
-            max_err["sep_filter"] = err
+            max_err["sep_filter"] = max(max_err.get("sep_filter", 0), err)
     log(f"sep_filter: {len(cases)} cases equal to the plain version")
 
     imgs = torch.from_numpy(E.make_batch()).to(dev)
@@ -191,19 +251,31 @@ def main() -> int:
         n += 2
     log(f"gauss5_down2: {n} cases equal to the plain version")
 
-    # -- 4. the main path
+    cases = pyr_cases(cv)
+    for name, shape, border in cases:
+        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        err = check_equal(f"pyr_down {name}", pyr_down_u8(x, border), pyr_down_u8_plain(x, border))
+        if name.startswith("main"):
+            max_err["pyr_down"] = max(max_err.get("pyr_down", 0), err)
+    log(f"pyr_down: {len(cases)} cases equal to the plain version")
+
+    # -- 4a. the flagship path
+    def run_counted(fn):
+        """Run fn with every launch count set to 0 first; return its result
+        and the counts it left."""
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {k.symbol: k.launches for k in KERNELS}
+
     forward, (imgs,) = E.entry("cuda")
-    torch.cuda.synchronize()
-    for k in KERNELS:
-        k.launches = 0
-    out = forward(imgs)
-    out_fused = E.forward_fused(imgs)
-    torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in KERNELS}
-    log(f"main path launches: {launches}")
-    missing = [s for s, c in launches.items() if c < 1]
+    (out, out_fused), flagship = run_counted(lambda: (forward(imgs), E.forward_fused(imgs)))
+    log(f"flagship path launches: {flagship}")
+    missing = [s for s in ("opencv_sep_filter", "opencv_gauss5_down2") if flagship[s] < 1]
     if missing:
-        raise AssertionError(f"kernels not launched by the main path: {missing}")
+        raise AssertionError(f"kernels not launched by the flagship path: {missing}")
 
     N, H, W, _ = E.SHAPE
     if out.shape != (N, H // 2, W // 2, 1) or out.dtype != torch.uint8:
@@ -220,8 +292,44 @@ def main() -> int:
     n_diff = int(d.count_nonzero())
     if int(d.max()) > WARP_ATOL or n_diff > WARP_MAX_FRACTION * d.numel():
         raise AssertionError(f"forward vs CPU plain: max |d| {int(d.max())}, {n_diff} differ")
-    log(f"main path: output {tuple(out.shape)} equals the CPU plain forward on images 0-1 "
+    log(f"flagship path: output {tuple(out.shape)} equals the CPU plain forward on images 0-1 "
         f"(preprocess exact; warp max |d| {int(d.max())}, {n_diff} of {d.numel()} differ)")
+
+    # -- 4b. BASELINE config 3
+    forward3, (x3,) = E.entry_pyr_corner_edge("cuda")
+    outs3, cfg3 = run_counted(lambda: forward3(x3))
+    log(f"config 3 path launches: {cfg3}")
+    if cfg3["opencv_pyr_down"] != 1 or cfg3["opencv_sep_filter"] < 3:
+        raise AssertionError(f"config 3 path: pyr_down must launch once and sep_filter at "
+                             f"least 3 times, got {cfg3}")
+    N3, H3, W3, _ = E.SHAPE_CFG3
+    shapes = [(N3, (H3 + 1) // 2, (W3 + 1) // 2, 1), (N3, H3, W3, 1), (N3, H3, W3, 1),
+              (N3, H3, W3, 1)]
+    want_cpu = forward3(x3[:2].cpu())
+    for name, got, shape, want in zip(("pyrDown", "cornerHarris", "Sobel", "Canny"),
+                                      outs3, shapes, want_cpu):
+        if tuple(got.shape) != shape:
+            raise AssertionError(f"config 3 {name}: shape {tuple(got.shape)} != {shape}")
+        if name == "cornerHarris":
+            check_close("config 3 cornerHarris vs CPU, images 0-1", got[:2].cpu(), want,
+                        HARRIS_RTOL, HARRIS_ATOL)
+        else:
+            check_equal(f"config 3 {name} vs CPU, images 0-1", got[:2].cpu(), want)
+    canny_edges = int((outs3[3] > 0).sum())
+    log(f"config 3: pyrDown, Sobel and Canny equal the CPU plain forward on images 0-1; "
+        f"{canny_edges} Canny edge pixels in the batch; total {int(outs3[4])}")
+
+    smooth = cv.GaussianBlur(x3, (7, 7), 2.5)
+    smooth_cpu = cv.GaussianBlur(x3[:2].cpu(), (7, 7), 2.5)
+    check_equal("GaussianBlur 7x7 s2.5 vs CPU, images 0-1", smooth[:2].cpu(), smooth_cpu)
+    st_gpu, st_cpu = {}, {}
+    edges_s = cv.Canny(smooth, 50, 150, stats=st_gpu)
+    check_equal("Canny on the smoothed batch vs CPU, images 0-1", edges_s[:2].cpu(),
+                cv.Canny(smooth_cpu, 50, 150, stats=st_cpu))
+    st_noise = {}
+    cv.Canny(x3, 50, 150, stats=st_noise)
+    log(f"Canny hysteresis (check every {HYST_CHECK_EVERY}): noise batch {st_noise}; "
+        f"smoothed batch {st_gpu} on the card, images 0-1 {st_cpu} on the CPU")
 
     # -- 5. timing
     timer = Timer(dev)
@@ -234,6 +342,11 @@ def main() -> int:
          lambda: fused_gray_gauss5_down2_plain(imgs, 0.0), "(8,1080,1920,3) bgr"),
         ("gauss5_down2 gray", lambda: gauss5_down2_u8(gray, 0.0),
          lambda: gauss5_down2_u8_plain(gray, 0.0), "(8,1080,1920) gray"),
+        ("pyr_down", lambda: pyr_down_u8(x3), lambda: pyr_down_u8_plain(x3),
+         "(8,1080,1920,1) REFLECT_101"),
+        ("sep_filter sobel", lambda: sep_filter_int(x3, (-1, 0, 1), (1, 2, 1), out_dtype="int16"),
+         lambda: sep_filter_int_plain(x3, (-1, 0, 1), (1, 2, 1), out_dtype="int16"),
+         "(8,1080,1920,1) Sobel dx u8->16S"),
     ]
     times = {}
     for name, kern, plain, what in rows:
@@ -245,15 +358,27 @@ def main() -> int:
     t_fused = timer(lambda: E.forward_fused(imgs))
     log(f"time forward (8,1080,1920,3): {t_fwd:.4f} ms  [{card}]")
     log(f"time forward_fused (8,1080,1920,3): {t_fused:.4f} ms  [{card}]")
+    x3f = x3.to(torch.float32) / 255.0
+    for name, fn in (("pyrDown", lambda: cv.pyrDown(x3)),
+                     ("cornerHarris(x/255, 2, 3, 0.04)", lambda: cv.cornerHarris(x3f, 2, 3, 0.04)),
+                     ("Sobel 16S dx", lambda: cv.Sobel(x3, cv.CV_16S, 1, 0)),
+                     ("Canny 50/150 noise", lambda: cv.Canny(x3, 50, 150)),
+                     ("Canny 50/150 smoothed", lambda: cv.Canny(smooth, 50, 150))):
+        log(f"time op {name} (8,1080,1920,1): {timer(fn):.4f} ms  [{card}]")
+    log(f"time forward_pyr_corner_edge (8,1080,1920,1): {timer(lambda: forward3(x3)):.4f} ms  "
+        f"[{card}]")
 
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:216", "opencv_sep_filter"),
         "gauss5_down2": ("opencv_tpu_torch/csrc/fused_preproc.cu",
                          "opencv_tpu/kernels/fused_preproc.py:209", "opencv_gauss5_down2"),
+        "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
+                     "opencv_tpu/kernels/sepfilter.py:295", "opencv_pyr_down"),
     }
+    # launches: the kernel's count over both main paths (4a and 4b)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[sym], "max_abs_err": max_err[name],
+                "launches": flagship[sym] + cfg3[sym], "max_abs_err": max_err[name],
                 "ms": times[name][0], "plain_ms": times[name][1]}
                for name, (src, rep, sym) in meta.items()]
     log(f"card: {card}")

@@ -8,12 +8,23 @@ plain PyTorch throughout.  This package imports neither jax nor
 ``opencv_tpu``.
 
 Ported so far: the flagship preprocess path (cvtColor gray family,
-GaussianBlur, resize, warpAffine) and the fused gray+blur+downsample entry.
+GaussianBlur, resize, warpAffine), the fused gray+blur+downsample entry, and
+the pyramid/corner/edge path of BASELINE config 3 (pyrDown, cornerHarris,
+Sobel, Canny) with the filter, derivative, pyramid and corner families
+around it.
 """
 
 from .constants import *  # noqa: F401,F403
 from .ops.color import cvtColor  # noqa: F401
-from .ops.filter import GaussianBlur, getGaussianKernel  # noqa: F401
+from .ops.filter import (  # noqa: F401
+    GaussianBlur, blur, boxFilter, filter2D, getGaussianKernel, sepFilter2D, sqrBoxFilter,
+)
+from .ops.deriv import Laplacian, Scharr, Sobel, getDerivKernels, spatialGradient  # noqa: F401
+from .ops.pyramids import buildPyramid, pyrDown, pyrUp  # noqa: F401
+from .ops.corners import (  # noqa: F401
+    cornerEigenValsAndVecs, cornerHarris, cornerMinEigenVal, preCornerDetect,
+)
+from .ops.canny import Canny  # noqa: F401
 from .ops.resize import resize  # noqa: F401
 from .ops.warp import getRotationMatrix2D, invertAffineTransform, warpAffine  # noqa: F401
 

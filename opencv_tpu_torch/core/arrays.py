@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "to_batched", "from_batched"]
+__all__ = ["as_tensor", "dtype_name", "to_batched", "from_batched"]
 
 
 def as_tensor(src) -> torch.Tensor:
@@ -22,6 +22,12 @@ def as_tensor(src) -> torch.Tensor:
     if isinstance(src, torch.Tensor):
         return src
     return torch.from_numpy(np.ascontiguousarray(src))
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype ("uint8", "int16", "float32", ...), as
+    the dispatch predicates take it."""
+    return str(dtype).removeprefix("torch.")
 
 
 def to_batched(src):

@@ -6,6 +6,11 @@ batched NHWC u8 tensor; at the (8, 1080, 1920, 3) batch that is exactly
 ``entry()``'s chain (resize to 960×540, centre (480, 270)).
 ``forward_fused`` gives the same output through
 ``fusedPreprocessGrayBlurDown2`` → ``warpAffine``.
+
+``forward_pyr_corner_edge`` is BASELINE config 3 (``bench.py``'s
+``3_pyr_corner_edge_1080p``): pyrDown, cornerHarris on x/255, Sobel u8→16S
+and Canny over an (N, 1080, 1920, 1) u8 batch; ``entry_pyr_corner_edge``
+gives it ``bench.py``'s batch at ``BATCH_1080`` = 8.
 """
 
 from __future__ import annotations
@@ -15,15 +20,20 @@ import torch
 
 from . import constants as K
 from .kernels import fused_gray_gauss5_down2
+from .ops.canny import Canny
 from .ops.color import cvtColor
+from .ops.corners import cornerHarris
+from .ops.deriv import Sobel
 from .ops.filter import GaussianBlur
+from .ops.pyramids import pyrDown
 from .ops.resize import resize
 from .ops.warp import getRotationMatrix2D, warpAffine
 
-__all__ = ["SHAPE", "entry", "make_batch", "preprocess", "preprocess_fused", "warp",
-           "forward", "forward_fused"]
+__all__ = ["SHAPE", "SHAPE_CFG3", "entry", "entry_pyr_corner_edge", "make_batch", "preprocess",
+           "preprocess_fused", "warp", "forward", "forward_fused", "forward_pyr_corner_edge"]
 
 SHAPE = (8, 1080, 1920, 3)
+SHAPE_CFG3 = (8, 1080, 1920, 1)
 
 
 def make_batch(shape=SHAPE, seed: int = 0) -> np.ndarray:
@@ -63,3 +73,28 @@ def forward_fused(imgs):
 def entry(device="cuda", shape=SHAPE):
     """``(forward, (imgs,))`` with the batch on `device`."""
     return forward, (torch.from_numpy(make_batch(shape)).to(device),)
+
+
+def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """An int64 sum as the int32 sum XLA computes: modulo 2^32, signed."""
+    return ((v + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def forward_pyr_corner_edge(x):
+    """BASELINE config 3 over an (N, H, W, 1) u8 batch (``bench.py:447-454``).
+
+    Returns ``(pyrDown, cornerHarris, Sobel, Canny, total)``: the four
+    outputs and the int32 reduction ``bench.py`` takes of them."""
+    p = pyrDown(x)
+    h = cornerHarris(x.to(torch.float32) / 255.0, 2, 3, 0.04)
+    sx = Sobel(x, K.CV_16S, 1, 0)
+    c = Canny(x, 50, 150)
+    total = _wrap_int32(p.sum(dtype=torch.int64) + h.sum().to(torch.int32).to(torch.int64)
+                        + sx.sum(dtype=torch.int64) + c.sum(dtype=torch.int64))
+    return p, h, sx, c, total
+
+
+def entry_pyr_corner_edge(device="cuda", shape=SHAPE_CFG3):
+    """``(forward_pyr_corner_edge, (x,))`` with ``bench.py``'s config-3 batch
+    (``default_rng(0)`` integers) on `device`."""
+    return forward_pyr_corner_edge, (torch.from_numpy(make_batch(shape)).to(device),)

@@ -5,7 +5,9 @@ are built by :mod:`._build` at the first launch."""
 from .fused_preproc import (  # noqa: F401
     GAUSS5_DOWN2, fused_gray_gauss5_down2, gauss5_down2_u8,
 )
-from .sepfilter import SEP_FILTER, sep_filter_int, sep_filter_u8  # noqa: F401
+from .sepfilter import (  # noqa: F401
+    PYR_DOWN, SEP_FILTER, pyr_down_u8, sep_filter_int, sep_filter_u8,
+)
 
 # every kernel of the package, for launch counts and builds
-KERNELS = (SEP_FILTER, GAUSS5_DOWN2)
+KERNELS = (SEP_FILTER, GAUSS5_DOWN2, PYR_DOWN)

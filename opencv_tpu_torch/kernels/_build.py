@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels (``opencv_tpu_torch/csrc``).
 
-At the first launch, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``.  The
-library lands in ``opencv_tpu_torch/_build/`` under a name that carries a
-hash of the sources and flags, so an edit rebuilds and an unchanged tree
-reuses the file.  It is written to a temporary name and moved into place
-with ``os.replace``, so concurrent processes never load a half-written file.
+At the first launch, one ``nvcc`` per ``csrc/*.cu`` compiles it to an object
+file, all of them started together, and a last ``nvcc -shared`` links the
+objects into one shared library with a plain C interface, which is loaded
+with ``ctypes``.  The library lands in ``opencv_tpu_torch/_build/`` under a
+name that carries a hash of the sources and flags, so an edit rebuilds and
+an unchanged tree reuses the file.  It is written to a temporary name and
+moved into place with ``os.replace``, so concurrent processes never load a
+half-written file.
 
 Nothing here runs for CPU tensors: importing the package needs no CUDA
 toolkit.  A missing ``nvcc``, a failed build or a launch that returns a CUDA
@@ -35,7 +37,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -63,17 +65,35 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libopencv_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands concurrently; raise with the output of every one
+    that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    errors = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def _build(so: Path) -> None:
     sources, _ = _sources()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    nvcc = _nvcc()
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:

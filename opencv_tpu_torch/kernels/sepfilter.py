@@ -1,13 +1,17 @@
-"""Separable integer stencil: the CUDA kernel ``csrc/sepfilter.cu`` and its
-plain PyTorch version.
+"""Separable stencils on u8: the CUDA kernels ``csrc/sepfilter.cu`` and
+``csrc/pyrdown.cu``, each with its plain PyTorch version.
 
-Twin of ``opencv_tpu/kernels/sepfilter.py::sep_filter_int`` /
-``sep_filter_u8`` (the Pallas kernel behind GaussianBlur u8).  Both dispatch
-registrations (``sep_filter_u8`` and ``sep_filter_int``) launch the same
-kernel, under the JAX package's predicates.
+Twin of ``opencv_tpu/kernels/sepfilter.py``:
 
-:func:`sep_filter_int` takes the plain version for a CPU tensor and launches
-the kernel for a CUDA tensor; it never falls back from one to the other.
+- ``sep_filter_int`` / ``sep_filter_u8``, the Pallas kernel behind
+  GaussianBlur, sepFilter2D, Sobel and boxFilter on u8.  Both dispatch
+  registrations (``sep_filter_u8`` and ``sep_filter_int``) launch the same
+  kernel, under the JAX package's predicates.
+- ``pyr_down_u8``, the Pallas kernel behind pyrDown on u8, registered as
+  ``pyr_down_u8``.
+
+Each wrapper takes the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ from ..core.dispatch import register
 from ..core.fixedpoint import saturate_cast
 from ._build import Kernel, stream_of
 
-__all__ = ["SEP_FILTER", "sep_filter_int", "sep_filter_int_plain", "sep_filter_u8"]
+__all__ = ["SEP_FILTER", "PYR_DOWN", "sep_correlate_int", "sep_filter_int",
+           "sep_filter_int_plain", "sep_filter_u8", "pyr_down_sum", "pyr_down_int_plain",
+           "pyr_down_u8", "pyr_down_u8_plain"]
 
 _vp, _i, _ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SEP_FILTER = Kernel("opencv_sep_filter",
                     [_vp, _vp, _i, _i, _i, _i, _ip, _i, _ip, _i, _i, _i, _i,
                      ctypes.c_float, _i, _ip, _i, _vp])
+PYR_DOWN = Kernel("opencv_pyr_down", [_vp, _vp, _i, _i, _i, _i, _i, _vp])
 
 _OUT_DTYPES = {"uint8": torch.uint8, "int16": torch.int16}
 
@@ -36,7 +43,7 @@ def _out_dtype(out_dtype) -> torch.dtype:
     return _OUT_DTYPES.get(out_dtype, out_dtype) if isinstance(out_dtype, str) else out_dtype
 
 
-def _correlate_int(x, kx, ky, border, border_value=0):
+def sep_correlate_int(x, kx, ky, border, border_value=0):
     """Bit-exact separable correlate in int32, no intermediate rounding —
     ``opencv_tpu/ops/filter.py::_sep_correlate_int``.  Returns the int32
     (N,H,W,C) accumulator."""
@@ -61,7 +68,7 @@ def sep_filter_int_plain(x, kx, ky, shift: int = 0, delta: int = 0, scale=None,
     """Plain PyTorch version of the kernel, on any device: the int32
     correlation, then ``(acc + 2^(shift-1)) >> shift``, ``+ delta``,
     ``rint(f32(acc) * f32(scale))`` and the saturate."""
-    v = _correlate_int(x, kx, ky, border, border_value)
+    v = sep_correlate_int(x, kx, ky, border, border_value)
     if shift > 0:
         v = (v + (1 << (shift - 1))) >> shift
     if delta:
@@ -118,6 +125,75 @@ def sep_filter_u8(x, kx, ky, shift: int, border: int = K.BORDER_DEFAULT, border_
 
 
 # ---------------------------------------------------------------------------
+# pyrDown: {1,4,6,4,1} x {1,4,6,4,1} with 2:1 decimation
+# ---------------------------------------------------------------------------
+
+_PD_K = (1, 4, 6, 4, 1)
+
+
+def pyr_down_sum(x, border: int, dtype: torch.dtype):
+    """Σ {1,4,6,4,1}⊗{1,4,6,4,1} · x at the even rows and columns, in
+    `dtype`, unrounded: the accumulator of ``cv::pyrDown``
+    (``opencv_tpu/ops/pyramids.py::_pyr_down_nhwc``).  (N,H,W,C) →
+    (N,(H+1)/2,(W+1)/2,C)."""
+    N, H, W, C = x.shape
+    dh, dw = (H + 1) // 2, (W + 1) // 2
+    # pad enough for window [2d-2, 2d+2] with d up to dh-1 (2d can be H for odd H)
+    pad_b = 2 * (dh - 1) + 2 - (H - 1)
+    pad_r = 2 * (dw - 1) + 2 - (W - 1)
+    xa = pad_nhwc(x, 2, pad_b, 2, pad_r, border).to(dtype)
+    h = None
+    for i, c in enumerate(_PD_K):
+        t = xa[:, :, i:i + 2 * (dw - 1) + 1:2, :] * c
+        h = t if h is None else h + t
+    v = None
+    for j, c in enumerate(_PD_K):
+        t = h[:, j:j + 2 * (dh - 1) + 1:2, :, :] * c
+        v = t if v is None else v + t
+    return v
+
+
+def _check_pyr(x, border: int) -> int:
+    if x.dtype != torch.uint8 or x.ndim != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"pyr_down: expected (N,H,W,C<=4) uint8, got {tuple(x.shape)} {x.dtype}")
+    bt = border & ~K.BORDER_ISOLATED
+    if bt not in (K.BORDER_REPLICATE, K.BORDER_REFLECT, K.BORDER_WRAP, K.BORDER_REFLECT_101):
+        raise ValueError(f"pyr_down: unsupported border {border} (cv::pyrDown refuses "
+                         "BORDER_CONSTANT)")
+    return bt
+
+
+def pyr_down_int_plain(x, border: int):
+    """The integer pyrDown of any integer dtype and channel count:
+    ``saturate((Σ + 128) >> 8)`` with the int32 sum of ``pyr_down_sum``."""
+    return saturate_cast((pyr_down_sum(x, border, torch.int32) + 128) >> 8, x.dtype)
+
+
+def pyr_down_u8_plain(x, border: int = K.BORDER_DEFAULT):
+    """Plain PyTorch version of the kernel, on any device.  It accumulates
+    in int32 where the JAX package uses uint16 (torch has almost no uint16
+    arithmetic); the maximum, 256·255 + 128, fits both, so the integers are
+    the same."""
+    return pyr_down_int_plain(x, _check_pyr(x, border))
+
+
+def pyr_down_u8(x, border: int = K.BORDER_DEFAULT):
+    """`cv::pyrDown` 8U: (N,H,W,C) u8 → (N,(H+1)/2,(W+1)/2,C) u8,
+    {1,4,6,4,1}⊗{1,4,6,4,1} with 2:1 decimation and ``(v + 128) >> 8``
+    (pyramids.cpp:488).  The border defaults to REFLECT_101."""
+    bt = _check_pyr(x, border)
+    if x.device.type == "cpu":
+        return pyr_down_u8_plain(x, bt)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"pyr_down: no kernel for device {x.device}")
+    N, H, W, C = x.shape
+    x = x.contiguous()
+    out = torch.empty((N, (H + 1) // 2, (W + 1) // 2, C), dtype=torch.uint8, device=x.device)
+    PYR_DOWN(x.device, x.data_ptr(), out.data_ptr(), N, H, W, C, bt, stream_of(x))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # dispatch registrations (predicates of opencv_tpu/kernels/sepfilter.py)
 # ---------------------------------------------------------------------------
 
@@ -154,3 +230,14 @@ def _sep_filter_int_kernel(ctx, x, kx, ky):
         scale=ctx.get("scale"), out_dtype=ctx["out"],
         border=ctx.get("border", K.BORDER_DEFAULT),
         border_value=ctx.get("border_value", 0))
+
+
+def _pyrdown_pred(ctx):
+    # The JAX predicate also asks for h, w >= 16 (its tiles' minimum); the
+    # CUDA kernel resolves the border per element and takes any size.
+    return ctx.get("dtype") == "uint8" and 1 <= ctx.get("channels", 1) <= 4
+
+
+@register("pyr_down_u8", _pyrdown_pred)
+def _pyr_down_u8_kernel(ctx, x):
+    return pyr_down_u8(x, border=ctx.get("border", K.BORDER_DEFAULT))

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the port's flagship forward spends its device time, on one GPU.
+"""Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path flagship|cfg3] [--iters 5] [--table PATH]
 
-Runs ``opencv_tpu_torch.entry``'s forward and fused forward on the
-(8, 1080, 1920, 3) batch under ``torch.profiler`` with one
+``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
+and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg3`` runs
+BASELINE config 3 (pyrDown, cornerHarris, Sobel, Canny) on the
+(8, 1080, 1920, 1) batch.  Each runs under ``torch.profiler`` with one
 ``record_function`` span per stage.  Prints, per stage, the time between
 CUDA events around it (median of 20, unprofiled) beside the device time of
 its torch-op kernels (profiled); the device busy share (all kernel time
@@ -29,21 +31,36 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import opencv_tpu_torch as cv  # noqa: E402
 from opencv_tpu_torch import entry as E  # noqa: E402
 
-STAGES = ("cvtColor", "GaussianBlur", "resize", "warpAffine", "fusedPreprocess", "warpFused")
-
-
-def staged(imgs, marks=None):
-    """Both forwards, stage by stage; `marks` collects a CUDA event after
-    each stage."""
+def flagship_stages():
+    """Both flagship forwards as (name, fn of the previous stage's output)."""
+    _, (imgs,) = E.entry("cuda")
     H, W = imgs.shape[1], imgs.shape[2]
-    fns = (lambda _: cv.cvtColor(imgs, cv.COLOR_BGR2GRAY),
-           lambda g: cv.GaussianBlur(g, (5, 5), 0),
-           lambda b: cv.resize(b, (W // 2, H // 2)),
-           E.warp,
-           lambda _: E.preprocess_fused(imgs),
-           E.warp)
+    return [("cvtColor", lambda _: cv.cvtColor(imgs, cv.COLOR_BGR2GRAY)),
+            ("GaussianBlur", lambda g: cv.GaussianBlur(g, (5, 5), 0)),
+            ("resize", lambda b: cv.resize(b, (W // 2, H // 2))),
+            ("warpAffine", E.warp),
+            ("fusedPreprocess", lambda _: E.preprocess_fused(imgs)),
+            ("warpFused", E.warp)]
+
+
+def cfg3_stages():
+    """BASELINE config 3's four ops (``entry.forward_pyr_corner_edge``
+    without its final reduction), each on the input batch."""
+    _, (x,) = E.entry_pyr_corner_edge("cuda")
+    return [("pyrDown", lambda _: cv.pyrDown(x)),
+            ("cornerHarris", lambda _: cv.cornerHarris(x.to(torch.float32) / 255.0, 2, 3, 0.04)),
+            ("Sobel", lambda _: cv.Sobel(x, cv.CV_16S, 1, 0)),
+            ("Canny", lambda _: cv.Canny(x, 50, 150))]
+
+
+PATHS = {"flagship": flagship_stages, "cfg3": cfg3_stages}
+
+
+def staged(stages, marks=None):
+    """Run the stages in order; `marks` collects a CUDA event after each
+    stage."""
     v = None
-    for name, fn in zip(STAGES, fns):
+    for name, fn in stages:
         with record_function(name):
             v = fn(v)
         if marks is not None:
@@ -53,30 +70,32 @@ def staged(imgs, marks=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=sorted(PATHS), default="flagship")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--table", help="write the profiler's key_averages table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_forward: no CUDA device", file=sys.stderr)
         return 1
-    _, (imgs,) = E.entry("cuda")
+    stages = PATHS[args.path]()
+    names = [name for name, _ in stages]
     for _ in range(2):
-        staged(imgs)
+        staged(stages)
     torch.cuda.synchronize()
-    per_stage = {s: [] for s in STAGES}
+    per_stage = {s: [] for s in names}
     for _ in range(20):
         start = torch.cuda.Event(enable_timing=True)
         start.record()
         marks = [start]
-        staged(imgs, marks)
+        staged(stages, marks)
         marks[-1].synchronize()
-        for s, a, b in zip(STAGES, marks, marks[1:]):
+        for s, a, b in zip(names, marks, marks[1:]):
             per_stage[s].append(a.elapsed_time(b))
     print(f"device: {torch.cuda.get_device_name(0)}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            staged(imgs)
+            staged(stages)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -95,12 +114,12 @@ def main() -> int:
     # it; kernels launched through ctypes (csrc/) are not attributed to it by
     # the profiler and show only in the kernel list
     cpu = torch.autograd.DeviceType.CPU
-    spans = {e.key: e for e in events if e.key in STAGES and e.device_type == cpu}
+    spans = {e.key: e for e in events if e.key in names and e.device_type == cpu}
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in STAGES]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in names]
     print(f"profiled: {args.iters} iterations, wall {wall_ms / args.iters:.4f} ms each")
     span_sum = 0.0
-    for s in STAGES:
+    for s in names:
         e_ms = statistics.median(per_stage[s])
         span_sum += e_ms
         print(f"stage {s}: {e_ms:.4f} ms between its events; torch-op kernels "

@@ -13,11 +13,12 @@ import torch
 import opencv_tpu_torch as tcv
 from opencv_tpu_torch import entry as E
 from opencv_tpu_torch.core.dispatch import reset_tier_stats, tier_stats
-from opencv_tpu_torch.kernels import GAUSS5_DOWN2, SEP_FILTER
+from opencv_tpu_torch.kernels import GAUSS5_DOWN2, PYR_DOWN, SEP_FILTER
 from opencv_tpu_torch.kernels.fused_preproc import (
     fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
     gauss5_down2_u8_plain)
-from opencv_tpu_torch.kernels.sepfilter import sep_filter_int, sep_filter_int_plain
+from opencv_tpu_torch.kernels.sepfilter import (
+    pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain)
 from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
 
 pytestmark = pytest.mark.gpu
@@ -92,3 +93,45 @@ def test_slice_on_the_card_equals_cpu(cuda):
     assert torch.equal(E.preprocess_fused(imgs.to(cuda)).cpu(), E.preprocess(imgs))
     d = (E.forward(imgs.to(cuda)).cpu().int() - E.forward(imgs).int()).abs()
     assert int(d.max()) <= 1 and int(d.count_nonzero()) <= d.numel() // 1000
+
+
+PYR_BORDERS = [tcv.BORDER_REPLICATE, tcv.BORDER_REFLECT, tcv.BORDER_WRAP,
+               tcv.BORDER_REFLECT_101]
+
+
+@pytest.mark.parametrize("border", PYR_BORDERS)
+@pytest.mark.parametrize("cn", [1, 3, 4])
+def test_pyr_down_kernel_equals_plain(cuda, border, cn):
+    for shape in ((2, 40, 52, cn), (2, 41, 53, cn), (1, 16, 16, cn), (2, 67, 261, cn),
+                  (1, 1, 1, cn), (2, 5, 7, cn), (1, 9, 15, cn)):
+        x = _rand(shape, border * 10 + cn + shape[1]).to(cuda)
+        before = PYR_DOWN.launches
+        got = pyr_down_u8(x, border)
+        torch.cuda.synchronize()
+        assert PYR_DOWN.launches == before + 1
+        assert got.shape == (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, cn)
+        assert torch.equal(got, pyr_down_u8_plain(x, border)), shape
+
+
+def test_build_pyramid_launches_the_kernel_at_every_level(cuda):
+    # the kernel has no minimum size, so the small upper levels take it too
+    x = _rand((1, 40, 52, 3), 11)
+    reset_tier_stats()
+    got = tcv.buildPyramid(x.to(cuda), 5)
+    assert tier_stats() == {"tier.pyr_down_u8.cuda": 5}
+    assert got[-1].shape == (1, 2, 2, 3)
+    for g, w in zip(got, tcv.buildPyramid(x, 5)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_pyr_corner_edge_on_the_card_equals_cpu(cuda):
+    x = torch.from_numpy(E.make_batch((2, 96, 128, 1)))
+    reset_tier_stats()
+    got = E.forward_pyr_corner_edge(x.to(cuda))
+    assert tier_stats() == {"tier.pyr_down_u8.cuda": 1, "tier.sep_filter_int.cuda": 3}
+    want = E.forward_pyr_corner_edge(x)
+    for name, g, w in zip(("pyrDown", "cornerHarris", "Sobel", "Canny"), got, want):
+        if name == "cornerHarris":
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
+        else:
+            assert torch.equal(g.cpu(), w), name

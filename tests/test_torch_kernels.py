@@ -8,11 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from common import cv2
+
 import jax.numpy as jnp
 
 import opencv_tpu.constants as JK
 from opencv_tpu.kernels.fused_preproc import fused_gray_gauss5_down2 as j_fused
 from opencv_tpu.kernels.fused_preproc import gauss5_down2_u8 as j_gauss5_down2
+from opencv_tpu.kernels.sepfilter import pyr_down_u8 as j_pyr_down_u8
 from opencv_tpu.kernels.sepfilter import sep_filter_int as j_sep_filter_int
 from opencv_tpu.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
 
@@ -21,7 +24,8 @@ from opencv_tpu_torch.kernels import KERNELS
 from opencv_tpu_torch.kernels.fused_preproc import (
     fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
     gauss5_down2_u8_plain)
-from opencv_tpu_torch.kernels.sepfilter import sep_filter_int, sep_filter_int_plain
+from opencv_tpu_torch.kernels.sepfilter import (
+    pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain)
 
 # test_kernels.py's Gaussian cases: (H, W, C, ksize, sigma, border)
 GAUSS_CASES = [
@@ -104,6 +108,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(sep_filter_int(x, kq, kq, shift=16),
                        sep_filter_int_plain(x, kq, kq, shift=16))
     assert torch.equal(fused_gray_gauss5_down2(x), fused_gray_gauss5_down2_plain(x))
+    assert torch.equal(pyr_down_u8(x), pyr_down_u8_plain(x))
     assert [k.launches for k in KERNELS] == before
 
 
@@ -116,3 +121,69 @@ def test_fused_rejects_odd_sizes_and_wrong_inputs():
         fused_gray_gauss5_down2(torch.zeros((1, 6, 8, 4), dtype=torch.uint8))
     with pytest.raises(ValueError):
         sep_filter_int(torch.zeros((1, 6, 8, 1), dtype=torch.int16), (1,), (1,))
+
+
+# test_kernels.py's pyrDown cases (REFLECT_101), plus C=4, the other three
+# borders cv::pyrDown takes, and the JAX predicate's 16x16 minimum:
+# (C, H, W, border)
+PYR_CASES = [
+    (1, 40, 52, JK.BORDER_REFLECT_101), (1, 41, 53, JK.BORDER_REFLECT_101),
+    (3, 37, 45, JK.BORDER_REFLECT_101), (4, 33, 47, JK.BORDER_REFLECT_101),
+    (1, 41, 53, JK.BORDER_REPLICATE), (4, 40, 52, JK.BORDER_REPLICATE),
+    (3, 37, 45, JK.BORDER_WRAP), (1, 40, 53, JK.BORDER_WRAP),
+    (3, 16, 16, JK.BORDER_REFLECT), (4, 17, 31, JK.BORDER_REFLECT),
+]
+
+
+@pytest.mark.parametrize("case", PYR_CASES, ids=[str(c) for c in PYR_CASES])
+def test_pyr_down_vs_pallas_and_cv2(case):
+    C, H, W, border = case
+    x = np.random.default_rng(H * W + C).integers(0, 256, (2, H, W, C), np.uint8)
+    want = np.asarray(j_pyr_down_u8(x, border=border, interpret=True))
+    got = pyr_down_u8_plain(torch.from_numpy(x), border).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the wrapper on a CPU tensor is the plain version
+    np.testing.assert_array_equal(pyr_down_u8(torch.from_numpy(x), border).numpy(), want)
+    for i in range(2):
+        ref = cv2.pyrDown(x[i] if C > 1 else x[i, ..., 0], borderType=border)
+        np.testing.assert_array_equal(got[i] if C > 1 else got[i, ..., 0], ref)
+
+
+# below the JAX kernel's 16x16 minimum, where the CUDA kernel (whose
+# predicate has no minimum) is held to this plain version: (C, H, W)
+PYR_TINY = [(1, 1, 1), (2, 2, 3), (3, 5, 7), (4, 9, 15), (1, 15, 2)]
+
+
+@pytest.mark.parametrize("border", [JK.BORDER_REFLECT_101, JK.BORDER_REPLICATE,
+                                    JK.BORDER_REFLECT, JK.BORDER_WRAP])
+@pytest.mark.parametrize("case", PYR_TINY, ids=[str(c) for c in PYR_TINY])
+def test_pyr_down_plain_tiny_sizes_vs_cv2(case, border):
+    C, H, W = case
+    x = np.random.default_rng(H * W + C + border).integers(0, 256, (2, H, W, C), np.uint8)
+    got = pyr_down_u8_plain(torch.from_numpy(x), border).numpy()
+    assert got.shape == (2, (H + 1) // 2, (W + 1) // 2, C)
+    for i in range(2):
+        ref = cv2.pyrDown(x[i] if C > 1 else x[i, ..., 0], borderType=border)
+        np.testing.assert_array_equal(got[i] if C > 1 else got[i, ..., 0], ref)
+
+
+def test_pyr_down_predicate_takes_any_size():
+    from opencv_tpu_torch.core.dispatch import lookup
+    cuda = torch.device("cuda")
+    for C in (1, 2, 3, 4):
+        assert lookup("pyr_down_u8", cuda, dtype="uint8", channels=C,
+                      border=JK.BORDER_REFLECT_101) is not None
+    assert lookup("pyr_down_u8", cuda, dtype="uint8", channels=5, border=0) is None
+    assert lookup("pyr_down_u8", cuda, dtype="int16", channels=1, border=0) is None
+
+
+def test_pyr_down_rejects_constant_border_and_wrong_inputs():
+    x = torch.zeros((1, 20, 20, 1), dtype=torch.uint8)
+    for fn in (pyr_down_u8, pyr_down_u8_plain):
+        with pytest.raises(ValueError, match="BORDER_CONSTANT"):
+            fn(x, tcv.BORDER_CONSTANT)
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 20, 20, 5), dtype=torch.uint8))
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 20, 20, 1), dtype=torch.int16))
+    assert pyr_down_u8(x, tcv.BORDER_REFLECT_101 | tcv.BORDER_ISOLATED).shape == (1, 10, 10, 1)
