@@ -26,8 +26,12 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       then Canny on the batch smoothed by GaussianBlur 7x7 sigma 2.5, exact
       against the CPU, with its hysteresis iterations and host syncs;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
-   runs: each kernel beside its plain version, each op of config 3, and the
-   whole forwards.
+   runs: each kernel at each main-path shape beside its plain version, its
+   bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
+   the f32 rate if larger) and, where one PyTorch call computes the same
+   multiply-accumulate, that call (``library_ms``: ``F.conv2d`` on a
+   pre-padded f32 copy, timed only here); each op of config 3; and the
+   whole forwards.  A kernel's share of its bound is bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -69,17 +73,27 @@ def card_line() -> str:
 class Timer:
     """CUDA-event timing: warm-up, then the median of `iters` runs, each
     after a write of 256 MiB that evicts the 50 MB L2 (outside the timed
-    window)."""
+    window).
+
+    device_only: the card spins for about 0.5 ms (``torch.cuda._sleep``)
+    before the start event, so the host has enqueued the whole of `fn` by the
+    time the window opens and the window holds device time only.  Without
+    it, host work in `fn` that outlasts the flush (a Python wrapper's
+    allocation and argument marshalling) is counted, as a caller sees it."""
+
+    SPIN_CYCLES = 1_000_000
 
     def __init__(self, device):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
 
-    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
+    def __call__(self, fn, iters: int = 20, warmup: int = 3, device_only: bool = False) -> float:
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            if device_only:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -132,6 +146,15 @@ def pyr_cases(K):
             for hw in ((40, 52), (41, 53), (40, 53), (16, 16), (17, 16), (67, 261),
                        (1, 1), (2, 3), (5, 7), (9, 15)):
                 cases.append((f"{hw} C{C} {bname}", (2, *hw, C), border))
+    # the kernel's block classes: a warp strip is 16 output rows (32 input)
+    # by 512 output bytes, a row is staged in 16-byte chunks; odd H and W
+    # around those widths, rows that are not a multiple of 16 bytes, and a
+    # mostly interior size
+    for bname, border in borders.items():
+        for shape in ((2, 33, 1025, 1), (2, 31, 1023, 1), (2, 65, 17, 1), (2, 63, 15, 1),
+                      (2, 97, 2047, 1), (1, 256, 4096, 1), (2, 33, 343, 3), (2, 35, 257, 4),
+                      (2, 34, 130, 2), (2, 66, 34, 4)):
+            cases.append((f"class {shape} {bname}", shape, border))
     return cases
 
 
@@ -183,7 +206,72 @@ def sep_cases(K, gauss_taps):
          dict(kx=gauss_taps(5, 1.1), ky=gauss_taps(5, 1.1), shift=16,
               border=K.BORDER_WRAP)),
     ]
+    # the kernel's block classes: a warp strip is 32 output rows by 512
+    # bytes, staged in 16-byte chunks; k = 3 and 5 are compiled apart from
+    # the generic taps (7, 31); rows whose W*C is not a multiple of 16 take
+    # the byte-wise path
+    taps = {3: dict(kx=gauss_taps(3, 0.0), ky=gauss_taps(3, 0.0), shift=16),
+            5: dict(kx=gauss_taps(5, 1.3), ky=gauss_taps(5, 1.3), shift=16),
+            7: dict(kx=gauss_taps(7, 0.0), ky=gauss_taps(7, 0.0), shift=16),
+            31: dict(kx=gauss_taps(31, 6.0), ky=gauss_taps(31, 6.0), shift=16)}
+    shapes = {"interior-heavy": (1, 256, 4096, 1), "W 15": (2, 40, 15, 1), "W 17": (2, 40, 17, 1),
+              "W 511": (2, 33, 511, 1), "W 513": (2, 33, 513, 1), "WC%16 C1": (2, 40, 101, 1),
+              "WC%16 C3": (2, 40, 101, 3), "WC%16 C4": (2, 40, 101, 4),
+              "H 33 (strip+1)": (2, 33, 64, 1), "H 127": (1, 127, 160, 2),
+              "H 161 C4": (1, 161, 128, 4)}
+    for bname, border in borders.items():
+        for k, kw in taps.items():
+            for sname, shape in shapes.items():
+                if k == 31 and shape[2] * shape[3] > 600:
+                    continue  # the generic k = 31 path is checked on the narrow shapes
+                cases.append((f"class k{k} {sname} {shape} {bname}", shape,
+                              dict(kw, border=border, border_value=(9, 99, 199, 250)[:shape[3]])))
+        cases.append((f"class sobel i16 W 17 {bname}", (2, 40, 17, 1),
+                      dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16", border=border)))
+        cases.append((f"class sobel i16 WC%16 C3 {bname}", (2, 40, 101, 3),
+                      dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16", border=border)))
     return cases
+
+
+def offset_view(rng, shape, dev):
+    """x[1:] of a batch: contiguous, with a storage offset of one image."""
+    base = torch.from_numpy(rng.integers(0, 256, (shape[0] + 1, *shape[1:]), np.uint8)).to(dev)
+    return base[1:].contiguous()
+
+
+# (name, input shape) of the storage-offset cases: an image of H*W*C bytes
+# that is a multiple of 16 keeps the vector path, one that is not takes the
+# byte-wise path
+OFFSET_SHAPES = (("offset aligned", (2, 40, 64, 1)), ("offset unaligned", (2, 41, 63, 1)),
+                 ("offset main", (7, 1080, 1920, 1)))
+
+
+# bound_ms: the card's memory rate and its float32 rate outside the tensor
+# cores (NVIDIA's data sheet, H100 SXM)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the f32 rate (a MAC counts two)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_yardstick(x, kx, ky, stride, dev):
+    """One F.conv2d that computes the kernel's multiply-accumulate on the
+    same image: f32 NCHW, padded for the taps outside the timed window
+    (REFLECT_101 = torch's "reflect"), w = ky (x) kx, groups = C.  Returns
+    the closure to time."""
+    import torch.nn.functional as F
+    N, H, W, C = x.shape
+    kw, kh = len(kx), len(ky)
+    xf = x.permute(0, 3, 1, 2).to(torch.float32)
+    xp = F.pad(xf, (kw // 2, kw - 1 - kw // 2, kh // 2, kh - 1 - kh // 2), mode="reflect")
+    w = torch.outer(torch.tensor(ky, dtype=torch.float32), torch.tensor(kx, dtype=torch.float32))
+    w = w.to(dev).expand(C, 1, kh, kw).contiguous()
+    return lambda: F.conv2d(xp, w, stride=stride, groups=C)
 
 
 def main() -> int:
@@ -228,7 +316,14 @@ def main() -> int:
                           sep_filter_int_plain(x, **kw))
         if name.startswith("main"):
             max_err["sep_filter"] = max(max_err.get("sep_filter", 0), err)
-    log(f"sep_filter: {len(cases)} cases equal to the plain version")
+    kx5 = gauss_taps(5, 0.0)
+    for name, shape in OFFSET_SHAPES:
+        x = offset_view(rng, shape, dev)
+        for kw in (dict(kx=kx5, ky=kx5, shift=16),
+                   dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16")):
+            check_equal(f"sep_filter {name} {shape}", sep_filter_int(x, **kw),
+                        sep_filter_int_plain(x, **kw))
+    log(f"sep_filter: {len(cases) + 2 * len(OFFSET_SHAPES)} cases equal to the plain version")
 
     imgs = torch.from_numpy(E.make_batch()).to(dev)
     n = 0
@@ -257,7 +352,10 @@ def main() -> int:
         err = check_equal(f"pyr_down {name}", pyr_down_u8(x, border), pyr_down_u8_plain(x, border))
         if name.startswith("main"):
             max_err["pyr_down"] = max(max_err.get("pyr_down", 0), err)
-    log(f"pyr_down: {len(cases)} cases equal to the plain version")
+    for name, shape in OFFSET_SHAPES:
+        x = offset_view(rng, shape, dev)
+        check_equal(f"pyr_down {name} {shape}", pyr_down_u8(x), pyr_down_u8_plain(x))
+    log(f"pyr_down: {len(cases) + len(OFFSET_SHAPES)} cases equal to the plain version")
 
     # -- 4a. the flagship path
     def run_counted(fn):
@@ -333,27 +431,42 @@ def main() -> int:
 
     # -- 5. timing
     timer = Timer(dev)
-    kx5 = gauss_taps(5, 0.0)
     g1 = gray[..., None].contiguous()
+    n1 = g1.numel()  # 8 * 1080 * 1920 pixels
+    n_half = N3 * ((H3 + 1) // 2) * ((W3 + 1) // 2)
+    k5 = (1, 4, 6, 4, 1)
+    # (name, kernel, plain, what, bytes in + out, operations, library call or None)
     rows = [
         ("sep_filter", lambda: sep_filter_int(g1, kx5, kx5, shift=16),
-         lambda: sep_filter_int_plain(g1, kx5, kx5, shift=16), "(8,1080,1920,1) k5"),
-        ("gauss5_down2", lambda: fused_gray_gauss5_down2(imgs, 0.0),
-         lambda: fused_gray_gauss5_down2_plain(imgs, 0.0), "(8,1080,1920,3) bgr"),
-        ("gauss5_down2 gray", lambda: gauss5_down2_u8(gray, 0.0),
-         lambda: gauss5_down2_u8_plain(gray, 0.0), "(8,1080,1920) gray"),
-        ("pyr_down", lambda: pyr_down_u8(x3), lambda: pyr_down_u8_plain(x3),
-         "(8,1080,1920,1) REFLECT_101"),
+         lambda: sep_filter_int_plain(g1, kx5, kx5, shift=16), "(8,1080,1920,1) k5 u8",
+         2 * n1, 2 * 10 * n1, conv_yardstick(g1, kx5, kx5, 1, dev)),
         ("sep_filter sobel", lambda: sep_filter_int(x3, (-1, 0, 1), (1, 2, 1), out_dtype="int16"),
          lambda: sep_filter_int_plain(x3, (-1, 0, 1), (1, 2, 1), out_dtype="int16"),
-         "(8,1080,1920,1) Sobel dx u8->16S"),
+         "(8,1080,1920,1) Sobel dx u8->16S", 3 * n1, 2 * 6 * n1,
+         conv_yardstick(x3, (-1, 0, 1), (1, 2, 1), 1, dev)),
+        ("gauss5_down2", lambda: fused_gray_gauss5_down2(imgs, 0.0),
+         lambda: fused_gray_gauss5_down2_plain(imgs, 0.0), "(8,1080,1920,3) bgr",
+         imgs.numel() + n_half, 2 * 13 * n1, None),
+        ("gauss5_down2 gray", lambda: gauss5_down2_u8(gray, 0.0),
+         lambda: gauss5_down2_u8_plain(gray, 0.0), "(8,1080,1920) gray", n1 + n_half,
+         2 * 10 * n1, None),
+        ("pyr_down", lambda: pyr_down_u8(x3), lambda: pyr_down_u8_plain(x3),
+         "(8,1080,1920,1) REFLECT_101", n1 + n_half, 2 * (5 * n1 // 2 + 5 * n_half),
+         conv_yardstick(x3, k5, k5, 2, dev)),
     ]
+    log(f"library_ms: one F.conv2d (cuDNN) on a pre-padded f32 NCHW copy, "
+        f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
     times = {}
-    for name, kern, plain, what in rows:
+    for name, kern, plain, what, nbytes, ops, lib in rows:
         t_plain = timer(plain)
         t_kern = timer(kern)
-        times[name] = (t_kern, t_plain)
-        log(f"time {name} {what}: kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms  [{card}]")
+        t_lib = timer(lib) if lib is not None else None
+        b_ms, b_by = bound(nbytes, ops)
+        times[name] = dict(what=what, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=t_lib)
+        log(f"time {name} {what}: kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, "
+            f"library {'none' if t_lib is None else f'{t_lib:.4f} ms'}, bound {b_ms:.4f} ms "
+            f"({b_by}), share of bound {b_ms / t_kern:.3f}  [{card}]")
     t_fwd = timer(lambda: forward(imgs))
     t_fused = timer(lambda: E.forward_fused(imgs))
     log(f"time forward (8,1080,1920,3): {t_fwd:.4f} ms  [{card}]")
@@ -370,17 +483,25 @@ def main() -> int:
 
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
-                       "opencv_tpu/kernels/sepfilter.py:216", "opencv_sep_filter"),
+                       "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
         "gauss5_down2": ("opencv_tpu_torch/csrc/fused_preproc.cu",
-                         "opencv_tpu/kernels/fused_preproc.py:209", "opencv_gauss5_down2"),
+                         "opencv_tpu/kernels/fused_preproc.py:210", "opencv_gauss5_down2"),
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
-                     "opencv_tpu/kernels/sepfilter.py:295", "opencv_pyr_down"),
+                     "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over both main paths (4a and 4b)
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": flagship[sym] + cfg3[sym], "max_abs_err": max_err[name],
-                "ms": times[name][0], "plain_ms": times[name][1]}
-               for name, (src, rep, sym) in meta.items()]
+    # launches: the kernel's count over both main paths (4a and 4b); the
+    # top-level numbers are the first shape of `cases`, which lists each
+    # shape the main paths give the kernel
+    shapes = {"sep_filter": ("sep_filter", "sep_filter sobel"),
+              "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"), "pyr_down": ("pyr_down",)}
+    kernels = []
+    for name, (src, rep, sym) in meta.items():
+        row = times[shapes[name][0]]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": flagship[sym] + cfg3[sym], "max_abs_err": max_err[name],
+                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")},
+                        "cases": [times[s] for s in shapes[name]]})
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

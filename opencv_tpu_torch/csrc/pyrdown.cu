@@ -12,88 +12,297 @@
 // REFLECT, WRAP or REFLECT_101; cv::pyrDown refuses BORDER_CONSTANT, and so
 // does this entry).  The TPU kernel expressed the stride-2 taps as two
 // tap-folded selection matmuls on the MXU (strided lane access is slow
-// there), which forced a HIGHEST-precision second dot to stay exact.  Here
-// the stride-2 stencil is plain strided shared-memory reads: a block stages
-// its (2*16 + 3) x ((2*64 + 3) * C) input tile with the border resolved per
-// element, runs the horizontal 5-tap pass at the even columns into an int32
-// tile, then the vertical pass at the even rows with the round and saturate.
+// there); here they are register arithmetic.
 //
-// Bound: memory.  Each input byte is read about once (plus a 3-row, 3-pixel
-// halo per block) and a quarter byte is written; at (8, 1080, 1920, 1) that
-// is 16.6 MB in and 4.1 MB out, against ~12 integer MACs per output.  All
-// intermediates stay in shared memory.
+// Bound.  Each input byte is read once and each output byte written once:
+// at (8, 1080, 1920, 1) 16.6 MB in and 4.1 MB out, 6.2 us at 3.35 TB/s.  The
+// taps are 10 MACs per output (41 M at that shape).  Budget: about 25
+// thread instructions per output.  On the H100 the kernel reaches 27% of its
+// memory bound (PERF.md, from perf/sweep_stencil_tiles.py, whose schedule
+// probe shows warps that wait on neither memory nor barriers): what remains
+// is instruction issue.
 //
-// Shared memory at C = 4: 35 x 524 u8 + 35 x 256 int32 = 54,192 B, above the
-// 48 KB static limit, so the tile is dynamic shared memory and the launch
-// raises the kernel's limit first.
+// Design.  Each warp owns a strip of kStrip output rows by 32 * OPX output
+// pixels (OPX pixels per thread: 16 / C, and 4 for C = 3, so a thread stores
+// 16 or 12 bytes) and walks down its 2 kStrip + 3 input rows.
+//  - Staging: lane 0 asks the copy engine for each input row's aligned
+//    bytes (cp.async.bulk) into a ring of kStages rows in shared memory,
+//    completing on one mbarrier per stage; kStages - 1 rows are in flight.
+//    The words of row r + 1 are read while row r computes.
+//  - The 2-pixel left and 1-pixel right halo comes from the neighbour lanes
+//    by shuffle (lanes 0 and 31 read the staged bytes past the warp's).
+//  - Two output lanes share a register in 16-bit halves: every sum of
+//    pyrDown is at most 255 * 256 + 128, so no half carries into the other.
+//    A tap of a pair is one byte_perm and a mask; the horizontal pass at the
+//    even columns, the vertical pass carried in two register rows (c =
+//    h[2o-2] + 4 h[2o-1], e = h[2o]) and the rounding (v + 128) >> 8 all run
+//    on pairs, and one byte_perm packs two pairs into an output word.
+//  - No division and no per-byte border work in the loop: the border is
+//    resolved once per input row.  The outputs whose window crosses the
+//    left or right image edge (pixel 0 and the last one or two) are not
+//    stored by the main blocks: one extra column of blocks in the same
+//    launch computes them one by one, from a row table and the edge tables
+//    of common.cuh built once per block.
+//
+// The scalar path: an input row whose length W*C is not a multiple of 16 or
+// an input base that is not 16-byte aligned is staged byte by byte by all
+// lanes; an output row that is not a multiple of the thread's store width
+// (16 bytes, or 4 for C = 3) or an unaligned output is stored byte by byte.
+// Both inside this kernel.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kOutRows = 16;    // output rows per block
-constexpr int kOutPixels = 64;  // output pixels per block row
-constexpr int kInRows = 2 * kOutRows + 3;
-constexpr int kInPixels = 2 * kOutPixels + 3;
-constexpr int kThreads = 256;
+using ocvt::EdgeMaps;
 
-__host__ __device__ inline size_t tile_bytes(int C) {
-  return ((size_t)kInRows * kInPixels * C + 15) & ~size_t(15);
+constexpr int kWarps = 4;  // warps per block, stacked in rows
+constexpr int kStrip = 4;  // output rows per warp
+constexpr int kStages = 4;  // staged rows per warp (a power of 2)
+constexpr unsigned kFull = 0xffffffffu;
+
+template <int C>
+struct Shape {
+  static constexpr int OPX = C == 3 ? 4 : 16 / C;  // output pixels per thread
+  static constexpr int OB = OPX * C;               // output bytes per thread
+  static constexpr int NM = 2 * OB / 4;            // input words per thread
+  static constexpr int MAIN = 32 * 4 * NM;         // input bytes per warp
+  static constexpr int HL = (2 * C + 3) / 4;       // left halo words (2 pixels)
+  static constexpr int HR = (C + 3) / 4;           // right halo words (1 pixel)
+};
+
+__device__ __forceinline__ int tap(int i) { return i == 2 ? 6 : (i & 1) ? 4 : 1; }
+
+// Tap k (input pixel 2 px - 2 + k) of output lanes j and j + 1 (lane j =
+// pixel px = j / C, channel j % C) as two 16-bit halves.  w holds the
+// thread's input row from byte -4 HL.
+template <int C, int NW>
+__device__ __forceinline__ uint32_t tap_pair(const uint32_t (&w)[NW], int j, int k) {
+  constexpr int base = 4 * Shape<C>::HL;
+  return ocvt::byte_pair(w, base + (2 * (j / C) - 2 + k) * C + j % C,
+                         base + (2 * ((j + 1) / C) - 2 + k) * C + (j + 1) % C);
 }
 
-size_t smem_bytes(int C) { return tile_bytes(C) + (size_t)kInRows * kOutPixels * C * sizeof(int); }
-
-__global__ void __launch_bounds__(kThreads)
-    pyr_down_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int H, int W, int C,
-                    int border) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int in_lanes = kInPixels * C;
-  const int lanes = kOutPixels * C;
-  uint8_t* tile = smem;
-  int* hsum = reinterpret_cast<int*>(smem + tile_bytes(C));
-
-  const int oy0 = blockIdx.y * kOutRows;
-  const int ox0 = blockIdx.x * kOutPixels;
-  const int iy0 = 2 * oy0 - 2;
-  const int ix0 = 2 * ox0 - 2;
-  const uint8_t* img = src + blockIdx.z * (size_t)H * W * C;
-
-  // 1. input tile + halo, border resolved per element
-  for (int i = threadIdx.x; i < kInRows * in_lanes; i += kThreads) {
-    const int r = i / in_lanes;
-    const int l = i - r * in_lanes;
-    const int px = l / C;
-    const int ch = l - px * C;
-    const int sy = ocvt::border_map(iy0 + r, H, border);
-    const int sx = ocvt::border_map(ix0 + px, W, border);
-    tile[i] = img[((size_t)sy * W + sx) * C + ch];
+// The outputs whose window crosses the left or right image edge: pixel 0
+// and pixels [(W - 1) / 2, Wo) of every row in [oy0, oy0 + kWarps * kStrip).
+template <int C>
+__device__ void pyr_edges(const uint8_t* img, uint8_t* out, int H, int W, int border, int oy0) {
+  constexpr int kRows = 2 * kWarps * kStrip + 3;
+  __shared__ EdgeMaps maps;
+  __shared__ const uint8_t* rows[kRows];  // source row of input row 2 oy0 - 2 + i
+  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2, L = W * C, Lo = Wo * C;
+  ocvt::build_edge_maps(&maps, W, C, border, nullptr);
+  for (int i = threadIdx.y * 32 + threadIdx.x; i < kRows; i += 32 * kWarps) {
+    const int y = 2 * oy0 - 2 + i;
+    rows[i] = img + (size_t)((y >= 0 && y < H) ? y : ocvt::border_map(y, H, border)) * L;
   }
   __syncthreads();
-
-  // 2. horizontal pass at the even columns: output pixel p reads tile
-  //    pixels 2p .. 2p+4
-  for (int i = threadIdx.x; i < kInRows * lanes; i += kThreads) {
-    const int r = i / lanes;
-    const int l = i - r * lanes;
-    const int p = l / C;
-    const uint8_t* t = tile + r * in_lanes + 2 * p * C + (l - p * C);
-    hsum[i] = t[0] + 4 * t[C] + 6 * t[2 * C] + 4 * t[3 * C] + t[4 * C];
+  const int first_right = max((W - 1) / 2, 1);  // pixels from here on cross the right edge
+  const int npx = 1 + max(Wo - first_right, 0);
+  // (row, edge pixel) items spread over the whole block
+  const int nrows = min(kWarps * kStrip, Ho - oy0);
+  for (int it = threadIdx.y * 32 + threadIdx.x; it < nrows * npx; it += 32 * kWarps) {
+    const int r = it / npx, e = it - r * npx;
+    const int ox = e == 0 ? 0 : first_right + e - 1;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      int b[5][5];
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+          b[j][i] = ocvt::mapped_byte(rows[2 * r + j], (2 * ox - 2 + i) * C + c, L, c, &maps);
+      int v = 0;
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+        v += tap(j) * (b[j][0] + b[j][4] + 4 * (b[j][1] + b[j][3]) + 6 * b[j][2]);
+      out[(size_t)(oy0 + r) * Lo + ox * C + c] = (uint8_t)min((v + 128) >> 8, 255);
+    }
   }
-  __syncthreads();
+}
 
-  // 3. vertical pass at the even rows, round, saturate; ragged edge masked
-  const int Ho = (H + 1) / 2;
-  const int row_lanes = ((W + 1) / 2) * C;
-  uint8_t* out = dst + blockIdx.z * (size_t)Ho * row_lanes;
-  for (int i = threadIdx.x; i < kOutRows * lanes; i += kThreads) {
-    const int r = i / lanes;
-    const int l = i - r * lanes;
-    const int oy = oy0 + r;
-    const int ol = ox0 * C + l;
-    if (oy >= Ho || ol >= row_lanes) continue;
-    const int* h = hsum + 2 * r * lanes + l;
-    const int v = h[0] + 4 * h[lanes] + 6 * h[2 * lanes] + 4 * h[3 * lanes] + h[4 * lanes];
-    out[(size_t)oy * row_lanes + ol] = (uint8_t)min((v + 128) >> 8, 255);
+template <int C>
+__global__ void __launch_bounds__(32 * kWarps)
+    pyr_down_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int H, int W,
+                    int border, int vec_in, int vec_out) {
+  using S = Shape<C>;
+  constexpr int NW = S::HL + S::NM + S::HR;
+  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  const int L = W * C, Lo = Wo * C;
+  const uint8_t* img = src + blockIdx.z * (size_t)H * L;
+  uint8_t* out = dst + blockIdx.z * (size_t)Ho * Lo;
+  if (blockIdx.x == gridDim.x - 1) {
+    pyr_edges<C>(img, out, H, W, border, blockIdx.y * kWarps * kStrip);
+    return;
   }
+
+  const int lane = threadIdx.x;
+  const int oy0 = (blockIdx.y * kWarps + threadIdx.y) * kStrip;
+  if (oy0 >= Ho) return;
+  const int nin = 2 * min(kStrip, Ho - oy0) + 3;  // input rows 2 oy0 - 2 .. 2 (oy0 + nrows - 1) + 2
+  const int qw = blockIdx.x * S::MAIN;  // first input byte of the warp
+  const int ob0 = blockIdx.x * 32 * S::OB + lane * S::OB;  // first output byte of the thread
+  // outputs [lo, hi) of the thread's OB bytes are stored here; pixel 0 and
+  // the pixels from (W - 1) / 2 on cross an image edge (the edge blocks)
+  const int lo = min(max(C - ob0, 0), S::OB);
+  const int hi = max(min(((W - 1) / 2) * C - ob0, S::OB), lo);
+
+  // the warp's ring of staged rows: row bytes [qw - 16, qw + MAIN + 16),
+  // input row r in stage r % kStages, each with its mbarrier
+  constexpr int kSeg = 16 + S::MAIN + 16;
+  __shared__ __align__(16) uint8_t ring[kWarps][kStages][kSeg];
+  __shared__ uint64_t bars[kWarps][kStages];
+  uint8_t (*stage)[kSeg] = ring[threadIdx.y];
+  uint64_t* bar = bars[threadIdx.y];
+  if (lane == 0)
+    for (int i = 0; i < kStages; ++i) ocvt::mbar_init(&bar[i]);
+  __syncwarp();
+
+  // stage input row r of the strip (image row 2 oy0 - 2 + r): one bulk
+  // copy of its aligned bytes in [0, L) by lane 0, or, for an unaligned
+  // row, byte by byte by every lane (the scalar path)
+  auto issue = [&](int r) {
+    uint8_t* b = stage[r & (kStages - 1)];
+    const int y = 2 * oy0 - 2 + r;
+    const uint8_t* row =
+        img + (size_t)((y >= 0 && y < H) ? y : ocvt::border_map(y, H, border)) * L;
+    if (vec_in) {
+      if (lane == 0) {
+        const int a = max(qw - 16, 0), e = min(qw + S::MAIN + 16, L);
+        ocvt::bulk_copy(b + a - (qw - 16), row + a, e - a, &bar[r & (kStages - 1)]);
+      }
+      return;
+    }
+    for (int ch = lane; ch < kSeg / 16; ch += 32) {
+      uint32_t w[4];
+      ocvt::row_words(w, row, qw - 16 + 16 * ch, L);
+      *reinterpret_cast<uint4*>(b + 16 * ch) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    if (lane == 0) ocvt::mbar_arrive(&bar[r & (kStages - 1)]);
+  };
+
+  constexpr int NP = S::OB / 2;  // pairs of output lanes
+  uint32_t ca[NP], ea[NP], pa[NP];  // c, e, and c + 6e + 4h[2o+1], two lanes each
+
+  // wait for row r and read the thread's words (lanes 0 and 31 also the
+  // words past the warp's)
+  auto read = [&](int r, uint32_t (&m)[S::NM], uint32_t (&wl)[S::HL], uint32_t (&wr)[S::HR]) {
+    ocvt::mbar_wait(&bar[r & (kStages - 1)], (r / kStages) & 1);
+    const uint8_t* b = stage[r & (kStages - 1)] + 16;
+    if constexpr (S::NM % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < S::NM / 4; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(b + 4 * S::NM * lane)[i];
+        m[4 * i] = v.x;
+        m[4 * i + 1] = v.y;
+        m[4 * i + 2] = v.z;
+        m[4 * i + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < S::NM / 2; ++i) {
+        const uint2 v = reinterpret_cast<const uint2*>(b + 4 * S::NM * lane)[i];
+        m[2 * i] = v.x;
+        m[2 * i + 1] = v.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S::HL; ++i) wl[i] = reinterpret_cast<const uint32_t*>(b)[i - S::HL];
+#pragma unroll
+    for (int i = 0; i < S::HR; ++i) wr[i] = reinterpret_cast<const uint32_t*>(b + S::MAIN)[i];
+  };
+
+  // row r: the halo from the neighbour lanes, the horizontal pass at the
+  // even columns, the vertical pass, and the store of a completed output row
+  auto step = [&](int r, const uint32_t (&m)[S::NM], const uint32_t (&wl)[S::HL],
+                  const uint32_t (&wr)[S::HR]) {
+    uint32_t w[NW];  // the thread's words with 2 pixels left and 1 right
+#pragma unroll
+    for (int i = 0; i < S::NM; ++i) w[S::HL + i] = m[i];
+#pragma unroll
+    for (int i = 0; i < S::HL; ++i) {
+      const uint32_t a = __shfl_up_sync(kFull, m[S::NM - S::HL + i], 1);
+      w[i] = lane == 0 ? wl[i] : a;
+    }
+#pragma unroll
+    for (int i = 0; i < S::HR; ++i) {
+      const uint32_t c = __shfl_down_sync(kFull, m[i], 1);
+      w[S::HL + S::NM + i] = lane == 31 ? wr[i] : c;
+    }
+    // two output lanes (j = 2i, 2i + 1) per register in 16-bit halves: every
+    // sum of pyrDown is at most 255 * 256 + 128, so no half carries over
+    uint32_t h[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      uint32_t t[5];
+#pragma unroll
+      for (int k = 0; k < 5; ++k) t[k] = tap_pair<C>(w, 2 * i, k);
+      h[i] = t[0] + t[4] + 4 * (t[1] + t[3]) + 6 * t[2];
+    }
+    if (r == 0) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) ca[i] = h[i];
+    } else if (r == 1) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) ca[i] += 4 * h[i];
+    } else if (r == 2) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) ea[i] = h[i];
+    } else if (r & 1) {  // input row 2o + 1 of output row o = (r - 3) / 2
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        pa[i] = ca[i] + 6 * ea[i] + 4 * h[i];
+        ca[i] = ea[i] + 4 * h[i];
+      }
+    } else {  // input row 2o + 2: output row o is complete
+      // (v + 128) >> 8 in each half; bytes 0 and 2 of two pairs make a word
+      uint32_t v[NP], o[NP / 2];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        v[i] = (pa[i] + h[i] + 0x00800080u) >> 8;
+        ea[i] = h[i];
+      }
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) o[i] = __byte_perm(v[2 * i], v[2 * i + 1], 0x6420);
+      if (lo < hi)
+        ocvt::store_words(out + (size_t)(oy0 + (r - 4) / 2) * Lo + ob0, o, lo, hi, vec_out);
+    }
+  };
+
+#pragma unroll 1
+  for (int r = 0; r < kStages - 1 && r < nin; ++r) issue(r);
+  __syncwarp();  // rows staged byte by byte are visible to the warp
+  // two register buffers, A and B: the words of row r + 1 are read while
+  // row r computes; the loop is unrolled by two so no register still
+  // waiting for its read is ever copied
+  uint32_t mA[S::NM], lA[S::HL], rA[S::HR], mB[S::NM], lB[S::HL], rB[S::HR];
+  read(0, mA, lA, rA);
+#pragma unroll 1
+  for (int r = 0; r < nin; r += 2) {
+    __syncwarp();  // every lane has read row r - 1: its stage may be refilled
+    if (r + kStages - 1 < nin) issue(r + kStages - 1);
+    if (r + 1 < nin) read(r + 1, mB, lB, rB);
+    step(r, mA, lA, rA);
+    if (r + 1 >= nin) break;
+    __syncwarp();
+    if (r + kStages < nin) issue(r + kStages);
+    if (r + 2 < nin) read(r + 2, mA, lA, rA);
+    step(r + 1, mB, lB, rB);
+  }
+}
+
+template <int C>
+cudaError_t launch(const uint8_t* src, uint8_t* dst, int N, int H, int W, int border,
+                   cudaStream_t stream) {
+  const int Ho = (H + 1) / 2, Lo = ((W + 1) / 2) * C;
+  const int vec_in = (W * C) % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  const int width = Shape<C>::OB % 16 == 0 ? 16 : 4;  // the thread's store words
+  const int vec_out = Lo % width == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  // one more column of blocks for the edge outputs
+  const dim3 grid(ocvt::ceil_div((W + 1) / 2, 32 * Shape<C>::OPX) + 1,
+                  ocvt::ceil_div(Ho, kWarps * kStrip), N);
+  pyr_down_kernel<C><<<grid, dim3(32, kWarps), 0, stream>>>(src, dst, H, W, border, vec_in,
+                                                             vec_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -105,14 +314,15 @@ extern "C" int opencv_pyr_down(const void* src, void* dst, int N, int H, int W, 
                                void* stream) {
   if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || C > 4 ||
       border < ocvt::kBorderReplicate || border > ocvt::kBorderReflect101 ||
-      ocvt::ceil_div((H + 1) / 2, kOutRows) > 65535)
+      (long long)W * C > (1 << 30) || ocvt::ceil_div((H + 1) / 2, kWarps * kStrip) > 65535)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(pyr_down_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(ocvt::ceil_div((W + 1) / 2, kOutPixels), ocvt::ceil_div((H + 1) / 2, kOutRows), N);
-  pyr_down_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), H, W, C, border);
-  return cudaGetLastError();
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  uint8_t* d = static_cast<uint8_t*>(dst);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: return launch<1>(s, d, N, H, W, border, st);
+    case 2: return launch<2>(s, d, N, H, W, border, st);
+    case 3: return launch<3>(s, d, N, H, W, border, st);
+    default: return launch<4>(s, d, N, H, W, border, st);
+  }
 }

@@ -10,28 +10,72 @@
 //   has_scale -> acc = rint((float)acc * (float)scale)
 //   saturate to u8 or i16
 //
-// The border is resolved inside the kernel with the closed-form
-// borderInterpolate for all five modes (constant value per channel), so the
-// host pads nothing.  A block stages its (rows + kh-1) x ((pixels + kw-1)*C)
-// input tile in shared memory, runs the horizontal pass into an int32 tile in
-// shared memory, then the vertical pass and the finishing chain.
+// Bound.  Each input byte is read once and each output written once: at
+// (8, 1080, 1920, 1) 16.6 MB in and 16.6 MB (u8) or 33.2 MB (i16) out, 9.9 us
+// and 14.9 us at 3.35 TB/s.  The MACs are kw + kh per output (166 M at
+// k = 5), about 10 us at the int32 rate (64 lanes x 132 SMs x ~1.9 GHz):
+// the arithmetic costs as much as the bytes, so the design spends its
+// instructions on it and little else.  Budget: about 20 thread
+// instructions per output at k = 5.  On the H100 the kernel reaches 23%
+// (k = 5, u8) and 42% (k = 3, i16) of its memory bound (PERF.md, from
+// perf/sweep_stencil_tiles.py, whose schedule probe shows warps that wait
+// on neither memory nor barriers): what remains is instruction issue.
 //
-// Bound: memory.  Each pixel-channel is read once as 1 B (plus the halo) and
-// written once as 1-2 B; at k = 5 the kernel does ~10 integer MACs per byte,
-// far under the H100's compute roofline.  The design keeps every intermediate
-// on chip, so device memory sees only the input and the output.
+// The main path: k = 3 and k = 5 (kw == kh and sum |kx| * 255 < 2^16: the
+// taps of every Gaussian, Sobel and box filter of the main paths),
+// templated on the tap count, the channel count and the output type, fully
+// unrolled.  Each warp owns a strip of kStrip output rows by 512 output
+// bytes (16 per thread) and walks down it.
+//  - Staging: lane 0 asks the copy engine for each input row's aligned
+//    bytes (cp.async.bulk, 512 + 2 x 16 bytes) into a ring of kStages rows
+//    in shared memory, completing on one mbarrier per stage; no register and
+//    no per-byte instruction is spent on the copy, and kStages - 1 rows are
+//    in flight.  The words of row r + 1 are read while row r computes (two
+//    register buffers, the loop unrolled by two).
+//  - The horizontal halo comes from the neighbour lanes by shuffle (lanes 0
+//    and 31 read the 16 staged bytes past the warp's).  The horizontal pass
+//    runs on two lanes per register in 16-bit halves (one byte_perm, a mask
+//    and a multiply-add per tap and pair); a negative tap takes 255 - x by
+//    a xor, and the bias is taken off each output once.  The last k
+//    horizontal sums stay in registers as int32, for the vertical pass.
+//  - No division and no per-byte border work in the loop: the border is
+//    resolved once per input row (its source row).  An output whose window
+//    crosses the left or right edge of the image (the first and last k/2
+//    pixels of a row) is not stored by the main blocks: one extra column of
+//    blocks in the same launch computes those outputs one by one, from a row
+//    table and the edge tables of common.cuh, built once per block.
 //
-// Shared memory at the largest case (k = 31, C = 4): 46 x 632 u8 + 46 x 512
-// int32 = 123,280 B, above the 48 KB static limit, so the tile is dynamic
-// shared memory and the launch raises the kernel's limit first.
+// The scalar path: a row whose length W*C is not a multiple of 16, or an
+// input or output whose base is not 16-byte aligned (a view with an odd
+// storage offset), is staged byte by byte by all lanes and stored byte by
+// byte, inside the same kernel.  BORDER_CONSTANT rows come from registers.
+//
+// Other taps (k up to 31, kw != kh, or large taps) take the generic kernel:
+// a warp stages each row of its strip into shared memory with 16-byte
+// cp.async, fills the bytes outside the image from the edge tables, runs the
+// horizontal pass with runtime taps into a shared-memory ring of kh rows,
+// then the vertical pass.  It handles every border at every column itself.
 #include "common.cuh"
 
 namespace {
 
+using ocvt::EdgeMaps;
+using ocvt::kHeadBytes;
+
 constexpr int kMaxTaps = 31;
-constexpr int kTileRows = 16;     // output rows per block
-constexpr int kTilePixels = 128;  // output pixels per block row
-constexpr int kThreads = 256;
+constexpr int kLanes = 16;               // output lanes per thread
+constexpr int kWarpLanes = 32 * kLanes;  // output lanes per warp
+constexpr int kWarps = 4;                // warps per block, stacked in rows
+constexpr int kStrip = 8;                // output rows per warp
+constexpr int kStages = 8;               // staged rows per warp (a power of 2)
+constexpr int kSeg = 16 + kWarpLanes + 16;  // one staged row: 16 halo bytes each side
+constexpr unsigned kFull = 0xffffffffu;
+
+// the generic kernel
+constexpr int kPad = 64;                          // halo room each side (>= 15 * 4)
+constexpr int kGenSeg = kPad + kWarpLanes + kPad;  // one staged row
+constexpr int kGenStages = 8;                     // rows in flight per warp (power of 2)
+constexpr int kGenStrip = 32;                     // output rows per warp
 
 struct Taps {
   int kx[kMaxTaps];
@@ -46,90 +90,412 @@ struct Params {
   float scale;
   int border;
   int bval[4];
-  int lo, hi;
+  int vec;  // rows 16-byte aligned: W*C % 16 == 0 and aligned bases
 };
 
-size_t smem_bytes(int kw, int kh, int C) {
-  const size_t in_rows = kTileRows + kh - 1;
-  const size_t in_lanes = (size_t)(kTilePixels + kw - 1) * C;
-  return ((in_rows * in_lanes + 15) & ~size_t(15)) + in_rows * kTilePixels * C * sizeof(int);
+template <typename OutT>
+__device__ __forceinline__ OutT finish(int v, const Params& p) {
+  constexpr int lo = sizeof(OutT) == 1 ? 0 : -32768;
+  constexpr int hi = sizeof(OutT) == 1 ? 255 : 32767;
+  if (p.shift > 0) v = (v + (1 << (p.shift - 1))) >> p.shift;
+  v += p.delta;
+  if (p.has_scale) {
+    float f = rintf((float)v * p.scale);  // f32 multiply, as the reference's jnp
+    f = fminf(fmaxf(f, (float)lo), (float)hi);
+    v = (int)f;
+  }
+  return (OutT)min(max(v, lo), hi);
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
+// The outputs whose window crosses the left or right image edge: lanes
+// [0, HL) and [L - HL, L) of every row in [y0, y0 + kWarps * kStrip).  One
+// output per thread and step; rows and columns through tables built once.
+template <int K, int C, typename OutT>
+__device__ void sep_edges(const uint8_t* img, OutT* out, const Taps& taps, const Params& p,
+                          int y0) {
+  constexpr int HL = (K / 2) * C;
+  constexpr int kRows = kWarps * kStrip + K - 1;
+  __shared__ EdgeMaps maps;
+  __shared__ const uint8_t* rows[kRows];  // source row of input row y0 - K/2 + i
+  const int H = p.H, L = p.W * C;
+  ocvt::build_edge_maps(&maps, p.W, C, p.border, p.bval);
+  for (int i = threadIdx.y * 32 + threadIdx.x; i < kRows; i += 32 * kWarps) {
+    const int y = y0 - K / 2 + i;
+    const int sy = (y >= 0 && y < H) ? y : ocvt::border_map(y, H, p.border);
+    rows[i] = sy < 0 ? nullptr : img + (size_t)sy * L;
+  }
+  __syncthreads();
+  // (row, edge lane) items spread over the whole block
+  const int nl = min(HL, L), nr = L - max(L - HL, nl), nedge = nl + nr;
+  const int nrows = min(kWarps * kStrip, H - y0);
+  for (int it = threadIdx.y * 32 + threadIdx.x; it < nrows * nedge; it += 32 * kWarps) {
+    const int r = it / nedge, e = it - r * nedge;
+    const int l = e < nl ? e : L - nr + (e - nl);
+    const int ch = l % C;
+    int b[K][K];
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        b[j][i] = ocvt::mapped_byte(rows[r + j], l + (i - K / 2) * C, L, ch, &maps);
+    int acc = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      int h = 0;
+#pragma unroll
+      for (int i = 0; i < K; ++i) h += taps.kx[i] * b[j][i];
+      acc += taps.ky[j] * h;
+    }
+    out[(size_t)(y0 + r) * L + l] = finish<OutT>(acc, p);
+  }
+}
+
+// The main path: kw == kh == K in {3, 5}, C channels.  The last column of
+// blocks computes the edge outputs.
+template <int K, int C, typename OutT>
+__global__ void __launch_bounds__(32 * kWarps)
     sep_filter_kernel(const uint8_t* __restrict__ src, OutT* __restrict__ dst, const Taps taps,
                       const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = p.C;
-  const int in_rows = kTileRows + p.kh - 1;
-  const int in_lanes = (kTilePixels + p.kw - 1) * C;
-  const int lanes = kTilePixels * C;
-  uint8_t* tile = smem;
-  int* hsum = reinterpret_cast<int*>(smem + ((in_rows * in_lanes + 15) & ~15));
-
-  const int y0 = blockIdx.y * kTileRows;
-  const int x0 = blockIdx.x * kTilePixels;
-  const size_t plane = (size_t)p.H * p.W * C;
-  const uint8_t* img = src + blockIdx.z * plane;
-  OutT* out = dst + blockIdx.z * plane;
-  const int ax = p.kw / 2, ay = p.kh / 2;
-
-  // 1. input tile + halo, border resolved per element
-  for (int i = threadIdx.x; i < in_rows * in_lanes; i += kThreads) {
-    const int r = i / in_lanes;
-    const int l = i - r * in_lanes;
-    const int px = l / C;
-    const int ch = l - px * C;
-    const int sy = ocvt::border_map(y0 - ay + r, p.H, p.border);
-    const int sx = ocvt::border_map(x0 - ax + px, p.W, p.border);
-    tile[i] = (sy < 0 || sx < 0) ? (uint8_t)p.bval[ch]
-                                 : img[((size_t)sy * p.W + sx) * C + ch];
+  constexpr int HL = (K / 2) * C;   // halo bytes each side
+  constexpr int HW = (HL + 3) / 4;  // halo words each side
+  constexpr int NW = 4 + 2 * HW;
+  const int H = p.H, L = p.W * C;
+  const uint8_t* img = src + blockIdx.z * (size_t)H * L;
+  OutT* out = dst + blockIdx.z * (size_t)H * L;
+  if (blockIdx.x == gridDim.x - 1) {
+    sep_edges<K, C, OutT>(img, out, taps, p, blockIdx.y * kWarps * kStrip);
+    return;
   }
-  __syncthreads();
 
-  // 2. horizontal pass into int32 (no intermediate rounding)
-  for (int i = threadIdx.x; i < in_rows * lanes; i += kThreads) {
-    const int r = i / lanes;
-    const int l = i - r * lanes;
-    const uint8_t* t = tile + r * in_lanes + l;
-    int acc = 0;
-    for (int k = 0; k < p.kw; ++k) acc += taps.kx[k] * (int)t[k * C];
-    hsum[i] = acc;
+  const int lane = threadIdx.x;
+  const int xs = blockIdx.x * kWarpLanes;
+  const int q = xs + kLanes * lane;  // the thread's first byte of a row
+  const int y0 = (blockIdx.y * kWarps + threadIdx.y) * kStrip;
+  if (y0 >= H) return;
+  const int nin = min(kStrip, H - y0) + K - 1;
+  const bool vec = p.vec;
+
+  // a BORDER_CONSTANT row as this thread sees it
+  uint32_t cm[4], cl[HW], cr[HW];
+  const bool cst = p.border == ocvt::kBorderConstant;
+  if (cst) {
+    ocvt::const_words(cm, q, C, p.bval);
+    ocvt::const_words(cl, xs - 4 * HW, C, p.bval);
+    ocvt::const_words(cr, xs + kWarpLanes, C, p.bval);
   }
-  __syncthreads();
 
-  // 3. vertical pass + finishing chain; the ragged edge is masked here
-  const int row_lanes = p.W * C;
-  for (int i = threadIdx.x; i < kTileRows * lanes; i += kThreads) {
-    const int r = i / lanes;
-    const int l = i - r * lanes;
-    const int oy = y0 + r;
-    const int ol = x0 * C + l;
-    if (oy >= p.H || ol >= row_lanes) continue;
-    int v = 0;
-    for (int k = 0; k < p.kh; ++k) v += taps.ky[k] * hsum[(r + k) * lanes + l];
-    if (p.shift > 0) v = (v + (1 << (p.shift - 1))) >> p.shift;
-    v += p.delta;
-    if (p.has_scale) {
-      float f = rintf((float)v * p.scale);  // f32 multiply, as the reference's jnp
-      f = fminf(fmaxf(f, (float)p.lo), (float)p.hi);
-      v = (int)f;
+  // the warp's ring of staged rows: row bytes [xs - 16, xs + 528), input
+  // row r in stage r % kStages, each with its mbarrier
+  __shared__ __align__(16) uint8_t ring[kWarps][kStages][kSeg];
+  __shared__ uint64_t bars[kWarps][kStages];
+  uint8_t (*stage)[kSeg] = ring[threadIdx.y];
+  uint64_t* bar = bars[threadIdx.y];
+  if (lane == 0)
+    for (int i = 0; i < kStages; ++i) ocvt::mbar_init(&bar[i]);
+  __syncwarp();
+
+  // input row r of the strip is image row y0 - K/2 + r; -1: a constant row
+  auto source = [&](int r) {
+    const int y = y0 - K / 2 + r;
+    return (y >= 0 && y < H) ? y : ocvt::border_map(y, H, p.border);
+  };
+  // stage row r: one bulk copy of its aligned bytes in [0, L) by lane 0; an
+  // unaligned row byte by byte by every lane (the scalar path); a constant
+  // row not at all (it is in registers)
+  auto issue = [&](int r) {
+    uint8_t* b = stage[r & (kStages - 1)];
+    const int sy = source(r);
+    if (sy >= 0 && vec) {
+      if (lane == 0) {
+        const int a = max(xs - 16, 0), e = min(xs + kWarpLanes + 16, L);
+        ocvt::bulk_copy(b + a - (xs - 16), img + (size_t)sy * L + a, e - a,
+                        &bar[r & (kStages - 1)]);
+      }
+      return;
     }
-    v = min(max(v, p.lo), p.hi);
-    out[(size_t)oy * row_lanes + ol] = (OutT)v;
+    if (sy >= 0) {
+      const uint8_t* row = img + (size_t)sy * L;
+      for (int ch = lane; ch < kSeg / 16; ch += 32) {
+        uint32_t w[4];
+        ocvt::row_words(w, row, xs - 16 + 16 * ch, L);
+        *reinterpret_cast<uint4*>(b + 16 * ch) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    if (lane == 0) ocvt::mbar_arrive(&bar[r & (kStages - 1)]);
+  };
+
+  // outputs [lo, hi) of the thread's 16 are stored here; the rest cross an
+  // image edge (the edge blocks) or lie past the row
+  const int lo = min(max(HL - q, 0), kLanes), hi = max(min(L - HL - q, kLanes), lo);
+
+  // the horizontal pass runs on two lanes per register in 16-bit halves
+  // (the host sends only taps with sum |kx| * 255 < 2^16 here); a negative
+  // tap takes 255 - x (a xor), and the bias that adds, 255 * sum of the
+  // negative |kx| per horizontal sum, comes off each output once
+  uint32_t kxa[K], kxm[K];
+  int ky[K], bias = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    kxa[i] = abs(taps.kx[i]);
+    kxm[i] = taps.kx[i] < 0 ? 0x00ff00ffu : 0u;
+    bias += taps.kx[i] < 0 ? -255 * taps.kx[i] : 0;
+  }
+  int corr = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    ky[j] = taps.ky[j];
+    corr += bias * ky[j];
+  }
+  int hs[K][kLanes];  // horizontal sums of the last K rows (biased), oldest first
+
+  // wait for row r and read the thread's 16 bytes (lanes 0 and 31 also the
+  // words past the warp's); a constant row comes from registers
+  auto read = [&](int r, uint32_t (&m)[4], uint32_t (&wl)[HW], uint32_t (&wr)[HW]) {
+    ocvt::mbar_wait(&bar[r & (kStages - 1)], (r / kStages) & 1);
+    if (cst && source(r) < 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[i] = cm[i];
+#pragma unroll
+      for (int i = 0; i < HW; ++i) {
+        wl[i] = cl[i];
+        wr[i] = cr[i];
+      }
+      return;
+    }
+    const uint8_t* b = stage[r & (kStages - 1)] + 16;
+    const uint4 v = *reinterpret_cast<const uint4*>(b + kLanes * lane);
+    m[0] = v.x;
+    m[1] = v.y;
+    m[2] = v.z;
+    m[3] = v.w;
+#pragma unroll
+    for (int i = 0; i < HW; ++i) {
+      wl[i] = reinterpret_cast<const uint32_t*>(b)[i - HW];
+      wr[i] = reinterpret_cast<const uint32_t*>(b + kWarpLanes)[i];
+    }
+  };
+
+  // the finishing chain's first step folded into the accumulator's start:
+  // (acc - corr + 2^(shift-1)) >> shift
+  const int acc0 = (p.shift > 0 ? 1 << (p.shift - 1) : 0) - corr;
+  // row r: the halo from the neighbour lanes, the horizontal pass, and once
+  // K rows are in, the vertical pass, the finishing chain and the store
+  auto step = [&](int r, const uint32_t (&m)[4], const uint32_t (&wl)[HW],
+                  const uint32_t (&wr)[HW]) {
+    uint32_t w[NW];  // HL bytes left, the thread's 16, HL bytes right
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[HW + i] = m[i];
+#pragma unroll
+    for (int i = 0; i < HW; ++i) {
+      const uint32_t a = __shfl_up_sync(kFull, m[4 - HW + i], 1);
+      const uint32_t b = __shfl_down_sync(kFull, m[i], 1);
+      w[i] = lane == 0 ? wl[i] : a;
+      w[HW + 4 + i] = lane == 31 ? wr[i] : b;
+    }
+#pragma unroll
+    for (int j = 0; j < K - 1; ++j)
+#pragma unroll
+      for (int v = 0; v < kLanes; ++v) hs[j][v] = hs[j + 1][v];
+#pragma unroll
+    for (int v = 0; v < kLanes; v += 2) {
+      uint32_t a = 0;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int o = 4 * HW - HL + v + i * C;
+        a += kxa[i] * (ocvt::byte_pair(w, o, o + 1) ^ kxm[i]);
+      }
+      hs[K - 1][v] = a & 0xffff;
+      hs[K - 1][v + 1] = a >> 16;
+    }
+    if (r < K - 1 || lo >= hi) return;
+    int acc[kLanes];
+#pragma unroll
+    for (int v = 0; v < kLanes; ++v) {
+      int a = acc0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) a += ky[j] * hs[j][v];
+      acc[v] = (a >> p.shift) + p.delta;
+    }
+    constexpr int lo_v = sizeof(OutT) == 1 ? 0 : -32768;
+    constexpr int hi_v = sizeof(OutT) == 1 ? 255 : 32767;
+    OutT o[kLanes];
+    if (p.has_scale) {
+#pragma unroll
+      for (int v = 0; v < kLanes; ++v) {
+        // f32 multiply, as the reference's jnp
+        const float f = fminf(fmaxf(rintf((float)acc[v] * p.scale), (float)lo_v), (float)hi_v);
+        o[v] = (OutT)(int)f;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < kLanes; ++v) o[v] = (OutT)min(max(acc[v], lo_v), hi_v);
+    }
+    ocvt::store_range(out + (size_t)(y0 + r - (K - 1)) * L + q, o, lo, hi, vec);
+  };
+
+#pragma unroll 1
+  for (int r = 0; r < kStages - 1 && r < nin; ++r) issue(r);
+  __syncwarp();  // rows staged byte by byte are visible to the warp
+  // two register buffers, A and B: the words of row r + 1 are read while
+  // row r computes; the loop is unrolled by two so no register still
+  // waiting for its read is ever copied
+  uint32_t mA[4], lA[HW], rA[HW], mB[4], lB[HW], rB[HW];
+  read(0, mA, lA, rA);
+#pragma unroll 1
+  for (int r = 0; r < nin; r += 2) {
+    __syncwarp();  // every lane has read row r - 1: its stage may be refilled
+    if (r + kStages - 1 < nin) issue(r + kStages - 1);
+    if (r + 1 < nin) read(r + 1, mB, lB, rB);
+    step(r, mA, lA, rA);
+    if (r + 1 >= nin) break;
+    __syncwarp();
+    if (r + kStages < nin) issue(r + kStages);
+    if (r + 2 < nin) read(r + 2, mA, lA, rA);
+    step(r + 1, mB, lB, rB);
   }
 }
 
+// The generic kernel: any kw, kh <= 31, runtime C; one warp per block.
 template <typename OutT>
+__global__ void __launch_bounds__(32)
+    sep_generic_kernel(const uint8_t* __restrict__ src, OutT* __restrict__ dst, const Taps taps,
+                       const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  EdgeMaps* maps = reinterpret_cast<EdgeMaps*>(smem);
+  const int c = p.C;
+  ocvt::build_edge_maps(maps, p.W, c, p.border, p.bval);
+  __syncthreads();
+  uint8_t* seg = smem + kHeadBytes;
+  int* ring = reinterpret_cast<int*>(seg + kGenStages * kGenSeg);  // [kh][kLanes][32]
+
+  const int kw = p.kw, kh = p.kh;
+  const int lane = threadIdx.x;
+  const int H = p.H, L = p.W * c;
+  const int xs = blockIdx.x * kWarpLanes;
+  const int y0 = blockIdx.y * kGenStrip;
+  const int nrows = min(kGenStrip, H - y0);
+  const int nin = nrows + kh - 1;
+  const int ay = kh / 2;
+  const int hl = (kw / 2) * c, hr = (kw - 1 - kw / 2) * c;
+  const int nl = (hl + 15) >> 4, nr = (hr + 15) >> 4;
+  const bool vec = p.vec;
+  const uint8_t* img = src + blockIdx.z * (size_t)H * L;
+  OutT* out = dst + blockIdx.z * (size_t)H * L;
+
+  // input row r of the strip is image row y0 - ay + r (nullptr: constant)
+  auto source_row = [&](int r) -> const uint8_t* {
+    const int y = y0 - ay + r;
+    const int sy = (y >= 0 && y < H) ? y : ocvt::border_map(y, H, p.border);
+    return sy < 0 ? nullptr : img + (size_t)sy * L;
+  };
+  auto slot_of = [&](int r) { return seg + (r & (kGenStages - 1)) * kGenSeg + kPad; };
+  auto issue = [&](int r) {
+    uint8_t* b = slot_of(r);
+    const uint8_t* row = source_row(r);
+    for (int ch = lane - nl; ch < 32 + nr; ch += 32)
+      ocvt::stage_chunk(b + 16 * ch, row, xs + 16 * ch, L, c, vec, maps);
+  };
+  // the staged window is row bytes [wlo, whi); it crosses 0 or L only in
+  // the first and last warp of a row
+  const int wlo = xs - 16 * nl, whi = xs + kWarpLanes + 16 * nr;
+  const bool edge = vec && (wlo < 0 || whi > L);
+  const int nvalid = min(kLanes, L - (xs + kLanes * lane));  // <= 0: lanes past the row
+
+#pragma unroll 1
+  for (int r = 0; r < kGenStages - 1; ++r) {
+    if (r < nin) issue(r);
+    ocvt::cp_async_commit();
+  }
+  int slot = 0;  // ring slot of row r
+#pragma unroll 1
+  for (int r = 0; r < nin; ++r) {
+    if (r + kGenStages - 1 < nin) issue(r + kGenStages - 1);
+    ocvt::cp_async_commit();
+    ocvt::cp_async_wait<kGenStages - 1>();
+    __syncwarp();
+    if (edge) {
+      const uint8_t* row = source_row(r);
+      if (row != nullptr) {
+        ocvt::fill_edges(slot_of(r) - 16 * nl, wlo, whi, row, L, maps, lane);
+        __syncwarp();
+      }
+    }
+    const uint8_t* t = slot_of(r) + kLanes * lane - hl;
+    for (int v = 0; v < kLanes; ++v) {
+      int a = 0;
+      for (int i = 0; i < kw; ++i) a += taps.kx[i] * (int)t[v + i * c];
+      ring[(slot * kLanes + v) * 32 + lane] = a;
+    }
+    __syncwarp();
+    if (r >= kh - 1 && nvalid > 0) {
+      int acc[kLanes];
+#pragma unroll
+      for (int v = 0; v < kLanes; ++v) acc[v] = 0;
+      int s = slot + 1 == kh ? 0 : slot + 1;  // oldest row of the window
+      for (int j = 0; j < kh; ++j) {
+#pragma unroll
+        for (int v = 0; v < kLanes; ++v) acc[v] += taps.ky[j] * ring[(s * kLanes + v) * 32 + lane];
+        s = s + 1 == kh ? 0 : s + 1;
+      }
+      OutT o[kLanes];
+#pragma unroll
+      for (int v = 0; v < kLanes; ++v) o[v] = finish<OutT>(acc[v], p);
+      ocvt::store_range(out + (size_t)(y0 + r - (kh - 1)) * L + xs + kLanes * lane, o, 0, nvalid,
+                        vec);
+    }
+    slot = slot + 1 == kh ? 0 : slot + 1;
+  }
+}
+
+size_t generic_smem_bytes(int kh) {
+  return kHeadBytes + (size_t)kGenStages * kGenSeg + (size_t)kh * kWarpLanes * sizeof(int);
+}
+
+template <int K, int C, typename OutT>
 cudaError_t launch(const uint8_t* src, void* dst, int N, const Taps& taps, const Params& p,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.kw, p.kh, p.C);
-  cudaError_t err = cudaFuncSetAttribute(sep_filter_kernel<OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(ocvt::ceil_div(p.W, kTilePixels), ocvt::ceil_div(p.H, kTileRows), N);
-  sep_filter_kernel<OutT><<<grid, kThreads, smem, stream>>>(src, static_cast<OutT*>(dst), taps, p);
+  // one more column of blocks for the edge outputs
+  const dim3 grid(ocvt::ceil_div(p.W * C, kWarpLanes) + 1, ocvt::ceil_div(p.H, kWarps * kStrip),
+                  N);
+  sep_filter_kernel<K, C, OutT><<<grid, dim3(32, kWarps), 0, stream>>>(
+      src, static_cast<OutT*>(dst), taps, p);
   return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_generic(const uint8_t* src, void* dst, int N, const Taps& taps, const Params& p,
+                           cudaStream_t stream) {
+  static bool configured = false;  // once, at the largest size
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(sep_generic_kernel<OutT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)generic_smem_bytes(kMaxTaps));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(ocvt::ceil_div(p.W * p.C, kWarpLanes), ocvt::ceil_div(p.H, kGenStrip), N);
+  sep_generic_kernel<OutT><<<grid, 32, generic_smem_bytes(p.kh), stream>>>(
+      src, static_cast<OutT*>(dst), taps, p);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t dispatch(const uint8_t* src, void* dst, int N, const Taps& taps, const Params& p,
+                     cudaStream_t st) {
+  int sum = 0;  // the main path's 16-bit horizontal sums need sum |kx| * 255 < 2^16
+  for (int i = 0; i < p.kw; ++i) sum += abs(taps.kx[i]);
+  const int K = (p.kw == p.kh && (p.kw == 3 || p.kw == 5) && sum * 255 < 65536) ? p.kw : 0;
+  switch (K * 8 + p.C) {
+    case 3 * 8 + 1: return launch<3, 1, OutT>(src, dst, N, taps, p, st);
+    case 3 * 8 + 2: return launch<3, 2, OutT>(src, dst, N, taps, p, st);
+    case 3 * 8 + 3: return launch<3, 3, OutT>(src, dst, N, taps, p, st);
+    case 3 * 8 + 4: return launch<3, 4, OutT>(src, dst, N, taps, p, st);
+    case 5 * 8 + 1: return launch<5, 1, OutT>(src, dst, N, taps, p, st);
+    case 5 * 8 + 2: return launch<5, 2, OutT>(src, dst, N, taps, p, st);
+    case 5 * 8 + 3: return launch<5, 3, OutT>(src, dst, N, taps, p, st);
+    case 5 * 8 + 4: return launch<5, 4, OutT>(src, dst, N, taps, p, st);
+    default: return launch_generic<OutT>(src, dst, N, taps, p, st);
+  }
 }
 
 }  // namespace
@@ -142,7 +508,7 @@ extern "C" int opencv_sep_filter(const void* src, void* dst, int N, int H, int W
                                  const int* bval, int out_i16, void* stream) {
   if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || C > 4 || kw < 1 || kw > kMaxTaps ||
       kh < 1 || kh > kMaxTaps || shift < 0 || shift > 30 || border < 0 || border > 4 ||
-      ocvt::ceil_div(H, kTileRows) > 65535)
+      (long long)W * C > (1 << 30) || ocvt::ceil_div(H, kGenStrip) > 65535)
     return cudaErrorInvalidValue;
   Taps taps{};
   for (int i = 0; i < kw; ++i) taps.kx[i] = kx[i];
@@ -159,9 +525,10 @@ extern "C" int opencv_sep_filter(const void* src, void* dst, int N, int H, int W
   p.scale = scale;
   p.border = border;
   for (int c = 0; c < 4; ++c) p.bval[c] = bval[c];
-  p.lo = out_i16 ? -32768 : 0;
-  p.hi = out_i16 ? 32767 : 255;
+  p.vec = (W * C) % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(dst) % 16 == 0;
   const uint8_t* s = static_cast<const uint8_t*>(src);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_i16 ? launch<int16_t>(s, dst, N, taps, p, st) : launch<uint8_t>(s, dst, N, taps, p, st);
+  return out_i16 ? dispatch<int16_t>(s, dst, N, taps, p, st)
+                 : dispatch<uint8_t>(s, dst, N, taps, p, st);
 }

@@ -234,7 +234,8 @@ def _sep_filter_int_kernel(ctx, x, kx, ky):
 
 def _pyrdown_pred(ctx):
     # The JAX predicate also asks for h, w >= 16 (its tiles' minimum); the
-    # CUDA kernel resolves the border per element and takes any size.
+    # CUDA kernel resolves the border in its own edge blocks and takes any
+    # size.
     return ctx.get("dtype") == "uint8" and 1 <= ctx.get("channels", 1) <= 4
 
 

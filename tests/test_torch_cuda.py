@@ -56,6 +56,51 @@ def test_sep_filter_kernel_equals_plain(cuda, border, cn):
         assert torch.equal(got, sep_filter_int_plain(x, **kw)), (k, sigma)
 
 
+# The kernels' block classes (see the notes in csrc/sepfilter.cu and
+# csrc/pyrdown.cu): interior blocks, rows one byte over and under the
+# 16-byte word and the 512-byte warp, W*C % 16 != 0 (the byte-wise path),
+# H not a multiple of the row strip; k = 3 and 5 (the main path) and 7, 31
+# (the generic kernel)
+SEP_CLASS_SHAPES = [(1, 256, 4096, 1), (2, 40, 15, 1), (2, 40, 17, 1), (2, 33, 511, 1),
+                    (2, 33, 513, 1), (2, 40, 101, 1), (2, 40, 101, 3), (2, 40, 101, 4),
+                    (2, 33, 64, 1), (1, 127, 160, 2), (1, 161, 128, 4)]
+
+
+@pytest.mark.parametrize("border", BORDERS)
+@pytest.mark.parametrize("k", [3, 5, 7, 31])
+def test_sep_filter_kernel_block_classes(cuda, k, border):
+    kq = _q8(k, 0.0 if k < 7 else 1.0 + k / 8)
+    for shape in SEP_CLASS_SHAPES:
+        if k == 31 and shape[2] * shape[3] > 600:
+            continue
+        x = _rand(shape, k * 100 + border * 10 + shape[2]).to(cuda)
+        kw = dict(kx=kq, ky=kq, shift=16, border=border, border_value=(9, 99, 199, 250)[:shape[3]])
+        got = sep_filter_int(x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sep_filter_int_plain(x, **kw)), shape
+
+
+@pytest.mark.parametrize("border", BORDERS)
+def test_sep_filter_kernel_sobel_i16_block_classes(cuda, border):
+    for shape in ((2, 40, 17, 1), (2, 40, 101, 3), (2, 33, 513, 1), (1, 256, 4096, 1)):
+        x = _rand(shape, border + shape[2]).to(cuda)
+        for kx, ky in (((-1, 0, 1), (1, 2, 1)), ((1, 2, 1), (-1, 0, 1))):
+            kw = dict(kx=kx, ky=ky, out_dtype=torch.int16, border=border)
+            assert torch.equal(sep_filter_int(x, **kw), sep_filter_int_plain(x, **kw)), shape
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 64, 1), (2, 41, 63, 1), (3, 120, 1920, 1)])
+def test_kernels_on_a_view_with_a_storage_offset(cuda, shape):
+    # x[1:] of a batch: contiguous, offset by one image (aligned to 16 bytes
+    # or not, which picks the kernels' word or byte-wise path)
+    x = _rand((shape[0] + 1, *shape[1:]), shape[2]).to(cuda)[1:].contiguous()
+    assert x.storage_offset() > 0
+    for kw in (dict(kx=_q8(5, 0.0), ky=_q8(5, 0.0), shift=16),
+               dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype=torch.int16)):
+        assert torch.equal(sep_filter_int(x, **kw), sep_filter_int_plain(x, **kw))
+    assert torch.equal(pyr_down_u8(x), pyr_down_u8_plain(x))
+
+
 def test_sep_filter_kernel_sobel_and_box(cuda):
     x = _rand((2, 70, 90, 1), 4).to(cuda)
     for kw in (dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype=torch.int16),
@@ -111,6 +156,20 @@ def test_pyr_down_kernel_equals_plain(cuda, border, cn):
         assert PYR_DOWN.launches == before + 1
         assert got.shape == (shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, cn)
         assert torch.equal(got, pyr_down_u8_plain(x, border)), shape
+
+
+PYR_CLASS_SHAPES = [(2, 33, 1025, 1), (2, 31, 1023, 1), (2, 65, 17, 1), (2, 63, 15, 1),
+                    (2, 97, 2047, 1), (1, 256, 4096, 1), (2, 33, 343, 3), (2, 35, 257, 4),
+                    (2, 34, 130, 2), (2, 66, 34, 4)]
+
+
+@pytest.mark.parametrize("border", PYR_BORDERS)
+@pytest.mark.parametrize("shape", PYR_CLASS_SHAPES, ids=[str(s) for s in PYR_CLASS_SHAPES])
+def test_pyr_down_kernel_block_classes(cuda, shape, border):
+    x = _rand(shape, shape[1] * shape[2] + border).to(cuda)
+    got = pyr_down_u8(x, border)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pyr_down_u8_plain(x, border))
 
 
 def test_build_pyramid_launches_the_kernel_at_every_level(cuda):

@@ -83,6 +83,77 @@ def test_sep_filter_constant_per_channel_and_delta_vs_pallas():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# The CUDA kernels' block classes (csrc/sepfilter.cu, csrc/pyrdown.cu): a
+# row is W*C bytes, a warp covers 512 output bytes in 16-byte words, strips
+# of rows; k = 3 and 5 have their own code, other k the generic kernel; rows
+# whose W*C is not a multiple of 16 take the byte-wise path.  The plain
+# versions, which the kernels are held to on the card, are held here to the
+# Pallas kernels at the same shapes: (name, (N, H, W, C)).
+SEP_CLASS_SHAPES = [
+    ("W 15", (2, 40, 15, 1)), ("W 17", (2, 40, 17, 1)), ("W 511", (2, 33, 511, 1)),
+    ("WC%16 C3", (2, 40, 101, 3)), ("WC%16 C4", (2, 40, 101, 4)),
+    ("H 127 C2", (1, 127, 160, 2)),
+]
+ALL_BORDERS = [JK.BORDER_CONSTANT, JK.BORDER_REPLICATE, JK.BORDER_REFLECT, JK.BORDER_WRAP,
+               JK.BORDER_REFLECT_101]
+
+
+@pytest.mark.parametrize("border", ALL_BORDERS)
+@pytest.mark.parametrize("k", [3, 5, 7, 31])
+def test_sep_filter_block_classes_vs_pallas(k, border):
+    kq = _q8(k, 0.0 if k < 7 else 1.0 + k / 8)
+    for name, shape in SEP_CLASS_SHAPES:
+        if k == 31 and shape[2] * shape[3] > 600:
+            continue  # the generic k = 31 path on the narrow shapes
+        x = np.random.default_rng(k * 100 + border * 10 + shape[2]).integers(0, 256, shape, np.uint8)
+        bv = (9, 99, 199, 250)[:shape[3]]
+        want = np.asarray(j_sep_filter_int(x, kq, kq, shift=16, border=border, border_value=bv,
+                                           interpret=True))
+        got = sep_filter_int_plain(torch.from_numpy(x), kq, kq, shift=16, border=border,
+                                   border_value=bv)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+
+
+@pytest.mark.parametrize("border", ALL_BORDERS)
+def test_sep_filter_sobel_i16_block_classes_vs_pallas(border):
+    for shape in ((2, 40, 17, 1), (2, 40, 101, 3)):
+        x = np.random.default_rng(border + shape[3]).integers(0, 256, shape, np.uint8)
+        want = np.asarray(j_sep_filter_int(x, (-1, 0, 1), (1, 2, 1), shift=0, out_dtype=jnp.int16,
+                                           border=border, interpret=True))
+        got = sep_filter_int_plain(torch.from_numpy(x), (-1, 0, 1), (1, 2, 1),
+                                   out_dtype=torch.int16, border=border)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sep_filter_and_pyr_down_storage_offset_vs_pallas():
+    # x[1:] of a batch is contiguous with a storage offset of one image,
+    # which the kernels' 16-byte alignment test sees
+    base = np.random.default_rng(8).integers(0, 256, (3, 41, 63, 1), np.uint8)
+    view = torch.from_numpy(base)[1:].contiguous()
+    assert view.storage_offset() == 41 * 63
+    kq = _q8(5, 0.0)
+    want = np.asarray(j_sep_filter_int(base[1:], kq, kq, shift=16, interpret=True))
+    np.testing.assert_array_equal(sep_filter_int_plain(view, kq, kq, shift=16).numpy(), want)
+    np.testing.assert_array_equal(pyr_down_u8_plain(view).numpy(),
+                                  np.asarray(j_pyr_down_u8(base[1:], interpret=True)))
+
+
+# pyr_down's block classes: a warp strip is 4 output rows (11 input rows) by
+# 512 output pixels (C = 1), rows staged in 16-byte words; odd H and W
+# around those widths and rows that are not a multiple of 16 bytes
+PYR_CLASS_SHAPES = [(2, 33, 1025, 1), (2, 31, 1023, 1), (2, 65, 17, 1), (2, 33, 343, 3),
+                    (2, 35, 257, 4), (2, 34, 130, 2)]
+
+
+@pytest.mark.parametrize("border", [JK.BORDER_REPLICATE, JK.BORDER_REFLECT, JK.BORDER_WRAP,
+                                    JK.BORDER_REFLECT_101])
+@pytest.mark.parametrize("shape", PYR_CLASS_SHAPES, ids=[str(s) for s in PYR_CLASS_SHAPES])
+def test_pyr_down_block_classes_vs_pallas(shape, border):
+    x = np.random.default_rng(shape[1] * shape[2] + border).integers(0, 256, shape, np.uint8)
+    want = np.asarray(j_pyr_down_u8(x, border=border, interpret=True))
+    np.testing.assert_array_equal(pyr_down_u8_plain(torch.from_numpy(x), border).numpy(), want)
+
+
 @pytest.mark.parametrize("sigma", [0.0, 1.5])
 def test_fused_gray_gauss5_down2_vs_pallas(sigma):
     imgs = np.random.default_rng(0).integers(0, 256, (2, 192, 256, 3), np.uint8)
