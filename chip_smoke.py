@@ -25,13 +25,24 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       forward exactly and cornerHarris be within HARRIS_RTOL/HARRIS_ATOL;
       then Canny on the batch smoothed by GaussianBlur 7x7 sigma 2.5, exact
       against the CPU, with its hysteresis iterations and host syncs;
+   c. BASELINE config 4: ``entry_match_morph("cuda")``'s forward
+      (matchTemplate TM_CCOEFF_NORMED with a 32x32 template, erode 3x3,
+      dilate 5x5, erode 9x9) on the (8, 1080, 1920, 1) batch, which launches
+      none of the kernels (its ops are plain torch); its shapes, the morph
+      outputs exactly and matchTemplate within MATCH_TOL against the CPU
+      plain forward on images 0 and 1; a template cut from image 0 at
+      (500, 900) found there with a score within MATCH_TOL of 1; and
+      goodFeaturesToTrack on the smoothed image 0, on the card and on the
+      CPU, whose corner sets must overlap by GFTT_OVERLAP;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
    the f32 rate if larger) and, where one PyTorch call computes the same
    multiply-accumulate, that call (``library_ms``: ``F.conv2d`` on a
-   pre-padded f32 copy, timed only here); each op of config 3; and the
-   whole forwards.  A kernel's share of its bound is bound_ms / ms.
+   pre-padded f32 copy, timed only here); each op of config 3; the whole
+   forwards; config 4's forward and ops; the pad inside one erode, whole and
+   its device work alone; and goodFeaturesToTrack's device part and host
+   tail apart.  A kernel's share of its bound is bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -58,6 +69,13 @@ WARP_MAX_FRACTION = 1e-3
 # port to against opencv_tpu
 HARRIS_RTOL = 1e-5
 HARRIS_ATOL = 1e-6
+# (matchTemplate) max |d| <= MATCH_TOL * max(1, max |ref|), the bound
+# tests/test_analysis.py holds the reference to against cv2
+MATCH_TOL = 1e-4
+# (goodFeaturesToTrack) the corner sets share this much of the larger one,
+# as tests/test_analysis.py compares them (the order of equal responses is
+# free)
+GFTT_OVERLAP = 0.85
 
 
 def log(msg: str) -> None:
@@ -134,6 +152,44 @@ def check_close(name, got, want, rtol, atol) -> float:
     if bool((d > bound).any()):
         raise AssertionError(f"{name}: {int((d > bound).sum())} values out of tolerance")
     return float(d.max())
+
+
+def check_rel(name, got, want, tol) -> float:
+    """Raise unless max |got - want| <= tol * max(1, max |want|); print and
+    return max |got - want|."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    d = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    log(f"{name}: max |d| {d:.6g}, bound {tol} * {scale:.6g}")
+    if d > tol * scale:
+        raise AssertionError(f"{name}: max |d| {d} over {tol * scale}")
+    return d
+
+
+def corner_overlap(got, want) -> tuple[int, int, int]:
+    """(shared, len got, len want) of two goodFeaturesToTrack results as
+    integer point sets."""
+    a = {tuple(p) for p in np.asarray(got).reshape(-1, 2).astype(int).tolist()}
+    b = {tuple(p) for p in np.asarray(want).reshape(-1, 2).astype(int).tolist()}
+    return len(a & b), len(a), len(b)
+
+
+def host_median(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Median wall time of fn in ms on the host clock (fn ends in a host
+    sync of its own)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def pyr_cases(K):
@@ -294,7 +350,9 @@ def main() -> int:
         gauss5_down2_u8_plain)
     from opencv_tpu_torch.kernels.sepfilter import (
         pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain)
+    from opencv_tpu_torch.core.borders import border_index, pad_nhwc
     from opencv_tpu_torch.ops.canny import HYST_CHECK_EVERY
+    from opencv_tpu_torch.ops.corners import _gftt_host_tail, good_features_response
     from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
 
     # -- 2. build
@@ -429,6 +487,44 @@ def main() -> int:
     log(f"Canny hysteresis (check every {HYST_CHECK_EVERY}): noise batch {st_noise}; "
         f"smoothed batch {st_gpu} on the card, images 0-1 {st_cpu} on the CPU")
 
+    # -- 4c. BASELINE config 4, and goodFeaturesToTrack
+    forward4, (x4, t4) = E.entry_match_morph("cuda")
+    outs4, cfg4 = run_counted(lambda: forward4(x4, t4))
+    log(f"config 4 path launches: {cfg4} (matchTemplate and the morphology are plain torch)")
+    N4, H4, W4, _ = E.SHAPE_CFG4
+    th, tw = t4.shape
+    for name, got, shape, dtype in zip(
+            ("matchTemplate", "erode 3x3", "dilate 5x5", "erode 9x9"), outs4,
+            [(N4, H4 - th + 1, W4 - tw + 1, 1)] + [E.SHAPE_CFG4] * 3,
+            [torch.float32] + [torch.uint8] * 3):
+        if tuple(got.shape) != shape or got.dtype != dtype:
+            raise AssertionError(f"config 4 {name}: {tuple(got.shape)} {got.dtype}, "
+                                 f"expected {shape} {dtype}")
+    want4 = forward4(x4[:2].cpu(), t4.cpu())
+    check_rel("config 4 matchTemplate vs CPU, images 0-1", outs4[0][:2].cpu(), want4[0],
+              MATCH_TOL)
+    for name, got, want in zip(("erode 3x3", "dilate 5x5", "erode 9x9"), outs4[1:4], want4[1:4]):
+        check_equal(f"config 4 {name} vs CPU, images 0-1", got[:2].cpu(), want)
+    if not torch.isfinite(outs4[4]):
+        raise AssertionError(f"config 4 total {outs4[4]}")
+    t_plant = x4[0, 500:532, 900:932, 0].clone()
+    m_plant = cv.matchTemplate(x4[:1], t_plant, cv.TM_CCOEFF_NORMED)[0, ..., 0]
+    best = divmod(int(m_plant.argmax()), m_plant.shape[1])
+    score = float(m_plant[best])
+    if best != (500, 900) or abs(score - 1.0) > MATCH_TOL:
+        raise AssertionError(f"planted template found at {best} with {score}, not (500, 900)")
+    log(f"config 4: shapes, morph outputs exact and matchTemplate within {MATCH_TOL} of the CPU "
+        f"plain forward on images 0-1; total {float(outs4[4])}; planted template at {best}, "
+        f"score {score:.7f}")
+    pts_gpu = cv.goodFeaturesToTrack(smooth[:1], 500, 0.01, 10)
+    pts_cpu = cv.goodFeaturesToTrack(smooth_cpu[:1], 500, 0.01, 10)
+    shared, n_gpu, n_cpu = corner_overlap(pts_gpu, pts_cpu)
+    if shared < GFTT_OVERLAP * max(n_gpu, n_cpu):
+        raise AssertionError(f"goodFeaturesToTrack: {shared} shared of {n_gpu} (card) and "
+                             f"{n_cpu} (CPU)")
+    log(f"goodFeaturesToTrack(smoothed image 0, 500, 0.01, 10): {n_gpu} corners on the card, "
+        f"{n_cpu} on the CPU, {shared} shared")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -480,6 +576,41 @@ def main() -> int:
         log(f"time op {name} (8,1080,1920,1): {timer(fn):.4f} ms  [{card}]")
     log(f"time forward_pyr_corner_edge (8,1080,1920,1): {timer(lambda: forward3(x3)):.4f} ms  "
         f"[{card}]")
+    # config 4, as the caller sees it (a pad's host-to-device copies of its
+    # index vectors come from pageable memory and wait for the queue, so
+    # no spin can hold the host part out of the window; the device part of
+    # each op is perf/profile_torch_forward.py --path cfg4's).  Bytes: each
+    # input read once, each output written once.
+    m_bytes = x4.numel() + outs4[0].numel() * 4
+    for name, fn, nbytes in (
+            ("forward_match_morph", lambda: forward4(x4, t4), None),
+            ("matchTemplate TM_CCOEFF_NORMED 32x32",
+             lambda: cv.matchTemplate(x4, t4, cv.TM_CCOEFF_NORMED), m_bytes),
+            ("erode 3x3", lambda: cv.erode(x4, np.ones((3, 3), np.uint8)), 2 * n1),
+            ("dilate 5x5", lambda: cv.dilate(x4, np.ones((5, 5), np.uint8)), 2 * n1),
+            ("erode 9x9", lambda: cv.erode(x4, np.ones((9, 9), np.uint8)), 2 * n1)):
+        extra = "" if nbytes is None else f", bytes bound {bound(nbytes, 0)[0]:.4f} ms"
+        log(f"time config 4 {name} (8,1080,1920,1): {timer(fn):.4f} ms{extra}  [{card}]")
+    # the pad inside erode 3x3, whole, and its device work alone: the same
+    # two gathers and fill with the index vectors already on the card
+    ridx, cidx = border_index(H4, 1, 1, cv.BORDER_CONSTANT), border_index(W4, 1, 1,
+                                                                          cv.BORDER_CONSTANT)
+    rows = torch.from_numpy(np.maximum(ridx, 0).astype(np.int64)).to(dev)
+    cols = torch.from_numpy(np.maximum(cidx, 0).astype(np.int64)).to(dev)
+    fill = torch.from_numpy((ridx < 0)[:, None] | (cidx < 0)[None, :]).to(dev)[None, :, :, None]
+    val = torch.full((1, 1, 1, 1), 255, dtype=torch.uint8, device=dev)
+    t_pad = timer(lambda: pad_nhwc(x4, 1, 1, 1, 1, cv.BORDER_CONSTANT, 255))
+    t_pad_dev = timer(lambda: torch.where(fill, val, x4.index_select(1, rows).index_select(2, cols)),
+                      device_only=True)
+    log(f"time config 4 pad inside erode 3x3 (pad_nhwc 1 px, constant) (8,1080,1920,1): "
+        f"{t_pad:.4f} ms, its device work alone {t_pad_dev:.4f} ms, host share "
+        f"{max(0.0, 1 - t_pad_dev / t_pad):.3f}, bytes bound "
+        f"{bound(n1 + N4 * (H4 + 2) * (W4 + 2), 0)[0]:.4f} ms  [{card}]")
+    eig, sel = good_features_response(smooth[:1], 500, 0.01)
+    t_resp = timer(lambda: good_features_response(smooth[:1], 500, 0.01))
+    t_tail = host_median(lambda: _gftt_host_tail(eig, sel, 500, 10))
+    log(f"time goodFeaturesToTrack (1,1080,1920,1) device part {t_resp:.4f} ms, host tail "
+        f"({int(sel.sum())} candidates) {t_tail:.4f} ms  [{card}]")
 
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
@@ -489,7 +620,7 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over both main paths (4a and 4b); the
+    # launches: the kernel's count over the main paths (4a, 4b, 4c); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel"),
@@ -498,7 +629,8 @@ def main() -> int:
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": flagship[sym] + cfg3[sym], "max_abs_err": max_err[name],
+                        "launches": flagship[sym] + cfg3[sym] + cfg4[sym],
+                        "max_abs_err": max_err[name],
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
                         "cases": [times[s] for s in shapes[name]]})

@@ -8,10 +8,11 @@ plain PyTorch throughout.  This package imports neither jax nor
 ``opencv_tpu``.
 
 Ported so far: the flagship preprocess path (cvtColor gray family,
-GaussianBlur, resize, warpAffine), the fused gray+blur+downsample entry, and
+GaussianBlur, resize, warpAffine), the fused gray+blur+downsample entry,
 the pyramid/corner/edge path of BASELINE config 3 (pyrDown, cornerHarris,
 Sobel, Canny) with the filter, derivative, pyramid and corner families
-around it.
+around it, and BASELINE config 4 (matchTemplate, erode, dilate,
+morphologyEx) with goodFeaturesToTrack, GFTTDetector and the KeyPoint API.
 """
 
 from .constants import *  # noqa: F401,F403
@@ -21,12 +22,20 @@ from .ops.filter import (  # noqa: F401
 )
 from .ops.deriv import Laplacian, Scharr, Sobel, getDerivKernels, spatialGradient  # noqa: F401
 from .ops.pyramids import buildPyramid, pyrDown, pyrUp  # noqa: F401
+from .ops.morph import (  # noqa: F401
+    dilate, erode, getStructuringElement, morphologyDefaultBorderValue, morphologyEx,
+)
 from .ops.corners import (  # noqa: F401
-    cornerEigenValsAndVecs, cornerHarris, cornerMinEigenVal, preCornerDetect,
+    cornerEigenValsAndVecs, cornerHarris, cornerMinEigenVal, goodFeaturesToTrack,
+    goodFeaturesToTrackWithQuality, preCornerDetect,
 )
 from .ops.canny import Canny  # noqa: F401
+from .ops.templmatch import matchTemplate  # noqa: F401
 from .ops.resize import resize  # noqa: F401
 from .ops.warp import getRotationMatrix2D, invertAffineTransform, warpAffine  # noqa: F401
+from .features2d import (  # noqa: F401
+    GFTTDetector, GFTTDetector_create, KeyPoint, KeyPoint_convert, KeyPoint_overlap,
+)
 
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
 from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401

@@ -11,6 +11,12 @@ batched NHWC u8 tensor; at the (8, 1080, 1920, 3) batch that is exactly
 ``3_pyr_corner_edge_1080p``): pyrDown, cornerHarris on x/255, Sobel u8→16S
 and Canny over an (N, 1080, 1920, 1) u8 batch; ``entry_pyr_corner_edge``
 gives it ``bench.py``'s batch at ``BATCH_1080`` = 8.
+
+``forward_match_morph`` is BASELINE config 4 (``4_match_morph_1080p``):
+matchTemplate TM_CCOEFF_NORMED with a 32×32 u8 template, erode 3×3,
+dilate 5×5 and erode 9×9 over the same (N, 1080, 1920, 1) u8 batch;
+``entry_match_morph`` draws the batch and then the template from one
+``default_rng(0)``, as ``bench.py`` does.
 """
 
 from __future__ import annotations
@@ -25,15 +31,20 @@ from .ops.color import cvtColor
 from .ops.corners import cornerHarris
 from .ops.deriv import Sobel
 from .ops.filter import GaussianBlur
+from .ops.morph import dilate, erode
 from .ops.pyramids import pyrDown
 from .ops.resize import resize
+from .ops.templmatch import matchTemplate
 from .ops.warp import getRotationMatrix2D, warpAffine
 
-__all__ = ["SHAPE", "SHAPE_CFG3", "entry", "entry_pyr_corner_edge", "make_batch", "preprocess",
-           "preprocess_fused", "warp", "forward", "forward_fused", "forward_pyr_corner_edge"]
+__all__ = ["SHAPE", "SHAPE_CFG3", "SHAPE_CFG4", "entry", "entry_pyr_corner_edge",
+           "entry_match_morph", "make_batch", "preprocess", "preprocess_fused", "warp", "forward",
+           "forward_fused", "forward_pyr_corner_edge", "forward_match_morph"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG3 = (8, 1080, 1920, 1)
+SHAPE_CFG4 = (8, 1080, 1920, 1)
+TEMPLATE_CFG4 = (32, 32)
 
 
 def make_batch(shape=SHAPE, seed: int = 0) -> np.ndarray:
@@ -98,3 +109,31 @@ def entry_pyr_corner_edge(device="cuda", shape=SHAPE_CFG3):
     """``(forward_pyr_corner_edge, (x,))`` with ``bench.py``'s config-3 batch
     (``default_rng(0)`` integers) on `device`."""
     return forward_pyr_corner_edge, (torch.from_numpy(make_batch(shape)).to(device),)
+
+
+def forward_match_morph(x, t):
+    """BASELINE config 4 over an (N, H, W, 1) u8 batch and a u8 template
+    (``bench.py:466-471``).
+
+    Returns ``(m, e3, d5, e9, total)``: matchTemplate TM_CCOEFF_NORMED,
+    erode 3×3, dilate 5×5, erode 9×9, and the float32 reduction ``bench.py``
+    takes of them (the f32 sum of ``m`` plus each morph output's int32 sum,
+    added in f32)."""
+    m = matchTemplate(x, t, K.TM_CCOEFF_NORMED)
+    e3 = erode(x, np.ones((3, 3), np.uint8))
+    d5 = dilate(x, np.ones((5, 5), np.uint8))
+    e9 = erode(x, np.ones((9, 9), np.uint8))
+    total = m.sum()
+    for v in (e3, d5, e9):
+        total = total + _wrap_int32(v.sum(dtype=torch.int64)).to(torch.float32)
+    return m, e3, d5, e9, total
+
+
+def entry_match_morph(device="cuda", shape=SHAPE_CFG4):
+    """``(forward_match_morph, (x, t))`` with ``bench.py``'s config-4 batch
+    and then its 32×32 template, both from one ``default_rng(0)``, on
+    `device`."""
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    t = rng.integers(0, 256, size=TEMPLATE_CFG4, dtype=np.uint8)
+    return forward_match_morph, (torch.from_numpy(x).to(device), torch.from_numpy(t).to(device))

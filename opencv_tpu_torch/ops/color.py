@@ -3,8 +3,8 @@
 Ported so far: the gray family (BGR/BGRA/RGB/RGBA → GRAY).  Integer inputs
 use the reference's Q15 coefficients ``RY15=9798, GY15=19235, BY15=3735``
 (sum exactly 2^15) with ``CV_DESCALE`` rounding in int32
-(`imgproc/src/color.simd_helpers.hpp:16,22-24`); float inputs the float
-coefficients, in the input's dtype.  Every other code raises
+(`imgproc/src/color.simd_helpers.hpp:16,22-24`); float32 inputs the float
+coefficients.  Other depths raise, as in cv2.  Every other code raises
 ``NotImplementedError`` until its slice is ported (ROADMAP.md, queue A2).
 
 The dispatcher mirrors `cv::cvtColor`'s switch as a registry keyed on the
@@ -38,7 +38,15 @@ def _register(*codes):
     return deco
 
 
+# the depths cv2's gray conversion takes (CvtHelper's VDepth = Set<CV_8U,
+# CV_16U, CV_32F>, color.simd_helpers.hpp:94); the JAX package takes any
+_GRAY_DTYPES = (torch.uint8, torch.uint16, torch.float32)
+
+
 def _rgb_to_gray(x, r, g, b):
+    if x.dtype not in _GRAY_DTYPES:
+        raise ValueError(f"cvtColor to gray takes uint8, uint16 or float32 input, as cv2 does; "
+                         f"got {x.dtype}")
     if not x.is_floating_point():
         xi = x.to(torch.int32)
         y = descale(xi[..., r] * RY15 + xi[..., g] * GY15 + xi[..., b] * BY15, GRAY_SHIFT)

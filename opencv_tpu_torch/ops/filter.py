@@ -202,7 +202,8 @@ def GaussianBlur(src, ksize, sigmaX: float, sigmaY: float = 0.0,
     (imgproc/src/smooth.dispatch.cpp:609).
 
     u8 inputs take the bit-exact Q8 fixed-point path (default hint); other
-    dtypes use float32 separable filtering.
+    dtypes use separable filtering in float32, or in float64 for a float64
+    input (the JAX package filters that in float32 too).
     """
     # imported here, not at the top: kernels.fused_preproc imports this module
     from ..kernels.sepfilter import sep_filter_int_plain
@@ -238,7 +239,7 @@ def GaussianBlur(src, ksize, sigmaX: float, sigmaY: float = 0.0,
         else:
             y = sep_filter_int_plain(x, kx, ky, shift=2 * bits, border=borderType)
     else:
-        acc = _sep_correlate_float(x, kxf, kyf, borderType)
+        acc = _sep_correlate_float(x, kxf, kyf, borderType, dtype=_float_dtype(x.dtype))
         y = saturate_cast(acc, x.dtype) if not x.is_floating_point() else acc.to(x.dtype)
     return from_batched(y, meta)
 

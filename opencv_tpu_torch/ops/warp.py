@@ -11,6 +11,11 @@ workaround and is not carried over).  After the blend: ``saturate_cast``,
 then the BORDER_CONSTANT rule that a window lying wholly outside the image
 takes the border value (remapBilinear, imgwarp.cpp:820).
 
+CV_16S and CV_64F images take cv2 5.0's fixed-point map instead: the
+coordinate in Q10, the fraction rounded to 1/32, and for CV_64F the blend
+in f64.  That equals cv2 and differs from the JAX package, which takes the
+exact fraction at every depth.
+
 Ported so far: INTER_LINEAR with all five border modes and any
 borderValue (with and without WARP_INVERSE_MAP).  Other interpolations,
 warpPerspective and remap raise or are absent (ROADMAP.md, queue A5).
@@ -89,7 +94,7 @@ def _resolve_tap(coord, length, border_type):
 
 
 def _cval_vec(border_value, dtype, C):
-    """cv::Scalar border value as f32 per channel: a scalar fills channel 0
+    """cv::Scalar border value as f64 per channel: a scalar fills channel 0
     only, like cv2; integer images round and clip it (warp.py:_cval_vec)."""
     bval = np.zeros(4, np.float64)
     bv = (np.asarray(border_value, np.float64).reshape(-1)
@@ -98,26 +103,30 @@ def _cval_vec(border_value, dtype, C):
     if not dtype.is_floating_point:
         info = torch.iinfo(dtype)
         bval = np.clip(np.rint(bval), info.min, info.max)
-    return torch.from_numpy(bval[[k & 3 for k in range(C)]].astype(np.float32))
+    return torch.from_numpy(bval[[k & 3 for k in range(C)]])
 
 
 def _remap_linear(x, x0, fx, y0, fy, border_type, border_value):
     """Bilinear remap: int64 tap planes x0/y0 and f32 fractions fx/fy of
-    shape (dh, dw) → (N, dh, dw, C)."""
+    shape (dh, dw) → (N, dh, dw, C).  The weights are f32 products; the
+    blend runs in f64 for an f64 image (as cv2's remapBilinear promotes
+    them), in f32 otherwise."""
     N, H, W, C = x.shape
     dh, dw = x0.shape
+    acc_dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
     cval = _cval_vec(border_value, x.dtype, C).to(x.device)
-    cval_t = cval.to(x.dtype).to(torch.float32).reshape(1, 1, C)
+    cval_t = cval.to(x.dtype).to(acc_dtype).reshape(1, 1, C)
     flat = x.reshape(N, H * W, C)
 
     fxf = fx.reshape(1, -1, 1)
     fyf = fy.reshape(1, -1, 1)
-    wts = [(1 - fxf) * (1 - fyf), fxf * (1 - fyf), (1 - fxf) * fyf, fxf * fyf]
+    wts = [w.to(acc_dtype) for w in
+           ((1 - fxf) * (1 - fyf), fxf * (1 - fyf), (1 - fxf) * fyf, fxf * fyf)]
     acc = None
     for t, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
         xi, xm = _resolve_tap(x0 + dx, W, border_type)
         yi, ym = _resolve_tap(y0 + dy, H, border_type)
-        g = flat.index_select(1, (yi * W + xi).reshape(-1)).to(torch.float32)
+        g = flat.index_select(1, (yi * W + xi).reshape(-1)).to(acc_dtype)
         g = torch.where((xm | ym).reshape(1, -1, 1), cval_t, g)
         term = g * wts[t]
         acc = term if acc is None else acc + term
@@ -136,6 +145,28 @@ def _floor_frac(v):
     in range."""
     f = torch.floor(v)
     return f.clamp(-1e9, 1e9).to(torch.int64), (v - f).to(torch.float32)
+
+
+# cv2's fixed-point map (imgwarp.cpp, WarpAffineInvoker): AB_BITS of the
+# coordinate, then INTER_BITS of the fraction
+AB_BITS, INTER_BITS = 10, 5
+
+
+def _q5_floor_frac(col, row, device):
+    """floor and Q5 fraction of the map ``row[:, None] + col[None, :]`` as
+    cv2 5.0 takes it for CV_16S and CV_64F images: each part rounded to
+    Q10 (``saturate_cast<int>``), their sum plus half a Q5 step shifted to
+    Q5 (``X = (X0 + adelta[x]) >> (AB_BITS - INTER_BITS)``).  The other
+    depths take the exact fraction (:func:`_floor_frac`), as cv2 5.0's
+    warp kernels for 8U, 16U and 32F do."""
+    def q10(v):
+        v = np.clip(np.rint(v * (1 << AB_BITS)), -2 ** 31, 2 ** 31 - 1).astype(np.int64)
+        return torch.from_numpy(v).to(device)
+
+    half = 1 << (AB_BITS - INTER_BITS - 1)
+    q = (q10(row)[:, None] + half + q10(col)[None, :]) >> (AB_BITS - INTER_BITS)
+    frac = (q & ((1 << INTER_BITS) - 1)).to(torch.float32) / (1 << INTER_BITS)
+    return q >> INTER_BITS, frac
 
 
 def warpAffine(src, M, dsize, flags: int = K.INTER_LINEAR,
@@ -159,11 +190,14 @@ def warpAffine(src, M, dsize, flags: int = K.INTER_LINEAR,
     def dev(v):
         return torch.from_numpy(v).to(x.device)
 
-    # rank-1 map decomposition (per-row + per-column f64 vectors, as
-    # opencv_tpu/ops/warp.py:925-928), reassembled in real f64
-    X = dev(m[1] * ys + m[2])[:, None] + dev(m[0] * xs)[None, :]
-    Y = dev(m[4] * ys + m[5])[:, None] + dev(m[3] * xs)[None, :]
-    x0, fx = _floor_frac(X)
-    y0, fy = _floor_frac(Y)
+    if x.dtype in (torch.int16, torch.float64):
+        # a divergence from opencv_tpu, which takes the exact fraction here
+        x0, fx = _q5_floor_frac(m[0] * xs, m[1] * ys + m[2], x.device)
+        y0, fy = _q5_floor_frac(m[3] * xs, m[4] * ys + m[5], x.device)
+    else:
+        # rank-1 map decomposition (per-row + per-column f64 vectors, as
+        # opencv_tpu/ops/warp.py:925-928), reassembled in real f64
+        x0, fx = _floor_frac(dev(m[1] * ys + m[2])[:, None] + dev(m[0] * xs)[None, :])
+        y0, fy = _floor_frac(dev(m[4] * ys + m[5])[:, None] + dev(m[3] * xs)[None, :])
     y = _remap_linear(x, x0, fx, y0, fy, borderMode, borderValue)
     return from_batched(y, meta)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--path flagship|cfg3] [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path flagship|cfg3|cfg4] [--iters 5] [--table PATH]
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg3`` runs
-BASELINE config 3 (pyrDown, cornerHarris, Sobel, Canny) on the
+BASELINE config 3 (pyrDown, cornerHarris, Sobel, Canny) and ``--path
+cfg4`` BASELINE config 4 (matchTemplate, erode, dilate, erode) on the
 (8, 1080, 1920, 1) batch.  Each runs under ``torch.profiler`` with one
 ``record_function`` span per stage.  Prints, per stage, the time between
 CUDA events around it (median of 20, unprofiled) beside the device time of
@@ -23,6 +24,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -53,7 +55,17 @@ def cfg3_stages():
             ("Canny", lambda _: cv.Canny(x, 50, 150))]
 
 
-PATHS = {"flagship": flagship_stages, "cfg3": cfg3_stages}
+def cfg4_stages():
+    """BASELINE config 4's four ops (``entry.forward_match_morph`` without
+    its final reduction), each on the input batch."""
+    _, (x, t) = E.entry_match_morph("cuda")
+    return [("matchTemplate", lambda _: cv.matchTemplate(x, t, cv.TM_CCOEFF_NORMED)),
+            ("erode3", lambda _: cv.erode(x, np.ones((3, 3), np.uint8))),
+            ("dilate5", lambda _: cv.dilate(x, np.ones((5, 5), np.uint8))),
+            ("erode9", lambda _: cv.erode(x, np.ones((9, 9), np.uint8)))]
+
+
+PATHS = {"flagship": flagship_stages, "cfg3": cfg3_stages, "cfg4": cfg4_stages}
 
 
 def staged(stages, marks=None):

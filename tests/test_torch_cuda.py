@@ -194,3 +194,82 @@ def test_pyr_corner_edge_on_the_card_equals_cpu(cuda):
             torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
         else:
             assert torch.equal(g.cpu(), w), name
+
+
+# ---------------------------------------------------------------- config 4 and GFTT
+# (plain torch on both devices: the card's result equals the CPU's, exactly
+# where the arithmetic is integer, min/max or f64, within the float bound of
+# tests/test_torch_templmatch.py for matchTemplate)
+
+@pytest.mark.parametrize("op", [tcv.MORPH_ERODE, tcv.MORPH_DILATE, tcv.MORPH_OPEN,
+                                tcv.MORPH_GRADIENT, tcv.MORPH_BLACKHAT])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int16, torch.float32])
+def test_morphology_on_the_card_equals_cpu(cuda, dtype, op):
+    rng = np.random.default_rng(op)
+    x = torch.from_numpy(rng.integers(0, 65536, (2, 45, 67, 3))).to(dtype)
+    ellipse = tcv.getStructuringElement(tcv.MORPH_ELLIPSE, (7, 5))
+    for kernel, kw in ((np.ones((5, 3), np.uint8), dict(iterations=3)),
+                       (ellipse, dict(borderType=tcv.BORDER_REFLECT_101)),
+                       (ellipse, dict(borderValue=9))):
+        got = tcv.morphologyEx(x.to(cuda), op, kernel, **kw)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), tcv.morphologyEx(x, op, kernel, **kw)), kw
+
+
+@pytest.mark.parametrize("tsize", [(8, 8), (32, 32)])
+@pytest.mark.parametrize("method", [tcv.TM_SQDIFF, tcv.TM_SQDIFF_NORMED, tcv.TM_CCORR,
+                                    tcv.TM_CCORR_NORMED, tcv.TM_CCOEFF, tcv.TM_CCOEFF_NORMED])
+def test_match_template_on_the_card_equals_cpu(cuda, method, tsize):
+    x = _rand((2, 120, 160, 1), method)
+    t = x[0, 30:30 + tsize[0], 40:40 + tsize[1], 0].clone()
+    got = tcv.matchTemplate(x.to(cuda), t.to(cuda), method).cpu()
+    want = tcv.matchTemplate(x, t, method)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    if method != tcv.TM_CCORR:
+        best = got[0, ..., 0].argmin() if method < tcv.TM_CCORR else got[0, ..., 0].argmax()
+        assert divmod(int(best), got.shape[2]) == (30, 40)
+
+
+def test_match_template_masked_on_the_card_equals_cpu(cuda):
+    x = _rand((1, 60, 80, 3), 3)
+    t = _rand((16, 12, 3), 4)
+    mask = (np.random.default_rng(5).random((16, 12)) > 0.3).astype(np.uint8)
+    for method in range(6):
+        got = tcv.matchTemplate(x.to(cuda), t.to(cuda), method, mask=mask).cpu()
+        want = tcv.matchTemplate(x, t, method, mask=mask)
+        assert float((got - want).abs().max()) <= 1e-6 * max(1.0, float(want.abs().max()))
+
+
+def test_match_morph_on_the_card_equals_cpu(cuda):
+    _, (x, t) = E.entry_match_morph("cpu", (2, 96, 128, 1))
+    reset_tier_stats()
+    got = E.forward_match_morph(x.to(cuda), t.to(cuda))
+    assert tier_stats() == {}
+    want = E.forward_match_morph(x, t)
+    m, mw = got[0].cpu(), want[0]
+    assert float((m - mw).abs().max()) <= 1e-4 * max(1.0, float(mw.abs().max()))
+    for g, w in zip(got[1:4], want[1:4]):
+        assert torch.equal(g.cpu(), w)
+    assert abs(float(got[4]) - float(want[4])) <= 1e-5 * abs(float(want[4]))
+
+
+@pytest.mark.parametrize("harris", [False, True])
+def test_good_features_to_track_on_the_card(cuda, harris):
+    x = tcv.GaussianBlur(_rand((1, 120, 160, 1), 6), (7, 7), 2.5)
+    kw = dict(useHarrisDetector=harris)
+    got = tcv.goodFeaturesToTrack(x.to(cuda), 100, 0.01, 5, **kw)
+    want = tcv.goodFeaturesToTrack(x, 100, 0.01, 5, **kw)
+    a = {tuple(p) for p in got.reshape(-1, 2).astype(int).tolist()}
+    b = {tuple(p) for p in want.reshape(-1, 2).astype(int).tolist()}
+    assert len(a & b) >= (0.8 if harris else 0.85) * max(len(a), len(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float64])
+def test_warp_q5_map_on_the_card_equals_cpu(cuda, dtype):
+    x = torch.from_numpy(np.random.default_rng(7).integers(-3000, 3000, (2, 48, 64, 3))).to(dtype)
+    M = np.array([[0.9, 0.2, 3.3], [-0.25, 1.1, -4.2]])
+    for border in BORDERS:
+        got = tcv.warpAffine(x.to(cuda), M, (70, 50), borderMode=border, borderValue=(7, 8, 9))
+        assert torch.equal(got.cpu(), tcv.warpAffine(x, M, (70, 50), borderMode=border,
+                                                     borderValue=(7, 8, 9))), border

@@ -97,6 +97,22 @@ def test_sep_filter2d_cv64f_is_real_f64():
                                rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("border", CV2_SEP_BORDERS)
+@pytest.mark.parametrize("ksize, sigma", [((5, 5), 1.5), ((7, 3), 0.0), ((0, 0), 2.0)])
+def test_gaussian_blur_f64_is_real_f64(ksize, sigma, border):
+    x = np.random.default_rng(border).random((2, 21, 26, 3)) * 255
+    got = _port(tcv.GaussianBlur, x, ksize, sigma, borderType=border)
+    assert got.dtype == np.float64
+    for i in range(2):
+        np.testing.assert_allclose(got[i], cv2.GaussianBlur(x[i], ksize, sigma, borderType=border),
+                                   rtol=0, atol=1e-12)
+    # divergence from opencv_tpu, which filters f64 input in f32 and returns f32
+    want = np.asarray(jcv.GaussianBlur(x, ksize, sigma, borderType=border))
+    assert want.dtype == np.float32
+    assert np.abs(want - got).max() > 1e-8
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
 # ------------------------------------------------------------ box filters
 
 @pytest.mark.parametrize("border", BORDERS)

@@ -28,21 +28,32 @@ def _assert_warp_close(ours, ref, msg=""):
     assert np.count_nonzero(d) <= d.size // 1000, f"{msg} {np.count_nonzero(d)} differ"
 
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
 @pytest.mark.parametrize("code", GRAY_CODES)
 def test_cvtcolor_gray(code, dtype):
     rng = np.random.default_rng(code)
     cn = 4 if code in (tcv.COLOR_BGRA2GRAY, tcv.COLOR_RGBA2GRAY) else 3
-    if dtype == np.uint8:
-        x = rng.integers(0, 256, (2, 9, 13, cn), np.uint8)
-    else:
+    if dtype == np.float32:
         x = rng.random((2, 9, 13, cn), dtype=np.float32)
+    else:
+        x = rng.integers(0, np.iinfo(dtype).max + 1, (2, 9, 13, cn)).astype(dtype)
     want = np.asarray(jcv.cvtColor(x, code))
     got = _port(tcv.cvtColor, x, code)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    if dtype == np.uint8:
+    if dtype != np.float32:
         np.testing.assert_array_equal(got[1, ..., 0], cv2.cvtColor(x[1], code))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.int16])
+def test_cvtcolor_gray_refuses_depths_cv2_refuses(dtype):
+    x = (np.random.default_rng(5).random((2, 9, 13, 3)) * 255).astype(dtype)
+    with pytest.raises(cv2.error):
+        cv2.cvtColor(x[0], cv2.COLOR_BGR2GRAY)
+    with pytest.raises(ValueError, match="uint8, uint16 or float32"):
+        tcv.cvtColor(torch.from_numpy(x), tcv.COLOR_BGR2GRAY)
+    # divergence from opencv_tpu, which converts these depths
+    assert np.asarray(jcv.cvtColor(x, jcv.COLOR_BGR2GRAY)).shape == (2, 9, 13, 1)
 
 
 def test_cvtcolor_unported_code_raises():
@@ -165,3 +176,46 @@ def test_warp_affine_inverse_map_and_unported():
     _assert_warp_close(got, cv2.warpAffine(x, M, (40, 40), flags=flags))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcv.warpAffine(torch.from_numpy(x), M, (40, 40), flags=tcv.INTER_NEAREST)
+
+
+# (dtype, input range, max |d| allowed against cv2, share of pixels that may
+# differ).  cv2 5.0 warps 8U, 16U and 32F with the exact fraction of the map,
+# as the port does, in another arithmetic order: u8 within the warp bound
+# above, u16 +-1 (full-range noise) and f32 (noise in 0..255) within 2e-3.
+# (u8 differs on up to 0.24% of pixels with this map.)  16S and 64F go through cv2's fixed-point map (a Q5 fraction), which the
+# port reproduces: equal.
+WARP_DEPTHS = {
+    "uint8": (np.uint8, 256, 1, 5e-3),
+    "uint16": (np.uint16, 65536, 1, 4e-2),
+    "int16": (np.int16, 30000, 0, 0),
+    "float32": (np.float32, 255, 2e-3, 1.0),
+    "float64": (np.float64, 255, 0, 0),
+}
+
+
+@pytest.mark.parametrize("border", BORDERS)
+@pytest.mark.parametrize("depth", list(WARP_DEPTHS))
+def test_warp_affine_linear_depths_against_cv2(depth, border):
+    dtype, hi, max_d, share = WARP_DEPTHS[depth]
+    rng = np.random.default_rng(border)
+    if np.dtype(dtype).kind == "f":
+        x = (rng.random((2, 48, 64, 3)) * hi).astype(dtype)
+    else:
+        x = rng.integers(-hi if dtype == np.int16 else 0, hi, (2, 48, 64, 3)).astype(dtype)
+    M = np.array([[0.9, 0.2, 3.3], [-0.25, 1.1, -4.2]])
+    kw = dict(borderMode=border, borderValue=(7.25, 8, 9))
+    got = _port(tcv.warpAffine, x, M, (70, 50), **kw)
+    assert got.dtype == dtype
+    for i in range(2):
+        ref = cv2.warpAffine(x[i], M, (70, 50), **kw)
+        d = np.abs(got[i].astype(np.float64) - ref)
+        assert d.max() <= max_d, f"image {i}: max |d| {d.max()}"
+        assert np.count_nonzero(d) <= share * d.size, f"image {i}: {np.count_nonzero(d)} differ"
+    want = np.asarray(jcv.warpAffine(x, M, (70, 50), **kw)).astype(np.float64)
+    if depth in ("int16", "float64"):
+        # divergence from opencv_tpu, which takes the exact fraction here
+        # (opencv_tpu/ops/warp.py, _floor_frac_dd) and is far from cv2
+        ref = cv2.warpAffine(x[0], M, (70, 50), **kw)
+        assert np.abs(want[0] - ref).max() > 1
+    else:
+        assert np.abs(got - want).max() <= max_d
