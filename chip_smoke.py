@@ -9,7 +9,8 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
 2. build: compiles the CUDA kernels from ``opencv_tpu_torch/csrc`` (nvcc);
 3. kernels: each kernel (sep_filter, gauss5_down2, pyr_down) equals its
    plain PyTorch version bit for bit (``torch.equal``) on the whole batch at
-   the main paths' shapes, with the taps and borders those paths give it,
+   the main paths' shapes, with the taps and borders those paths give it
+   (sep_filter's generic k = 7 kernel at each of ORB's 8 level shapes too),
    and on edge cases (borders, channel counts, odd and tiny sizes);
 4. main paths, each read with the launch counts set to 0 just before it:
    a. the flagship: ``entry("cuda")``'s forward and the fused forward on the
@@ -34,6 +35,17 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       (500, 900) found there with a score within MATCH_TOL of 1; and
       goodFeaturesToTrack on the smoothed image 0, on the card and on the
       CPU, whose corner sets must overlap by GFTT_OVERLAP;
+   d. BASELINE config 5: ``entry_orb("cuda")``'s forward (ORB, nfeatures=500)
+      on the (8, 1080, 1920) batch; sep_filter must have launched 8 times
+      (the 7x7 blur of each pyramid level) and no other kernel; on images 0
+      and 1 the keypoints and descriptors are held to the CPU plain forward
+      exactly (the same keypoints, responses, angles and descriptors);
+      image 0's 8 levels (the LINEAR_EXACT resize, FAST's score and mask,
+      the blur) equal the CPU's exactly; ``ORB.compute`` on the card at
+      image 0's keypoints gives the forward's descriptors through 8
+      sep_filter launches; and
+      BFMatcher(NORM_HAMMING, crossCheck) on image 0's descriptors against
+      image 1's gives the CPU's pairs and distances;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -41,8 +53,12 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    multiply-accumulate, that call (``library_ms``: ``F.conv2d`` on a
    pre-padded f32 copy, timed only here); each op of config 3; the whole
    forwards; config 4's forward and ops; the pad inside one erode, whole and
-   its device work alone; and goodFeaturesToTrack's device part and host
-   tail apart.  A kernel's share of its bound is bound_ms / ms.
+   its device work alone; goodFeaturesToTrack's device part and host
+   tail apart; config 5's forward on the host clock, its host syncs, and its
+   stages (level-0 FAST, one LINEAR_EXACT step, torch.topk on the pooled
+   and the unpooled level-0 map, level 0's sparse Harris/IC/descriptor
+   stage, the device rows and the host tail) and BFMatcher at 500 x 500.
+   A kernel's share of its bound is bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -76,6 +92,10 @@ MATCH_TOL = 1e-4
 # as tests/test_analysis.py compares them (the order of equal responses is
 # free)
 GFTT_OVERLAP = 0.85
+# (ORB) card vs CPU plain forward, per image: the same keypoint set keyed by
+# (octave, x, y), and per key the same response, angle and descriptor.  No
+# tolerance: cos and sin are taken in float64 and rounded to float32, and
+# every other float op runs alone on both devices (no fused multiply-add).
 
 
 def log(msg: str) -> None:
@@ -179,6 +199,40 @@ def corner_overlap(got, want) -> tuple[int, int, int]:
     return len(a & b), len(a), len(b)
 
 
+def orb_compare(name, got, want) -> str:
+    """Raise unless one image's ORB result on the card equals the CPU's
+    (the same keypoints, responses, angles and descriptors); return a
+    summary line."""
+    g = {(k.octave, k.pt[0], k.pt[1]): (k, d) for k, d in zip(*got)}
+    w = {(k.octave, k.pt[0], k.pt[1]): (k, d) for k, d in zip(*want)}
+    if g.keys() != w.keys():
+        raise AssertionError(f"{name}: {len(g.keys() & w.keys())} keypoints shared of {len(g)} "
+                             f"(card) and {len(w)} (CPU)")
+    for key, (kw, dw) in w.items():
+        kg, dg = g[key]
+        if (kg.response, kg.angle) != (kw.response, kw.angle) or not np.array_equal(dg, dw):
+            raise AssertionError(f"{name} at {key}: response {kg.response} / {kw.response}, "
+                                 f"angle {kg.angle} / {kw.angle}, "
+                                 f"{int(np.unpackbits(dg ^ dw).sum())} descriptor bits differ")
+    return (f"{name}: the same {len(w)} keypoints, responses, angles and descriptors on the "
+            f"card and the CPU")
+
+
+def count_syncs(fn) -> int:
+    """Run fn once with torch's sync debug mode on; return the number of
+    operations that made the host wait for the card."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(c.message) for c in caught)
+
+
 def host_median(fn, iters: int = 20, warmup: int = 2) -> float:
     """Median wall time of fn in ms on the host clock (fn ends in a host
     sync of its own)."""
@@ -214,8 +268,9 @@ def pyr_cases(K):
     return cases
 
 
-def sep_cases(K, gauss_taps):
-    """(name, shape, kwargs of sep_filter_int) for phase 3."""
+def sep_cases(K, gauss_taps, orb_sizes):
+    """(name, shape, kwargs of sep_filter_int) for phase 3; `orb_sizes` are
+    the (width, height) of ORB's pyramid levels at 1080p."""
     borders = {"CONSTANT": K.BORDER_CONSTANT, "REPLICATE": K.BORDER_REPLICATE,
                "REFLECT": K.BORDER_REFLECT, "WRAP": K.BORDER_WRAP,
                "REFLECT_101": K.BORDER_REFLECT_101}
@@ -223,6 +278,12 @@ def sep_cases(K, gauss_taps):
     cases = [("main gauss k5 s0 REFLECT_101", main,
               dict(kx=gauss_taps(5, 0.0), ky=gauss_taps(5, 0.0), shift=16,
                    border=K.BORDER_REFLECT_101)),
+             # config 5: ORB's GaussianBlur 7x7 sigma 2 of every level, the
+             # generic kernel
+             *((f"main orb k7 level {lv} {(h, w)}", (8, h, w, 1),
+                dict(kx=gauss_taps(7, 2.0), ky=gauss_taps(7, 2.0), shift=16,
+                     border=K.BORDER_REFLECT_101))
+               for lv, (w, h) in enumerate(orb_sizes)),
              # config 3: Sobel(x, CV_16S, 1, 0), and Canny's dx and dy
              ("main sobel dx i16 REFLECT_101", main,
               dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16",
@@ -354,6 +415,9 @@ def main() -> int:
     from opencv_tpu_torch.ops.canny import HYST_CHECK_EVERY
     from opencv_tpu_torch.ops.corners import _gftt_host_tail, good_features_response
     from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
+    from opencv_tpu_torch.features2d import orb as orb_mod
+    from opencv_tpu_torch.features2d.fast import fast_keypoint_mask
+    from opencv_tpu_torch.features2d.matchers import hamming_distance_matrix
 
     # -- 2. build
     t0 = time.perf_counter()
@@ -367,7 +431,8 @@ def main() -> int:
 
     rng = np.random.default_rng(1)
     max_err = {}
-    cases = sep_cases(cv, gauss_taps)
+    sizes5 = orb_mod.level_sizes(1080, 1920)
+    cases = sep_cases(cv, gauss_taps, sizes5)
     for name, shape, kw in cases:
         x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
         err = check_equal(f"sep_filter {name}", sep_filter_int(x, **kw),
@@ -525,6 +590,57 @@ def main() -> int:
     log(f"goodFeaturesToTrack(smoothed image 0, 500, 0.01, 10): {n_gpu} corners on the card, "
         f"{n_cpu} on the CPU, {shared} shared")
 
+    # -- 4d. BASELINE config 5: ORB, then BFMatcher on its descriptors
+    forward5, (x5, orb5) = E.entry_orb("cuda")
+    res5, cfg5 = run_counted(lambda: forward5(x5, orb5))
+    log(f"config 5 path launches: {cfg5}")
+    if (cfg5["opencv_sep_filter"] != 8 or cfg5["opencv_pyr_down"]
+            or cfg5["opencv_gauss5_down2"]):
+        raise AssertionError(f"config 5 path: sep_filter must launch 8 times and no other "
+                             f"kernel, got {cfg5}")
+    if len(res5) != E.SHAPE_CFG5[0]:
+        raise AssertionError(f"config 5: {len(res5)} results for {E.SHAPE_CFG5[0]} images")
+    for i, (kps, desc) in enumerate(res5):
+        if not (0 < len(kps) <= 2 * orb5.nfeatures and desc.shape == (len(kps), 32)
+                and desc.dtype == np.uint8 and {k.octave for k in kps} == set(range(8))
+                and all(np.isfinite([k.pt[0], k.pt[1], k.angle, k.response]).all()
+                        for k in kps)):
+            raise AssertionError(f"config 5 image {i}: {len(kps)} keypoints, descriptors "
+                                 f"{desc.shape} {desc.dtype}")
+    res5_cpu = forward5(x5[:2].cpu(), cv.ORB_create(nfeatures=500))
+    for i in range(2):
+        log(orb_compare(f"config 5 image {i} vs CPU", res5[i], res5_cpu[i]))
+    cur_g, cur_c = x5[:1, ..., None], x5[:1, ..., None].cpu()
+    for lv, size in enumerate(sizes5):
+        if lv:
+            cur_g = cv.resize(cur_g, size, interpolation=cv.INTER_LINEAR_EXACT)
+            cur_c = cv.resize(cur_c, size, interpolation=cv.INTER_LINEAR_EXACT)
+            check_equal(f"config 5 image 0 level {lv} resize vs CPU", cur_g.cpu(), cur_c)
+        for what, g, c in zip(("FAST score", "FAST mask", "blur 7x7"),
+                              orb_mod._level_maps(cur_g, orb5.fast_threshold),
+                              orb_mod._level_maps(cur_c, orb5.fast_threshold)):
+            check_equal(f"config 5 image 0 level {lv} {what} vs CPU", g.cpu(), c)
+    log(f"config 5: image 0's 8 levels (resize, FAST score and mask, blur) equal the CPU's; "
+        f"{[len(k) for k, _ in res5]} keypoints per image")
+    before = {k.symbol: k.launches for k in KERNELS}
+    desc_c = orb5.compute(x5[0], res5[0][0])[1]
+    launched = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+    if not np.array_equal(desc_c, res5[0][1]) or launched != {**cfg5, "opencv_sep_filter": 8}:
+        raise AssertionError(f"ORB.compute on the card: {launched} launches, "
+                             f"{int((desc_c != res5[0][1]).any(1).sum())} descriptors differ")
+    log(f"ORB.compute on the card, image 0's {len(desc_c)} keypoints: the forward's "
+        f"descriptors, 8 sep_filter launches")
+    d0, d1 = res5[0][1], res5[1][1]
+    bf = cv.BFMatcher(cv.NORM_HAMMING, crossCheck=True)
+    d0c, d1c = torch.from_numpy(d0).to(dev), torch.from_numpy(d1).to(dev)
+    m_gpu = [(m.queryIdx, m.trainIdx, m.distance) for m in bf.match(d0c, d1c)]
+    m_cpu = [(m.queryIdx, m.trainIdx, m.distance) for m in bf.match(d0, d1)]
+    if m_gpu != m_cpu:
+        raise AssertionError(f"BFMatcher on the card: {len(m_gpu)} matches, CPU {len(m_cpu)}, "
+                             f"{len(set(m_gpu) ^ set(m_cpu))} differ")
+    log(f"BFMatcher(NORM_HAMMING, crossCheck) image 0 ({len(d0)}) vs image 1 ({len(d1)}) on "
+        f"the card: {len(m_gpu)} matches, equal to the CPU's")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -550,6 +666,21 @@ def main() -> int:
          "(8,1080,1920,1) REFLECT_101", n1 + n_half, 2 * (5 * n1 // 2 + 5 * n_half),
          conv_yardstick(x3, k5, k5, 2, dev)),
     ]
+    # sep_filter's generic kernel at each of ORB's levels (the pyramid of the
+    # config-5 batch), as the blur launches it
+    k7 = gauss_taps(7, 2.0)
+    lv_img = x5[..., None]
+    for lv, size in enumerate(sizes5):
+        if lv:
+            lv_img = cv.resize(lv_img, size, interpolation=cv.INTER_LINEAR_EXACT)
+        n_lv = lv_img.numel()
+        rows.append((f"sep_filter k7 level {lv}",
+                     lambda a=lv_img: sep_filter_int(a, k7, k7, shift=16,
+                                                     border=cv.BORDER_REFLECT_101),
+                     lambda a=lv_img: sep_filter_int_plain(a, k7, k7, shift=16,
+                                                           border=cv.BORDER_REFLECT_101),
+                     f"{tuple(lv_img.shape)} k7 s2 REFLECT_101", 2 * n_lv, 2 * 14 * n_lv,
+                     conv_yardstick(lv_img, k7, k7, 1, dev)))
     log(f"library_ms: one F.conv2d (cuDNN) on a pre-padded f32 NCHW copy, "
         f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
     times = {}
@@ -612,6 +743,55 @@ def main() -> int:
     log(f"time goodFeaturesToTrack (1,1080,1920,1) device part {t_resp:.4f} ms, host tail "
         f"({int(sel.sum())} candidates) {t_tail:.4f} ms  [{card}]")
 
+    # config 5: the forward as the caller sees it (it reads the tie counts
+    # and the rows back, so it ends in a host sync of its own), its syncs,
+    # and its stages
+    t5 = host_median(lambda: forward5(x5, orb5), iters=10)
+    n_sync = count_syncs(lambda: forward5(x5, orb5))
+    log(f"time forward_orb (8,1080,1920) nfeatures=500: {t5:.4f} ms on the host clock; "
+        f"{n_sync} host syncs per batch  [{card}]")
+    n5 = x5.numel()
+    x5_4 = x5[..., None]
+    t_fast = timer(lambda: fast_keypoint_mask(x5_4, orb5.fast_threshold, True))
+    log(f"time config 5 level-0 FAST + NMS (8,1080,1920,1): {t_fast:.4f} ms, bytes bound "
+        f"{bound(n5 + 5 * n5, 0)[0]:.4f} ms (u8 in, int32 score and bool mask out)  [{card}]")
+    w1, h1 = sizes5[1]
+    t_rs = timer(lambda: cv.resize(x5_4, (w1, h1), interpolation=cv.INTER_LINEAR_EXACT))
+    log(f"time config 5 LINEAR_EXACT step (8,1080,1920,1) -> (8,{h1},{w1},1): {t_rs:.4f} ms, "
+        f"bytes bound {bound(n5 + 8 * h1 * w1, 0)[0]:.4f} ms  [{card}]")
+    tabs5 = orb5._tables_for(1080, 1920, dev)
+    nper5, n2s5, caps5, dcaps5 = orb5._pools()
+    t_prep = timer(lambda: orb_mod._level_prepare(x5_4, orb5.fast_threshold,
+                                                  orb5.edge_threshold, tabs5.pad[0]))
+    lvl0 = orb_mod._level_prepare(x5_4, orb5.fast_threshold, orb5.edge_threshold, tabs5.pad[0])
+    score0, keep0 = fast_keypoint_mask(x5_4, orb5.fast_threshold, True)
+    unpooled = torch.where(keep0[..., 0], score0[..., 0].to(torch.float32),
+                           -float("inf")).reshape(x5.shape[0], -1)
+    t_topk = timer(lambda: torch.topk(lvl0["pooled"], caps5[0], dim=1))
+    t_topk_full = timer(lambda: torch.topk(unpooled, caps5[0], dim=1))
+    n_cand0 = int(torch.isfinite(lvl0["pooled"]).sum())
+    log(f"time config 5 level-0 maps (FAST, blur, 1x2 pre-pool, pad): {t_prep:.4f} ms; "
+        f"torch.topk k={caps5[0]} on the pooled map {tuple(lvl0['pooled'].shape)}: "
+        f"{t_topk:.4f} ms, on the unpooled map {tuple(unpooled.shape)}: {t_topk_full:.4f} ms "
+        f"({n_cand0} candidates in the batch)  [{card}]")
+    t_sparse = timer(lambda: orb_mod._level_cand_desc(
+        lvl0, tabs5, orb5.patch_size // 2, n2s5[0], caps5[0], orb5.wta_k, dcap=dcaps5[0],
+        nper=nper5[0], is_harris=True))
+    log(f"time config 5 level-0 candidate stage (top-k, sparse Harris, IC moments, "
+        f"descriptors; cap {caps5[0]}, rows {dcaps5[0]}): {t_sparse:.4f} ms  [{card}]")
+    t_rows = host_median(lambda: orb5._device_rows(x5), iters=10)
+    cand5, desc5 = orb5._device_rows(x5)
+    t_tail5 = host_median(lambda: orb5._host_tail(cand5, desc5), iters=10)
+    log(f"time config 5 device rows (all levels, read back) {t_rows:.4f} ms, host tail "
+        f"({cand5.shape[0]} levels x {cand5.shape[1]} images x {cand5.shape[2]} rows) "
+        f"{t_tail5:.4f} ms, on the host clock  [{card}]")
+    q5 = torch.from_numpy(d0[:500]).to(dev)
+    r5 = torch.from_numpy(d1[:500]).to(dev)
+    t_bf = host_median(lambda: bf.match(q5, r5))
+    t_ham = timer(lambda: hamming_distance_matrix(q5, r5))
+    log(f"time BFMatcher(NORM_HAMMING, crossCheck).match {len(q5)} x {len(r5)}: {t_bf:.4f} ms "
+        f"on the host clock; its Hamming matrix on the card {t_ham:.4f} ms  [{card}]")
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -620,16 +800,17 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a, 4b, 4c); the
+    # launches: the kernel's count over the main paths (4a, 4b, 4c, 4d); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
-    shapes = {"sep_filter": ("sep_filter", "sep_filter sobel"),
+    shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
+                             *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5)))),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"), "pyr_down": ("pyr_down",)}
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": flagship[sym] + cfg3[sym] + cfg4[sym],
+                        "launches": flagship[sym] + cfg3[sym] + cfg4[sym] + cfg5[sym],
                         "max_abs_err": max_err[name],
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},

@@ -12,7 +12,9 @@ GaussianBlur, resize, warpAffine), the fused gray+blur+downsample entry,
 the pyramid/corner/edge path of BASELINE config 3 (pyrDown, cornerHarris,
 Sobel, Canny) with the filter, derivative, pyramid and corner families
 around it, and BASELINE config 4 (matchTemplate, erode, dilate,
-morphologyEx) with goodFeaturesToTrack, GFTTDetector and the KeyPoint API.
+morphologyEx) with goodFeaturesToTrack, GFTTDetector and the KeyPoint API,
+and BASELINE config 5 (ORB, with FAST, the INTER_LINEAR_EXACT resize of
+its pyramid and BFMatcher).
 """
 
 from .constants import *  # noqa: F401,F403
@@ -34,8 +36,10 @@ from .ops.templmatch import matchTemplate  # noqa: F401
 from .ops.resize import resize  # noqa: F401
 from .ops.warp import getRotationMatrix2D, invertAffineTransform, warpAffine  # noqa: F401
 from .features2d import (  # noqa: F401
-    GFTTDetector, GFTTDetector_create, KeyPoint, KeyPoint_convert, KeyPoint_overlap,
+    BFMatcher, DMatch, FastFeatureDetector, FastFeatureDetector_create, GFTTDetector,
+    GFTTDetector_create, KeyPoint, KeyPoint_convert, KeyPoint_overlap, ORB, ORB_create,
 )
+from .features2d.fast import FAST as FastFeatureDetector_detect  # noqa: F401
 
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
 from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401

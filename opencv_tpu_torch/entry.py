@@ -17,6 +17,13 @@ matchTemplate TM_CCOEFF_NORMED with a 32×32 u8 template, erode 3×3,
 dilate 5×5 and erode 9×9 over the same (N, 1080, 1920, 1) u8 batch;
 ``entry_match_morph`` draws the batch and then the template from one
 ``default_rng(0)``, as ``bench.py`` does.
+
+``forward_orb`` is BASELINE config 5 (``5_orb_1080p``): ORB with
+nfeatures=500 over an (N, 1080, 1920) u8 batch, through
+``ORB.detect_and_compute_batch`` (an INTER_LINEAR_EXACT pyramid of 8
+levels, FAST, a sparse Harris rescore, the 7×7 σ 2 blur through
+``sep_filter`` once per level, rotated BRIEF, and a host tail);
+``entry_orb`` gives it ``bench.py``'s ``default_rng(0)`` batch.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from . import constants as K
+from .features2d.orb import ORB_create
 from .kernels import fused_gray_gauss5_down2
 from .ops.canny import Canny
 from .ops.color import cvtColor
@@ -37,14 +45,16 @@ from .ops.resize import resize
 from .ops.templmatch import matchTemplate
 from .ops.warp import getRotationMatrix2D, warpAffine
 
-__all__ = ["SHAPE", "SHAPE_CFG3", "SHAPE_CFG4", "entry", "entry_pyr_corner_edge",
-           "entry_match_morph", "make_batch", "preprocess", "preprocess_fused", "warp", "forward",
-           "forward_fused", "forward_pyr_corner_edge", "forward_match_morph"]
+__all__ = ["SHAPE", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "entry", "entry_pyr_corner_edge",
+           "entry_match_morph", "entry_orb", "make_batch", "preprocess", "preprocess_fused",
+           "warp", "forward", "forward_fused", "forward_pyr_corner_edge", "forward_match_morph",
+           "forward_orb"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG3 = (8, 1080, 1920, 1)
 SHAPE_CFG4 = (8, 1080, 1920, 1)
 TEMPLATE_CFG4 = (32, 32)
+SHAPE_CFG5 = (8, 1080, 1920)
 
 
 def make_batch(shape=SHAPE, seed: int = 0) -> np.ndarray:
@@ -137,3 +147,16 @@ def entry_match_morph(device="cuda", shape=SHAPE_CFG4):
     x = rng.integers(0, 256, size=shape, dtype=np.uint8)
     t = rng.integers(0, 256, size=TEMPLATE_CFG4, dtype=np.uint8)
     return forward_match_morph, (torch.from_numpy(x).to(device), torch.from_numpy(t).to(device))
+
+
+def forward_orb(x, orb):
+    """BASELINE config 5 over an (N, H, W) u8 batch (``bench.py:478-491``):
+    ``orb.detect_and_compute_batch(x)``, a list of (keypoints, descriptors)
+    per image."""
+    return orb.detect_and_compute_batch(x)
+
+
+def entry_orb(device="cuda", shape=SHAPE_CFG5):
+    """``(forward_orb, (x, orb))`` with ``bench.py``'s config-5 batch
+    (``default_rng(0)`` integers) on `device` and ``ORB_create(nfeatures=500)``."""
+    return forward_orb, (torch.from_numpy(make_batch(shape)).to(device), ORB_create(nfeatures=500))

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--path flagship|cfg3|cfg4] [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path flagship|cfg3|cfg4|cfg5] [--iters 5] [--table PATH]
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg3`` runs
 BASELINE config 3 (pyrDown, cornerHarris, Sobel, Canny) and ``--path
 cfg4`` BASELINE config 4 (matchTemplate, erode, dilate, erode) on the
-(8, 1080, 1920, 1) batch.  Each runs under ``torch.profiler`` with one
+(8, 1080, 1920, 1) batch; ``--path cfg5`` BASELINE config 5 (ORB,
+nfeatures=500) on the (8, 1080, 1920) batch in its four stages: the level
+maps (pyramid, FAST, blur, pre-pool, pad), the candidate stage with its
+tie-count read, the readback of the rows and the host tail.  Each runs under ``torch.profiler`` with one
 ``record_function`` span per stage.  Prints, per stage, the time between
 CUDA events around it (median of 20, unprofiled) beside the device time of
 its torch-op kernels (profiled); the device busy share (all kernel time
@@ -65,7 +68,19 @@ def cfg4_stages():
             ("erode9", lambda _: cv.erode(x, np.ones((9, 9), np.uint8)))]
 
 
-PATHS = {"flagship": flagship_stages, "cfg3": cfg3_stages, "cfg4": cfg4_stages}
+def cfg5_stages():
+    """BASELINE config 5 (``entry.forward_orb``) in the stages of
+    ``ORB.detect_and_compute_batch``."""
+    _, (x, orb) = E.entry_orb("cuda")
+    tabs = orb._tables_for(x.shape[1], x.shape[2], x.device)
+    return [("levels", lambda _: orb._levels(x, tabs)),
+            ("candidates", lambda levels: orb._candidates(levels, tabs)),
+            ("readback", orb._read_rows),
+            ("hostTail", lambda rows: orb._host_tail(*rows))]
+
+
+PATHS = {"flagship": flagship_stages, "cfg3": cfg3_stages, "cfg4": cfg4_stages,
+         "cfg5": cfg5_stages}
 
 
 def staged(stages, marks=None):

@@ -19,6 +19,8 @@ from opencv_tpu_torch.kernels.fused_preproc import (
     gauss5_down2_u8_plain)
 from opencv_tpu_torch.kernels.sepfilter import (
     pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain)
+from opencv_tpu_torch.features2d.fast import fast_keypoint_mask
+from opencv_tpu_torch.features2d.orb import level_sizes
 from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
 
 pytestmark = pytest.mark.gpu
@@ -273,3 +275,109 @@ def test_warp_q5_map_on_the_card_equals_cpu(cuda, dtype):
         got = tcv.warpAffine(x.to(cuda), M, (70, 50), borderMode=border, borderValue=(7, 8, 9))
         assert torch.equal(got.cpu(), tcv.warpAffine(x, M, (70, 50), borderMode=border,
                                                      borderValue=(7, 8, 9))), border
+
+
+# -- BASELINE config 5: ORB, with FAST, the LINEAR_EXACT pyramid and BFMatcher
+
+@pytest.mark.parametrize("level", range(8))
+def test_sep_filter_k7_at_orb_level_shapes(cuda, level):
+    """ORB's blur (GaussianBlur 7x7 sigma 2, REFLECT_101) takes the generic
+    kernel at each of its 1080p level shapes."""
+    w, h = level_sizes(1080, 1920)[level]
+    x = _rand((2, h, w, 1), level).to(cuda)
+    kw = dict(kx=_q8(7, 2.0), ky=_q8(7, 2.0), shift=16, border=tcv.BORDER_REFLECT_101)
+    before = SEP_FILTER.launches
+    got = sep_filter_int(x, **kw)
+    torch.cuda.synchronize()
+    assert SEP_FILTER.launches == before + 1
+    assert torch.equal(got, sep_filter_int_plain(x, **kw))
+
+
+@pytest.mark.parametrize("pattern", [16, 12, 8])
+def test_fast_on_the_card_equals_cpu(cuda, pattern):
+    x = tcv.GaussianBlur(_rand((2, 240, 320, 1), pattern), (3, 3), 1.0)
+    for nonmax in (True, False):
+        got = fast_keypoint_mask(x.to(cuda), 20, nonmax, pattern)
+        for g, w in zip(got, fast_keypoint_mask(x, 20, nonmax, pattern)):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("cn", [1, 3, 4])
+def test_resize_linear_exact_on_the_card_equals_cpu(cuda, cn):
+    x = _rand((2, 300, 536, cn), cn)
+    for size in ((447, 250), (97, 61), (600, 333), (1, 1)):
+        got = tcv.resize(x.to(cuda), size, interpolation=tcv.INTER_LINEAR_EXACT)
+        assert torch.equal(got.cpu(), tcv.resize(x, size, interpolation=tcv.INTER_LINEAR_EXACT))
+
+
+def _orb_equal(got, want):
+    """Card against CPU, as chip_smoke.py holds them: per image the same
+    keypoint set keyed by (octave, x, y), and per key the same response,
+    angle and descriptor (cos and sin are taken in float64 and every other
+    float op runs alone on both devices, so nothing is left to differ)."""
+    for (gk, gd), (wk, wd) in zip(got, want):
+        g = {(k.octave, k.pt[0], k.pt[1]): (k, d) for k, d in zip(gk, gd)}
+        w = {(k.octave, k.pt[0], k.pt[1]): (k, d) for k, d in zip(wk, wd)}
+        assert g.keys() == w.keys()
+        for key, (kw, dw) in w.items():
+            kg, dg = g[key]
+            assert (kg.response, kg.angle) == (kw.response, kw.angle), key
+            np.testing.assert_array_equal(dg, dw, err_msg=str(key))
+
+
+@pytest.mark.parametrize("wta_k,score_type", [(2, tcv.ORB_HARRIS_SCORE), (3, tcv.ORB_HARRIS_SCORE),
+                                              (4, tcv.ORB_FAST_SCORE), (2, tcv.ORB_FAST_SCORE)])
+def test_orb_on_the_card_equals_cpu(cuda, wta_k, score_type):
+    x = torch.from_numpy(E.make_batch((2, 480, 640)))
+    before = (SEP_FILTER.launches, PYR_DOWN.launches, GAUSS5_DOWN2.launches)
+    got = tcv.ORB_create(500, WTA_K=wta_k, scoreType=score_type).detect_and_compute_batch(
+        x.to(cuda))
+    # the 7x7 blur of each of the 8 levels, and no other kernel
+    assert (SEP_FILTER.launches, PYR_DOWN.launches, GAUSS5_DOWN2.launches) == \
+        (before[0] + 8, before[1], before[2])
+    want = tcv.ORB_create(500, WTA_K=wta_k, scoreType=score_type).detect_and_compute_batch(x)
+    _orb_equal(got, want)
+
+
+def test_orb_entry_on_the_card(cuda):
+    forward, (x, orb) = E.entry_orb("cuda", (2, 240, 320))
+    assert x.device.type == "cuda"
+    got = forward(x, orb)
+    _orb_equal(got, forward(x.cpu(), tcv.ORB_create(500)))
+    assert all(len(k) > 400 for k, _ in got)
+
+
+@pytest.mark.parametrize("wta_k", [2, 4])
+def test_orb_compute_on_the_card_equals_cpu(cuda, wta_k):
+    """compute keeps the pyramid, the blur (8 sep_filter launches) and the
+    sampling on the card, and gives detectAndCompute's descriptors."""
+    img = torch.from_numpy(E.make_batch((1, 480, 640))[0])
+    orb = tcv.ORB_create(500, WTA_K=wta_k)
+    kps, desc = orb.detectAndCompute(img, None)
+    before = (SEP_FILTER.launches, PYR_DOWN.launches, GAUSS5_DOWN2.launches)
+    got = orb.compute(img.to(cuda), kps)[1]
+    assert (SEP_FILTER.launches, PYR_DOWN.launches, GAUSS5_DOWN2.launches) == \
+        (before[0] + 8, before[1], before[2])
+    np.testing.assert_array_equal(got, desc)
+    np.testing.assert_array_equal(got, orb.compute(img, kps)[1])
+
+
+@pytest.mark.parametrize("norm", [tcv.NORM_HAMMING, tcv.NORM_HAMMING2, tcv.NORM_L2,
+                                  tcv.NORM_L2SQR, tcv.NORM_L1])
+def test_bf_matcher_on_the_card_equals_cpu(cuda, norm):
+    """u8 descriptors: every distance is an integer sum, so the card's
+    matches and distances equal the CPU's."""
+    rng = np.random.default_rng(norm)
+    d1 = rng.integers(0, 256, (300, 32), np.uint8)
+    d2 = np.concatenate([d1[:150] ^ rng.integers(0, 2, (150, 32), np.uint8),
+                         rng.integers(0, 256, (200, 32), np.uint8)])
+    for cross in (False, True):
+        bf = tcv.BFMatcher(norm, cross)
+        got = bf.match(torch.from_numpy(d1).to(cuda), torch.from_numpy(d2).to(cuda))
+        want = bf.match(d1, d2)
+        assert [(m.queryIdx, m.trainIdx, m.distance) for m in got] == \
+            [(m.queryIdx, m.trainIdx, m.distance) for m in want]
+    knn = tcv.BFMatcher(norm).knnMatch(torch.from_numpy(d1).to(cuda),
+                                       torch.from_numpy(d2).to(cuda), 2)
+    assert [[(m.trainIdx, m.distance) for m in r] for r in knn] == \
+        [[(m.trainIdx, m.distance) for m in r] for r in tcv.BFMatcher(norm).knnMatch(d1, d2, 2)]

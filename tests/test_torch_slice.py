@@ -1,7 +1,7 @@
 """The port's slices end to end on the CPU, each against the same chain
 through opencv_tpu at a small batch: the flagship entry forward,
-BASELINE config 3 (pyrDown, cornerHarris, Sobel, Canny) and BASELINE
-config 4 (matchTemplate, erode, dilate)."""
+BASELINE config 3 (pyrDown, cornerHarris, Sobel, Canny), BASELINE
+config 4 (matchTemplate, erode, dilate) and BASELINE config 5 (ORB)."""
 
 import numpy as np
 import pytest
@@ -15,6 +15,7 @@ from opencv_tpu_torch.core.dispatch import reset_tier_stats, tier_stats
 SHAPE = (2, 96, 128, 3)
 SHAPE_CFG3 = (2, 96, 128, 1)
 SHAPE_CFG4 = (2, 96, 128, 1)
+SHAPE_CFG5 = (2, 240, 320)
 
 
 def _jax_chain(imgs):
@@ -147,6 +148,31 @@ def test_match_morph_matches_opencv_tpu(planted):
         assert abs(got[0][1, 40, 50, 0] - 1) < 1e-4
 
 
+def test_entry_orb_batch():
+    forward, (x, orb) = E.entry_orb("cpu", SHAPE_CFG5)
+    assert forward is E.forward_orb
+    np.testing.assert_array_equal(
+        x.numpy(), np.random.default_rng(0).integers(0, 256, size=SHAPE_CFG5, dtype=np.uint8))
+    assert (orb.nfeatures, orb.nlevels, orb.scale_factor, orb.wta_k) == (500, 8, 1.2, 2)
+    assert E.SHAPE_CFG5 == (8, 1080, 1920)
+
+
+def test_orb_slice_matches_opencv_tpu():
+    """Config 5 on bench.py's noise batch, against opencv_tpu's ORB under
+    the set rule of tests/test_torch_features2d.py."""
+    from test_torch_features2d import assert_orb_equal
+
+    forward, (x, orb) = E.entry_orb("cpu", SHAPE_CFG5)
+    want = jcv.ORB_create(nfeatures=500).detect_and_compute_batch(x.numpy())
+    reset_tier_stats()
+    got = forward(x, orb)
+    # the descriptor blur through sep_filter, once per level
+    assert tier_stats() == {"tier.sep_filter_u8.plain": 8}
+    assert_orb_equal(got, want)
+    assert all(len(k) > 400 and d.shape == (len(k), 32) for k, d in got)
+    assert all({kp.octave for kp in k} == set(range(8)) for k, _ in got)
+
+
 def test_public_surface():
     for name in ("cvtColor", "GaussianBlur", "getGaussianKernel", "resize", "warpAffine",
                  "getRotationMatrix2D", "invertAffineTransform",
@@ -158,6 +184,9 @@ def test_public_surface():
                  "morphologyEx", "getStructuringElement", "morphologyDefaultBorderValue",
                  "matchTemplate", "goodFeaturesToTrack", "goodFeaturesToTrackWithQuality",
                  "KeyPoint", "KeyPoint_convert", "KeyPoint_overlap", "GFTTDetector",
-                 "GFTTDetector_create", "TM_CCOEFF_NORMED", "MORPH_ELLIPSE"):
+                 "GFTTDetector_create", "TM_CCOEFF_NORMED", "MORPH_ELLIPSE", "ORB", "ORB_create",
+                 "BFMatcher", "DMatch", "FastFeatureDetector", "FastFeatureDetector_create",
+                 "FastFeatureDetector_detect", "ORB_HARRIS_SCORE", "NORM_HAMMING",
+                 "INTER_LINEAR_EXACT"):
         assert hasattr(tcv, name), name
         assert getattr(tcv, name).__class__ is getattr(jcv, name).__class__, name
