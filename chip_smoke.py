@@ -6,12 +6,16 @@
 Phases, each of which raises on failure (exit code != 0, and no result line):
 
 1. device: a CUDA device is present; prints nvidia-smi's name and power limit;
-2. build: compiles the CUDA kernels from ``opencv_tpu_torch/csrc`` (nvcc);
+2. build: compiles the CUDA kernels from ``opencv_tpu_torch/csrc`` (nvcc),
+   prints what ``ptxas -v`` said of sep_filter's kernels (registers, spills)
+   and fails if an instantiation of its template spills;
 3. kernels: each kernel (sep_filter, gauss5_down2, pyr_down) equals its
    plain PyTorch version bit for bit (``torch.equal``) on the whole batch at
    the main paths' shapes, with the taps and borders those paths give it
-   (sep_filter's generic k = 7 kernel at each of ORB's 8 level shapes too),
-   and on edge cases (borders, channel counts, odd and tiny sizes);
+   (sep_filter's template at K = 7 at each of ORB's 8 level shapes too),
+   and on edge cases (borders, channel counts, odd and tiny sizes, rows of
+   every width and offset views for the K = 7 template, k = 9 and 31 for
+   the generic kernel);
 4. main paths, each read with the launch counts set to 0 just before it:
    a. the flagship: ``entry("cuda")``'s forward and the fused forward on the
       (8, 1080, 1920, 3) batch; sep_filter and gauss5_down2 must have
@@ -24,8 +28,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       pyr_down must have launched once and sep_filter at least 3 times, and
       on images 0 and 1 pyrDown, Sobel and Canny must equal the CPU plain
       forward exactly and cornerHarris be within HARRIS_RTOL/HARRIS_ATOL;
-      then Canny on the batch smoothed by GaussianBlur 7x7 sigma 2.5, exact
-      against the CPU, with its hysteresis iterations and host syncs;
+      then Canny on the batch smoothed by GaussianBlur 7x7 sigma 2.5 (one
+      sep_filter launch, on route k7), exact against the CPU, with its
+      hysteresis iterations and host syncs;
    c. BASELINE config 4: ``entry_match_morph("cuda")``'s forward
       (matchTemplate TM_CCOEFF_NORMED with a 32x32 template, erode 3x3,
       dilate 5x5, erode 9x9) on the (8, 1080, 1920, 1) batch, which launches
@@ -36,8 +41,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       goodFeaturesToTrack on the smoothed image 0, on the card and on the
       CPU, whose corner sets must overlap by GFTT_OVERLAP;
    d. BASELINE config 5: ``entry_orb("cuda")``'s forward (ORB, nfeatures=500)
-      on the (8, 1080, 1920) batch; sep_filter must have launched 8 times
-      (the 7x7 blur of each pyramid level) and no other kernel; on images 0
+      on the (8, 1080, 1920) batch; sep_filter must have launched 8 times,
+      all on route k7 (the 7x7 blur of each pyramid level), and no other
+      kernel; on images 0
       and 1 the keypoints and descriptors are held to the CPU plain forward
       exactly (the same keypoints, responses, angles and descriptors);
       image 0's 8 levels (the LINEAR_EXACT resize, FAST's score and mask,
@@ -51,7 +57,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
    the f32 rate if larger) and, where one PyTorch call computes the same
    multiply-accumulate, that call (``library_ms``: ``F.conv2d`` on a
-   pre-padded f32 copy, timed only here); each op of config 3; the whole
+   pre-padded f32 copy, timed only here), and for sep_filter the route each
+   shape takes (the generic kernel timed at k = 9 on ORB's level-2 shape,
+   as no main path launches it); each op of config 3; the whole
    forwards; config 4's forward and ops; the pad inside one erode, whole and
    its device work alone; goodFeaturesToTrack's device part and host
    tail apart; config 5's forward on the host clock, its host syncs, and its
@@ -68,6 +76,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -279,7 +288,7 @@ def sep_cases(K, gauss_taps, orb_sizes):
               dict(kx=gauss_taps(5, 0.0), ky=gauss_taps(5, 0.0), shift=16,
                    border=K.BORDER_REFLECT_101)),
              # config 5: ORB's GaussianBlur 7x7 sigma 2 of every level, the
-             # generic kernel
+             # template at K = 7
              *((f"main orb k7 level {lv} {(h, w)}", (8, h, w, 1),
                 dict(kx=gauss_taps(7, 2.0), ky=gauss_taps(7, 2.0), shift=16,
                      border=K.BORDER_REFLECT_101))
@@ -323,13 +332,14 @@ def sep_cases(K, gauss_taps, orb_sizes):
          dict(kx=gauss_taps(5, 1.1), ky=gauss_taps(5, 1.1), shift=16,
               border=K.BORDER_WRAP)),
     ]
-    # the kernel's block classes: a warp strip is 32 output rows by 512
-    # bytes, staged in 16-byte chunks; k = 3 and 5 are compiled apart from
-    # the generic taps (7, 31); rows whose W*C is not a multiple of 16 take
-    # the byte-wise path
+    # the kernels' block classes: a block of the template is 4 warp strips
+    # of 8 output rows by 512 bytes, a row staged from its 16-byte granules
+    # at any offset; k = 3, 5 and 7 are the template, 9 and 31 the generic
+    # kernel (strips of 32 rows, staged byte by byte where W*C % 16 != 0)
     taps = {3: dict(kx=gauss_taps(3, 0.0), ky=gauss_taps(3, 0.0), shift=16),
             5: dict(kx=gauss_taps(5, 1.3), ky=gauss_taps(5, 1.3), shift=16),
             7: dict(kx=gauss_taps(7, 0.0), ky=gauss_taps(7, 0.0), shift=16),
+            9: dict(kx=gauss_taps(9, 2.0), ky=gauss_taps(9, 2.0), shift=16),
             31: dict(kx=gauss_taps(31, 6.0), ky=gauss_taps(31, 6.0), shift=16)}
     shapes = {"interior-heavy": (1, 256, 4096, 1), "W 15": (2, 40, 15, 1), "W 17": (2, 40, 17, 1),
               "W 511": (2, 33, 511, 1), "W 513": (2, 33, 513, 1), "WC%16 C1": (2, 40, 101, 1),
@@ -347,7 +357,35 @@ def sep_cases(K, gauss_taps, orb_sizes):
                       dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16", border=border)))
         cases.append((f"class sobel i16 WC%16 C3 {bname}", (2, 40, 101, 3),
                       dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16", border=border)))
+    # the template at K = 7 at every row width: W*C % 16 in {1, 5, 15} (odd
+    # C; even C the nearest their channel count allows), aligned rows, and
+    # rows over one warp's 512 bytes; H of 1, 7 and 33 rows (one output row,
+    # one strip, over one block of 32); and Sobel ksize 7 u8 -> i16 with
+    # delta and scale, dx and dy
+    g7 = gauss_taps(7, 2.0)
+    for bname, border in borders.items():
+        for C, widths in K7_WIDTHS.items():
+            bv = (9, 99, 199, 250)[:C]
+            for W in widths:
+                for H in (1, 7, 33):
+                    cases.append((f"k7 C{C} W {W} (W*C % 16 = {W * C % 16}) H {H} {bname}",
+                                  (2, H, W, C),
+                                  dict(kx=g7, ky=g7, shift=16, border=border, border_value=bv)))
+            for W in (widths[0], widths[-1]):
+                for kx, ky in SOBEL7:
+                    cases.append((f"k7 sobel i16 C{C} W {W} {kx} {bname}", (2, 33, W, C),
+                                  dict(kx=kx, ky=ky, delta=-5, scale=0.5, out_dtype="int16",
+                                       border=border, border_value=bv)))
     return cases
+
+
+# (C, widths) of phase 3's K = 7 rows: W*C % 16 = 1, 5, 15 (C = 1, 3), the
+# nearest even values (C = 2, 4), 0, and one row over 512 bytes
+K7_WIDTHS = {1: (33, 37, 47, 48, 1029), 2: (33, 35, 39, 48, 517), 3: (43, 39, 37, 48, 345),
+             4: (33, 35, 34, 48, 259)}
+# Sobel ksize 7, (kx, ky) of dx = 1 and of dy = 1 (getDerivKernels)
+SOBEL7 = (((-1, -4, -5, 0, 5, 4, 1), (1, 6, 15, 20, 15, 6, 1)),
+          ((1, 6, 15, 20, 15, 6, 1), (-1, -4, -5, 0, 5, 4, 1)))
 
 
 def offset_view(rng, shape, dev):
@@ -357,10 +395,12 @@ def offset_view(rng, shape, dev):
 
 
 # (name, input shape) of the storage-offset cases: an image of H*W*C bytes
-# that is a multiple of 16 keeps the vector path, one that is not takes the
-# byte-wise path
+# that is a multiple of 16 keeps the base aligned, one that is not (an odd
+# offset) puts every row of sep_filter's template at another offset in its
+# granule, and sends pyr_down and sep_filter's generic kernel to their
+# byte-wise staging
 OFFSET_SHAPES = (("offset aligned", (2, 40, 64, 1)), ("offset unaligned", (2, 41, 63, 1)),
-                 ("offset main", (7, 1080, 1920, 1)))
+                 ("offset unaligned C3", (2, 41, 67, 3)), ("offset main", (7, 1080, 1920, 1)))
 
 
 # bound_ms: the card's memory rate and its float32 rate outside the tensor
@@ -410,7 +450,8 @@ def main() -> int:
         fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
         gauss5_down2_u8_plain)
     from opencv_tpu_torch.kernels.sepfilter import (
-        pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain)
+        SEP_FILTER, SEP_ROUTES, pyr_down_u8, pyr_down_u8_plain, sep_filter_int,
+        sep_filter_int_plain, sep_filter_route)
     from opencv_tpu_torch.core.borders import border_index, pad_nhwc
     from opencv_tpu_torch.ops.canny import HYST_CHECK_EVERY
     from opencv_tpu_torch.ops.corners import _gftt_host_tail, good_features_response
@@ -423,6 +464,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    spills = []
+    for name, r in sorted(_build.ptxas_report().items()):
+        m = re.search(r"sep_filter_kernelILi(\d+)ELi(\d+)E([hs])E", name)
+        if m is None and "sep_generic_kernel" not in name:
+            continue
+        what = (f"sep_filter_kernel<K={m.group(1)}, C={m.group(2)}, "
+                f"{'u8' if m.group(3) == 'h' else 'i16'}>" if m else name)
+        log(f"ptxas {what}: {r.get('registers')} registers, {r.get('stack')} bytes stack, "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spill stores / loads")
+        if m and (r.get("spill_stores") or r.get("spill_loads")):
+            spills.append(what)
+    if spills:
+        raise AssertionError(f"sep_filter's template spills registers in {spills}")
 
     # -- 3. each kernel against its plain version, on the card
     def gauss_taps(k, sigma):
@@ -439,14 +493,19 @@ def main() -> int:
                           sep_filter_int_plain(x, **kw))
         if name.startswith("main"):
             max_err["sep_filter"] = max(max_err.get("sep_filter", 0), err)
-    kx5 = gauss_taps(5, 0.0)
+    kx5, k7 = gauss_taps(5, 0.0), gauss_taps(7, 2.0)
+    offset_taps = (dict(kx=kx5, ky=kx5, shift=16),
+                   dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16"),
+                   dict(kx=k7, ky=k7, shift=16),
+                   *(dict(kx=kx, ky=ky, delta=3, scale=0.25, out_dtype="int16")
+                     for kx, ky in SOBEL7))
     for name, shape in OFFSET_SHAPES:
         x = offset_view(rng, shape, dev)
-        for kw in (dict(kx=kx5, ky=kx5, shift=16),
-                   dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16")):
-            check_equal(f"sep_filter {name} {shape}", sep_filter_int(x, **kw),
+        for kw in offset_taps:
+            check_equal(f"sep_filter {name} {shape} k{len(kw['kx'])}", sep_filter_int(x, **kw),
                         sep_filter_int_plain(x, **kw))
-    log(f"sep_filter: {len(cases) + 2 * len(OFFSET_SHAPES)} cases equal to the plain version")
+    log(f"sep_filter: {len(cases) + len(offset_taps) * len(OFFSET_SHAPES)} cases equal to the "
+        f"plain version")
 
     imgs = torch.from_numpy(E.make_batch()).to(dev)
     n = 0
@@ -482,14 +541,16 @@ def main() -> int:
 
     # -- 4a. the flagship path
     def run_counted(fn):
-        """Run fn with every launch count set to 0 first; return its result
-        and the counts it left."""
+        """Run fn with every launch count (and sep_filter's route counts)
+        set to 0 first; return its result and the counts it left, the
+        routes under "sep_filter routes"."""
         torch.cuda.synchronize()
         for k in KERNELS:
-            k.launches = 0
+            k.reset()
         result = fn()
         torch.cuda.synchronize()
-        return result, {k.symbol: k.launches for k in KERNELS}
+        return result, {**{k.symbol: k.launches for k in KERNELS},
+                        "sep_filter routes": dict(SEP_FILTER.routes)}
 
     forward, (imgs,) = E.entry("cuda")
     (out, out_fused), flagship = run_counted(lambda: (forward(imgs), E.forward_fused(imgs)))
@@ -540,7 +601,10 @@ def main() -> int:
     log(f"config 3: pyrDown, Sobel and Canny equal the CPU plain forward on images 0-1; "
         f"{canny_edges} Canny edge pixels in the batch; total {int(outs3[4])}")
 
-    smooth = cv.GaussianBlur(x3, (7, 7), 2.5)
+    smooth, blur7 = run_counted(lambda: cv.GaussianBlur(x3, (7, 7), 2.5))
+    if blur7["opencv_sep_filter"] != 1 or blur7["sep_filter routes"]["k7"] != 1:
+        raise AssertionError(f"GaussianBlur 7x7: one sep_filter launch on route k7 expected, "
+                             f"got {blur7}")
     smooth_cpu = cv.GaussianBlur(x3[:2].cpu(), (7, 7), 2.5)
     check_equal("GaussianBlur 7x7 s2.5 vs CPU, images 0-1", smooth[:2].cpu(), smooth_cpu)
     st_gpu, st_cpu = {}, {}
@@ -594,10 +658,10 @@ def main() -> int:
     forward5, (x5, orb5) = E.entry_orb("cuda")
     res5, cfg5 = run_counted(lambda: forward5(x5, orb5))
     log(f"config 5 path launches: {cfg5}")
-    if (cfg5["opencv_sep_filter"] != 8 or cfg5["opencv_pyr_down"]
-            or cfg5["opencv_gauss5_down2"]):
-        raise AssertionError(f"config 5 path: sep_filter must launch 8 times and no other "
-                             f"kernel, got {cfg5}")
+    if (cfg5["opencv_sep_filter"] != 8 or cfg5["sep_filter routes"]["k7"] != 8
+            or cfg5["opencv_pyr_down"] or cfg5["opencv_gauss5_down2"]):
+        raise AssertionError(f"config 5 path: sep_filter must launch 8 times, all on route k7, "
+                             f"and no other kernel, got {cfg5}")
     if len(res5) != E.SHAPE_CFG5[0]:
         raise AssertionError(f"config 5: {len(res5)} results for {E.SHAPE_CFG5[0]} images")
     for i, (kps, desc) in enumerate(res5):
@@ -622,14 +686,12 @@ def main() -> int:
             check_equal(f"config 5 image 0 level {lv} {what} vs CPU", g.cpu(), c)
     log(f"config 5: image 0's 8 levels (resize, FAST score and mask, blur) equal the CPU's; "
         f"{[len(k) for k, _ in res5]} keypoints per image")
-    before = {k.symbol: k.launches for k in KERNELS}
-    desc_c = orb5.compute(x5[0], res5[0][0])[1]
-    launched = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
-    if not np.array_equal(desc_c, res5[0][1]) or launched != {**cfg5, "opencv_sep_filter": 8}:
+    desc_c, launched = run_counted(lambda: orb5.compute(x5[0], res5[0][0])[1])
+    if not np.array_equal(desc_c, res5[0][1]) or launched != cfg5:
         raise AssertionError(f"ORB.compute on the card: {launched} launches, "
                              f"{int((desc_c != res5[0][1]).any(1).sum())} descriptors differ")
     log(f"ORB.compute on the card, image 0's {len(desc_c)} keypoints: the forward's "
-        f"descriptors, 8 sep_filter launches")
+        f"descriptors, 8 sep_filter launches on route k7")
     d0, d1 = res5[0][1], res5[1][1]
     bf = cv.BFMatcher(cv.NORM_HAMMING, crossCheck=True)
     d0c, d1c = torch.from_numpy(d0).to(dev), torch.from_numpy(d1).to(dev)
@@ -647,51 +709,56 @@ def main() -> int:
     n1 = g1.numel()  # 8 * 1080 * 1920 pixels
     n_half = N3 * ((H3 + 1) // 2) * ((W3 + 1) // 2)
     k5 = (1, 4, 6, 4, 1)
-    # (name, kernel, plain, what, bytes in + out, operations, library call or None)
+    sobel = ((-1, 0, 1), (1, 2, 1))
+    # (name, kernel, plain, what, bytes in + out, operations, library call or
+    # None, sep_filter's taps or None)
     rows = [
         ("sep_filter", lambda: sep_filter_int(g1, kx5, kx5, shift=16),
          lambda: sep_filter_int_plain(g1, kx5, kx5, shift=16), "(8,1080,1920,1) k5 u8",
-         2 * n1, 2 * 10 * n1, conv_yardstick(g1, kx5, kx5, 1, dev)),
-        ("sep_filter sobel", lambda: sep_filter_int(x3, (-1, 0, 1), (1, 2, 1), out_dtype="int16"),
-         lambda: sep_filter_int_plain(x3, (-1, 0, 1), (1, 2, 1), out_dtype="int16"),
+         2 * n1, 2 * 10 * n1, conv_yardstick(g1, kx5, kx5, 1, dev), (kx5, kx5)),
+        ("sep_filter sobel", lambda: sep_filter_int(x3, *sobel, out_dtype="int16"),
+         lambda: sep_filter_int_plain(x3, *sobel, out_dtype="int16"),
          "(8,1080,1920,1) Sobel dx u8->16S", 3 * n1, 2 * 6 * n1,
-         conv_yardstick(x3, (-1, 0, 1), (1, 2, 1), 1, dev)),
+         conv_yardstick(x3, *sobel, 1, dev), sobel),
         ("gauss5_down2", lambda: fused_gray_gauss5_down2(imgs, 0.0),
          lambda: fused_gray_gauss5_down2_plain(imgs, 0.0), "(8,1080,1920,3) bgr",
-         imgs.numel() + n_half, 2 * 13 * n1, None),
+         imgs.numel() + n_half, 2 * 13 * n1, None, None),
         ("gauss5_down2 gray", lambda: gauss5_down2_u8(gray, 0.0),
          lambda: gauss5_down2_u8_plain(gray, 0.0), "(8,1080,1920) gray", n1 + n_half,
-         2 * 10 * n1, None),
+         2 * 10 * n1, None, None),
         ("pyr_down", lambda: pyr_down_u8(x3), lambda: pyr_down_u8_plain(x3),
          "(8,1080,1920,1) REFLECT_101", n1 + n_half, 2 * (5 * n1 // 2 + 5 * n_half),
-         conv_yardstick(x3, k5, k5, 2, dev)),
+         conv_yardstick(x3, k5, k5, 2, dev), None),
     ]
-    # sep_filter's generic kernel at each of ORB's levels (the pyramid of the
-    # config-5 batch), as the blur launches it
-    k7 = gauss_taps(7, 2.0)
-    lv_img = x5[..., None]
-    for lv, size in enumerate(sizes5):
-        if lv:
-            lv_img = cv.resize(lv_img, size, interpolation=cv.INTER_LINEAR_EXACT)
-        n_lv = lv_img.numel()
-        rows.append((f"sep_filter k7 level {lv}",
-                     lambda a=lv_img: sep_filter_int(a, k7, k7, shift=16,
-                                                     border=cv.BORDER_REFLECT_101),
-                     lambda a=lv_img: sep_filter_int_plain(a, k7, k7, shift=16,
-                                                           border=cv.BORDER_REFLECT_101),
-                     f"{tuple(lv_img.shape)} k7 s2 REFLECT_101", 2 * n_lv, 2 * 14 * n_lv,
-                     conv_yardstick(lv_img, k7, k7, 1, dev)))
+    # sep_filter at each of ORB's levels (the pyramid of the config-5 batch),
+    # as the blur launches it; then the generic kernel, which no main path
+    # launches, at k = 9 on the level-2 shape
+    levels = [x5[..., None]]
+    for size in sizes5[1:]:
+        levels.append(cv.resize(levels[-1], size, interpolation=cv.INTER_LINEAR_EXACT))
+    k9 = gauss_taps(9, 2.0)
+    for name, a, kx in ((*((f"sep_filter k7 level {lv}", a, k7) for lv, a in enumerate(levels)),
+                         ("sep_filter generic k9 level 2", levels[2], k9))):
+        rows.append((name, lambda a=a, kx=kx: sep_filter_int(a, kx, kx, shift=16,
+                                                             border=cv.BORDER_REFLECT_101),
+                     lambda a=a, kx=kx: sep_filter_int_plain(a, kx, kx, shift=16,
+                                                             border=cv.BORDER_REFLECT_101),
+                     f"{tuple(a.shape)} k{len(kx)} s2 REFLECT_101", 2 * a.numel(),
+                     2 * 2 * len(kx) * a.numel(), conv_yardstick(a, kx, kx, 1, dev), (kx, kx)))
     log(f"library_ms: one F.conv2d (cuDNN) on a pre-padded f32 NCHW copy, "
         f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
     times = {}
-    for name, kern, plain, what, nbytes, ops, lib in rows:
+    for name, kern, plain, what, nbytes, ops, lib, taps in rows:
         t_plain = timer(plain)
         t_kern = timer(kern)
         t_lib = timer(lib) if lib is not None else None
         b_ms, b_by = bound(nbytes, ops)
         times[name] = dict(what=what, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
                            library_ms=t_lib)
-        log(f"time {name} {what}: kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, "
+        if taps is not None:
+            times[name]["route"] = SEP_ROUTES[sep_filter_route(*taps)]
+        log(f"time {name} {what}{' route ' + times[name]['route'] if taps else ''}: kernel "
+            f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, "
             f"library {'none' if t_lib is None else f'{t_lib:.4f} ms'}, bound {b_ms:.4f} ms "
             f"({b_by}), share of bound {b_ms / t_kern:.3f}  [{card}]")
     t_fwd = timer(lambda: forward(imgs))
@@ -804,7 +871,8 @@ def main() -> int:
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
-                             *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5)))),
+                             *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
+                             "sep_filter generic k9 level 2"),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"), "pyr_down": ("pyr_down",)}
     kernels = []
     for name, (src, rep, sym) in meta.items():
@@ -815,6 +883,10 @@ def main() -> int:
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
                         "cases": [times[s] for s in shapes[name]]})
+    # sep_filter's launches on the main paths by route
+    kernels[0]["launches_by_route"] = {
+        r: sum(c["sep_filter routes"][r] for c in (flagship, cfg3, cfg4, cfg5))
+        for r in SEP_FILTER.routes}
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

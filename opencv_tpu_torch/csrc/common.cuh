@@ -236,7 +236,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 // ---------------------------------------------------------------------------
 
 // The NW little-endian words of a row from byte q, by byte loads, zeros
-// outside [0, L): the scalar path's staging of an unaligned row.
+// outside [0, L): pyr_down's staging of an unaligned row.
 template <int NW>
 __device__ __forceinline__ void row_words(uint32_t (&w)[NW], const uint8_t* row, int q, int L) {
 #pragma unroll
@@ -249,6 +249,19 @@ __device__ __forceinline__ void row_words(uint32_t (&w)[NW], const uint8_t* row,
     }
     w[i] = v;
   }
+}
+
+// The NW little-endian words from byte i of the 4-byte aligned words s (in
+// shared memory), at any i: NW + 1 word loads and a funnel shift each.
+template <int NW>
+__device__ __forceinline__ void shifted_words(uint32_t (&w)[NW], const uint32_t* s, int i) {
+  const uint32_t* a = s + (i >> 2);
+  const unsigned sh = 8 * (i & 3);
+  uint32_t v[NW + 1];
+#pragma unroll
+  for (int k = 0; k <= NW; ++k) v[k] = a[k];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) w[k] = __funnelshift_r(v[k], v[k + 1], sh);
 }
 
 // The NW words of a BORDER_CONSTANT row from byte q (a % per byte: once per

@@ -1,8 +1,9 @@
 // Separable integer correlation over u8 NHWC with OpenCV's finishing chain.
 //
 // Replaces the Pallas kernel opencv_tpu/kernels/sepfilter.py::sep_filter_int
-// (and its sep_filter_u8 front end).  What it computes, per output
-// pixel-channel (channels folded into the row, horizontal taps stride C):
+// (and its sep_filter_u8 front end, both launched through _pallas_tiled).
+// What it computes, per output pixel-channel (channels folded into the row,
+// horizontal taps stride C):
 //
 //   acc = sum_j ky[j] * sum_i kx[i] * x[y - ay + j][x - ax + i]   (int32)
 //   shift > 0 -> acc = (acc + 2^(shift-1)) >> shift
@@ -12,47 +13,66 @@
 //
 // Bound.  Each input byte is read once and each output written once: at
 // (8, 1080, 1920, 1) 16.6 MB in and 16.6 MB (u8) or 33.2 MB (i16) out, 9.9 us
-// and 14.9 us at 3.35 TB/s.  The MACs are kw + kh per output (166 M at
-// k = 5), about 10 us at the int32 rate (64 lanes x 132 SMs x ~1.9 GHz):
-// the arithmetic costs as much as the bytes, so the design spends its
-// instructions on it and little else.  Budget: about 20 thread
-// instructions per output at k = 5.  On the H100 the kernel reaches 23%
-// (k = 5, u8) and 42% (k = 3, i16) of its memory bound (PERF.md, from
-// perf/sweep_stencil_tiles.py, whose schedule probe shows warps that wait
-// on neither memory nor barriers): what remains is instruction issue.
+// and 14.9 us at 3.35 TB/s.  The MACs are kw + kh per output, integer
+// multiply-adds on 64 lanes per SM (132 SMs at ~1.9 GHz, about 16 T a
+// second): 166 M at k = 5, about 10 us, and 232 M at k = 7, about 14 us.  The
+// arithmetic costs as much as the bytes or more, so the design spends its
+// instructions on it and little else.  On the H100 the k = 5 kernel reaches
+// 23% (u8) and the k = 3 Sobel 42% (i16) of the memory bound (PERF.md, from
+// perf/sweep_stencil_tiles.py, whose schedule probe shows warps that wait on
+// neither memory nor barriers): what remains is instruction issue.
 //
-// The main path: k = 3 and k = 5 (kw == kh and sum |kx| * 255 < 2^16: the
-// taps of every Gaussian, Sobel and box filter of the main paths),
-// templated on the tap count, the channel count and the output type, fully
-// unrolled.  Each warp owns a strip of kStrip output rows by 512 output
+// Routes.  The host picks one per launch (kernels/sepfilter.py::
+// sep_filter_route) and the entry refuses taps that do not meet it:
+//  - K = 3, 5 or 7: kw == kh == K and sum |kx| * 255 < 2^16 (every
+//    Gaussian, Sobel and box filter of the main paths, ORB's 7x7 blur
+//    included), the template below, fully unrolled on the tap count, the
+//    channel count and the output type;
+//  - 0: any other taps (kw != kh, k up to 31, large taps), the generic
+//    kernel at the end of this file.
+//
+// The template.  Each warp owns a strip of kStrip output rows by 512 output
 // bytes (16 per thread) and walks down it.
-//  - Staging: lane 0 asks the copy engine for each input row's aligned
-//    bytes (cp.async.bulk, 512 + 2 x 16 bytes) into a ring of kStages rows
-//    in shared memory, completing on one mbarrier per stage; no register and
-//    no per-byte instruction is spent on the copy, and kStages - 1 rows are
-//    in flight.  The words of row r + 1 are read while row r computes (two
-//    register buffers, the loop unrolled by two).
-//  - The horizontal halo comes from the neighbour lanes by shuffle (lanes 0
-//    and 31 read the 16 staged bytes past the warp's).  The horizontal pass
-//    runs on two lanes per register in 16-bit halves (one byte_perm, a mask
-//    and a multiply-add per tap and pair); a negative tap takes 255 - x by
-//    a xor, and the bias is taken off each output once.  The last k
-//    horizontal sums stay in registers as int32, for the vertical pass.
+//  - Staging, at any row width and any base alignment: lane 0 asks the copy
+//    engine for the bytes [xs - 16, xs + 528) of each input row, widened to
+//    16-byte granules and clamped to the granules of the input tensor, with
+//    one cp.async.bulk into a ring of kStages stages of kStage bytes in
+//    shared memory, completing on one mbarrier per stage; no register and no
+//    per-byte instruction is spent on the copy, and kStages - 1 rows are in
+//    flight.  A row that starts off = addr & 15 bytes into its granule lands
+//    off bytes into its stage; off is the same for the whole warp (lane 0
+//    keeps it beside the stage), and a lane reads its words at byte off with
+//    word loads and a funnel shift (one 16-byte load when off = 0, the case
+//    of rows of W*C % 16 == 0 on an aligned base).  The bytes of the window outside the row (the
+//    neighbouring rows, or stale bytes where the tensor ends) feed only
+//    outputs the edge blocks compute; a granule that holds a byte of the
+//    tensor lies on a mapped page, so the copy cannot fault.  The words of
+//    row r + 1 are read while row r computes (two register buffers, the loop
+//    unrolled by two).  BORDER_CONSTANT rows are not staged: they are in
+//    registers.
+//  - The horizontal halo (up to 12 bytes at K = 7, C = 4) comes from the
+//    neighbour lanes by shuffle (lanes 0 and 31 read the 16 staged bytes
+//    past the warp's).  The horizontal pass runs on two lanes per register
+//    in 16-bit halves (one byte_perm, a mask and a multiply-add per tap and
+//    pair); a negative tap takes 255 - x by a xor, and the bias is taken off
+//    each output once.  The last K horizontal sums stay in registers packed
+//    as they were computed, two per word (K * 8 registers).
+//  - The vertical pass runs on the packed words: per pair, T = sum ky[j] *
+//    word[j] and the high half's sum Hi = sum ky[j] * (word[j] >> 16); the
+//    low half's sum is T - (Hi << 16), exact modulo 2^32 as the int32
+//    accumulator is.
 //  - No division and no per-byte border work in the loop: the border is
 //    resolved once per input row (its source row).  An output whose window
-//    crosses the left or right edge of the image (the first and last k/2
+//    crosses the left or right edge of the image (the first and last K/2
 //    pixels of a row) is not stored by the main blocks: one extra column of
 //    blocks in the same launch computes those outputs one by one, from a row
 //    table and the edge tables of common.cuh, built once per block.
+//  - Output rows of W*C % 16 == 0 on an aligned base are stored in 16-byte
+//    words, other rows one element at a time.
 //
-// The scalar path: a row whose length W*C is not a multiple of 16, or an
-// input or output whose base is not 16-byte aligned (a view with an odd
-// storage offset), is staged byte by byte by all lanes and stored byte by
-// byte, inside the same kernel.  BORDER_CONSTANT rows come from registers.
-//
-// Other taps (k up to 31, kw != kh, or large taps) take the generic kernel:
-// a warp stages each row of its strip into shared memory with 16-byte
-// cp.async, fills the bytes outside the image from the edge tables, runs the
+// The generic kernel: a warp stages each row of its strip into shared memory
+// with 16-byte cp.async (byte by byte where the rows are not 16-byte
+// aligned), fills the bytes outside the image from the edge tables, runs the
 // horizontal pass with runtime taps into a shared-memory ring of kh rows,
 // then the vertical pass.  It handles every border at every column itself.
 #include "common.cuh"
@@ -68,7 +88,8 @@ constexpr int kWarpLanes = 32 * kLanes;  // output lanes per warp
 constexpr int kWarps = 4;                // warps per block, stacked in rows
 constexpr int kStrip = 8;                // output rows per warp
 constexpr int kStages = 8;               // staged rows per warp (a power of 2)
-constexpr int kSeg = 16 + kWarpLanes + 16;  // one staged row: 16 halo bytes each side
+constexpr int kSeg = 16 + kWarpLanes + 16;  // a warp's window of a row: 16 halo bytes each side
+constexpr int kStage = kSeg + 16;  // one stage: the window, from its row's offset in a granule
 constexpr unsigned kFull = 0xffffffffu;
 
 // the generic kernel
@@ -90,7 +111,10 @@ struct Params {
   float scale;
   int border;
   int bval[4];
-  int vec;  // rows 16-byte aligned: W*C % 16 == 0 and aligned bases
+  // 16-byte aligned rows (W*C % 16 == 0 and an aligned base) of the output,
+  // for the template, or of the input and the output, for the generic kernel
+  int vec;
+  uintptr_t glo, ghi;  // the input tensor's granules: [glo, ghi), 16-byte aligned
 };
 
 template <typename OutT>
@@ -150,7 +174,7 @@ __device__ void sep_edges(const uint8_t* img, OutT* out, const Taps& taps, const
   }
 }
 
-// The main path: kw == kh == K in {3, 5}, C channels.  The last column of
+// The template: kw == kh == K in {3, 5, 7}, C channels.  The last column of
 // blocks computes the edge outputs.
 template <int K, int C, typename OutT>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -184,12 +208,15 @@ __global__ void __launch_bounds__(32 * kWarps)
     ocvt::const_words(cr, xs + kWarpLanes, C, p.bval);
   }
 
-  // the warp's ring of staged rows: row bytes [xs - 16, xs + 528), input
-  // row r in stage r % kStages, each with its mbarrier
-  __shared__ __align__(16) uint8_t ring[kWarps][kStages][kSeg];
+  // the warp's ring of staged rows, input row r in stage r % kStages, each
+  // with its mbarrier and its offset: byte xs of the row is stage byte
+  // 16 + off (-1: a constant row, not staged)
+  __shared__ __align__(16) uint8_t ring[kWarps][kStages][kStage];
   __shared__ uint64_t bars[kWarps][kStages];
-  uint8_t (*stage)[kSeg] = ring[threadIdx.y];
+  __shared__ int offs[kWarps][kStages];
+  uint8_t (*stage)[kStage] = ring[threadIdx.y];
   uint64_t* bar = bars[threadIdx.y];
+  int* off_of = offs[threadIdx.y];
   if (lane == 0)
     for (int i = 0; i < kStages; ++i) ocvt::mbar_init(&bar[i]);
   __syncwarp();
@@ -199,29 +226,26 @@ __global__ void __launch_bounds__(32 * kWarps)
     const int y = y0 - K / 2 + r;
     return (y >= 0 && y < H) ? y : ocvt::border_map(y, H, p.border);
   };
-  // stage row r: one bulk copy of its aligned bytes in [0, L) by lane 0; an
-  // unaligned row byte by byte by every lane (the scalar path); a constant
-  // row not at all (it is in registers)
+  // stage row r: lane 0 copies the granules that hold row bytes
+  // [xs - 16, xs + 528), within the tensor's, to the stage; stage byte 0 is
+  // the granule 16 bytes before the one that holds byte xs.  A constant row
+  // is not copied (it is in registers).  The offset is written before the
+  // arrive, which releases it to the lanes that wait on the stage.
   auto issue = [&](int r) {
-    uint8_t* b = stage[r & (kStages - 1)];
+    if (lane != 0) return;
+    const int i = r & (kStages - 1);
     const int sy = source(r);
-    if (sy >= 0 && vec) {
-      if (lane == 0) {
-        const int a = max(xs - 16, 0), e = min(xs + kWarpLanes + 16, L);
-        ocvt::bulk_copy(b + a - (xs - 16), img + (size_t)sy * L + a, e - a,
-                        &bar[r & (kStages - 1)]);
-      }
+    if (sy < 0) {
+      off_of[i] = -1;
+      ocvt::mbar_arrive(&bar[i]);
       return;
     }
-    if (sy >= 0) {
-      const uint8_t* row = img + (size_t)sy * L;
-      for (int ch = lane; ch < kSeg / 16; ch += 32) {
-        uint32_t w[4];
-        ocvt::row_words(w, row, xs - 16 + 16 * ch, L);
-        *reinterpret_cast<uint4*>(b + 16 * ch) = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-    if (lane == 0) ocvt::mbar_arrive(&bar[r & (kStages - 1)]);
+    const uintptr_t a = reinterpret_cast<uintptr_t>(img + (size_t)sy * L + xs);
+    const uintptr_t g = (a & ~uintptr_t(15)) - 16, e = (a + kWarpLanes + 16 + 15) & ~uintptr_t(15);
+    const uintptr_t from = g < p.glo ? p.glo : g, to = e > p.ghi ? p.ghi : e;
+    off_of[i] = (int)(a & 15);
+    ocvt::bulk_copy(stage[i] + (from - g), reinterpret_cast<const void*>(from), (int)(to - from),
+                    &bar[i]);
   };
 
   // outputs [lo, hi) of the thread's 16 are stored here; the rest cross an
@@ -246,13 +270,16 @@ __global__ void __launch_bounds__(32 * kWarps)
     ky[j] = taps.ky[j];
     corr += bias * ky[j];
   }
-  int hs[K][kLanes];  // horizontal sums of the last K rows (biased), oldest first
+  // horizontal sums of the last K rows (biased), oldest first: lanes 2v and
+  // 2v + 1 in the low and high half of hs[.][v]
+  uint32_t hs[K][kLanes / 2];
 
   // wait for row r and read the thread's 16 bytes (lanes 0 and 31 also the
   // words past the warp's); a constant row comes from registers
   auto read = [&](int r, uint32_t (&m)[4], uint32_t (&wl)[HW], uint32_t (&wr)[HW]) {
     ocvt::mbar_wait(&bar[r & (kStages - 1)], (r / kStages) & 1);
-    if (cst && source(r) < 0) {
+    const int off = off_of[r & (kStages - 1)];
+    if (off < 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) m[i] = cm[i];
 #pragma unroll
@@ -262,22 +289,31 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
       return;
     }
-    const uint8_t* b = stage[r & (kStages - 1)] + 16;
-    const uint4 v = *reinterpret_cast<const uint4*>(b + kLanes * lane);
-    m[0] = v.x;
-    m[1] = v.y;
-    m[2] = v.z;
-    m[3] = v.w;
+    const uint8_t* s = stage[r & (kStages - 1)];
+    if (off == 0) {
+      const uint4 v = *reinterpret_cast<const uint4*>(s + 16 + kLanes * lane);
+      m[0] = v.x;
+      m[1] = v.y;
+      m[2] = v.z;
+      m[3] = v.w;
 #pragma unroll
-    for (int i = 0; i < HW; ++i) {
-      wl[i] = reinterpret_cast<const uint32_t*>(b)[i - HW];
-      wr[i] = reinterpret_cast<const uint32_t*>(b + kWarpLanes)[i];
+      for (int i = 0; i < HW; ++i) {
+        wl[i] = reinterpret_cast<const uint32_t*>(s + 16)[i - HW];
+        wr[i] = reinterpret_cast<const uint32_t*>(s + 16 + kWarpLanes)[i];
+      }
+    } else {
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(s);
+      ocvt::shifted_words(m, w, 16 + off + kLanes * lane);
+      ocvt::shifted_words(wl, w, 16 + off - 4 * HW);
+      ocvt::shifted_words(wr, w, 16 + off + kWarpLanes);
     }
   };
 
   // the finishing chain's first step folded into the accumulator's start:
-  // (acc - corr + 2^(shift-1)) >> shift
+  // (acc - corr + 2^(shift-1)) >> shift; the packed sums start at acc0 in
+  // both halves
   const int acc0 = (p.shift > 0 ? 1 << (p.shift - 1) : 0) - corr;
+  const uint32_t acc0x = (uint32_t)acc0 * 0x10001u;
   // row r: the halo from the neighbour lanes, the horizontal pass, and once
   // K rows are in, the vertical pass, the finishing chain and the store
   auto step = [&](int r, const uint32_t (&m)[4], const uint32_t (&wl)[HW],
@@ -295,26 +331,29 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
     for (int j = 0; j < K - 1; ++j)
 #pragma unroll
-      for (int v = 0; v < kLanes; ++v) hs[j][v] = hs[j + 1][v];
+      for (int v = 0; v < kLanes / 2; ++v) hs[j][v] = hs[j + 1][v];
 #pragma unroll
-    for (int v = 0; v < kLanes; v += 2) {
+    for (int v = 0; v < kLanes / 2; ++v) {
       uint32_t a = 0;
 #pragma unroll
       for (int i = 0; i < K; ++i) {
-        const int o = 4 * HW - HL + v + i * C;
+        const int o = 4 * HW - HL + 2 * v + i * C;
         a += kxa[i] * (ocvt::byte_pair(w, o, o + 1) ^ kxm[i]);
       }
-      hs[K - 1][v] = a & 0xffff;
-      hs[K - 1][v + 1] = a >> 16;
+      hs[K - 1][v] = a;
     }
     if (r < K - 1 || lo >= hi) return;
     int acc[kLanes];
 #pragma unroll
-    for (int v = 0; v < kLanes; ++v) {
-      int a = acc0;
+    for (int v = 0; v < kLanes / 2; ++v) {
+      uint32_t t = acc0x, h = acc0;
 #pragma unroll
-      for (int j = 0; j < K; ++j) a += ky[j] * hs[j][v];
-      acc[v] = (a >> p.shift) + p.delta;
+      for (int j = 0; j < K; ++j) {
+        t += (uint32_t)ky[j] * hs[j][v];
+        h += (uint32_t)ky[j] * (hs[j][v] >> 16);
+      }
+      acc[2 * v] = ((int)(t - (h << 16)) >> p.shift) + p.delta;
+      acc[2 * v + 1] = ((int)h >> p.shift) + p.delta;
     }
     constexpr int lo_v = sizeof(OutT) == 1 ? 0 : -32768;
     constexpr int hi_v = sizeof(OutT) == 1 ? 255 : 32767;
@@ -335,7 +374,6 @@ __global__ void __launch_bounds__(32 * kWarps)
 
 #pragma unroll 1
   for (int r = 0; r < kStages - 1 && r < nin; ++r) issue(r);
-  __syncwarp();  // rows staged byte by byte are visible to the warp
   // two register buffers, A and B: the words of row r + 1 are read while
   // row r computes; the loop is unrolled by two so no register still
   // waiting for its read is ever copied
@@ -481,11 +519,8 @@ cudaError_t launch_generic(const uint8_t* src, void* dst, int N, const Taps& tap
 
 template <typename OutT>
 cudaError_t dispatch(const uint8_t* src, void* dst, int N, const Taps& taps, const Params& p,
-                     cudaStream_t st) {
-  int sum = 0;  // the main path's 16-bit horizontal sums need sum |kx| * 255 < 2^16
-  for (int i = 0; i < p.kw; ++i) sum += abs(taps.kx[i]);
-  const int K = (p.kw == p.kh && (p.kw == 3 || p.kw == 5) && sum * 255 < 65536) ? p.kw : 0;
-  switch (K * 8 + p.C) {
+                     int route, cudaStream_t st) {
+  switch (route * 8 + p.C) {
     case 3 * 8 + 1: return launch<3, 1, OutT>(src, dst, N, taps, p, st);
     case 3 * 8 + 2: return launch<3, 2, OutT>(src, dst, N, taps, p, st);
     case 3 * 8 + 3: return launch<3, 3, OutT>(src, dst, N, taps, p, st);
@@ -494,21 +529,41 @@ cudaError_t dispatch(const uint8_t* src, void* dst, int N, const Taps& taps, con
     case 5 * 8 + 2: return launch<5, 2, OutT>(src, dst, N, taps, p, st);
     case 5 * 8 + 3: return launch<5, 3, OutT>(src, dst, N, taps, p, st);
     case 5 * 8 + 4: return launch<5, 4, OutT>(src, dst, N, taps, p, st);
+    case 7 * 8 + 1: return launch<7, 1, OutT>(src, dst, N, taps, p, st);
+    case 7 * 8 + 2: return launch<7, 2, OutT>(src, dst, N, taps, p, st);
+    case 7 * 8 + 3: return launch<7, 3, OutT>(src, dst, N, taps, p, st);
+    case 7 * 8 + 4: return launch<7, 4, OutT>(src, dst, N, taps, p, st);
     default: return launch_generic<OutT>(src, dst, N, taps, p, st);
   }
 }
 
+// The template's condition on route K (kernels/sepfilter.py::sep_filter_route):
+// kw == kh == K in {3, 5, 7} and sum |kx| * 255 < 2^16, so the 16-bit
+// horizontal sums cannot carry.  Route 0, the generic kernel, takes any taps.
+bool route_takes(int route, const int* kx, int kw, int kh) {
+  if (route == 0) return true;
+  if ((route != 3 && route != 5 && route != 7) || kw != route || kh != route) return false;
+  int sum = 0;
+  for (int i = 0; i < kw; ++i) sum += abs(kx[i]);
+  return sum * 255 < 65536;
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
 }  // namespace
 
 // src: (N, H, W, C) u8 contiguous; dst: (N, H, W, C) u8 (out_i16 = 0) or
-// i16 (out_i16 = 1).  kx/ky and bval are host arrays.  Returns a cudaError_t.
+// i16 (out_i16 = 1).  kx/ky and bval are host arrays.  route: 3, 5 or 7 for
+// the template, 0 for the generic kernel; taps that the route does not take
+// are refused, never sent to another route.  Returns a cudaError_t.
 extern "C" int opencv_sep_filter(const void* src, void* dst, int N, int H, int W, int C,
                                  const int* kx, int kw, const int* ky, int kh, int shift,
                                  int delta, int has_scale, float scale, int border,
-                                 const int* bval, int out_i16, void* stream) {
+                                 const int* bval, int out_i16, int route, void* stream) {
   if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || C > 4 || kw < 1 || kw > kMaxTaps ||
       kh < 1 || kh > kMaxTaps || shift < 0 || shift > 30 || border < 0 || border > 4 ||
-      (long long)W * C > (1 << 30) || ocvt::ceil_div(H, kGenStrip) > 65535)
+      (long long)W * C > (1 << 30) || ocvt::ceil_div(H, kGenStrip) > 65535 ||
+      !route_takes(route, kx, kw, kh))
     return cudaErrorInvalidValue;
   Taps taps{};
   for (int i = 0; i < kw; ++i) taps.kx[i] = kx[i];
@@ -525,10 +580,12 @@ extern "C" int opencv_sep_filter(const void* src, void* dst, int N, int H, int W
   p.scale = scale;
   p.border = border;
   for (int c = 0; c < 4; ++c) p.bval[c] = bval[c];
-  p.vec = (W * C) % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  p.vec = (W * C) % 16 == 0 && aligned16(dst) && (route != 0 || aligned16(src));
+  const uintptr_t s0 = reinterpret_cast<uintptr_t>(src);
+  p.glo = s0 & ~uintptr_t(15);
+  p.ghi = (s0 + (size_t)N * H * W * C + 15) & ~uintptr_t(15);
   const uint8_t* s = static_cast<const uint8_t*>(src);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_i16 ? dispatch<int16_t>(s, dst, N, taps, p, st)
-                 : dispatch<uint8_t>(s, dst, N, taps, p, st);
+  return out_i16 ? dispatch<int16_t>(s, dst, N, taps, p, route, st)
+                 : dispatch<uint8_t>(s, dst, N, taps, p, route, st);
 }

@@ -7,7 +7,9 @@ with ``ctypes``.  The library lands in ``opencv_tpu_torch/_build/`` under a
 name that carries a hash of the sources and flags, so an edit rebuilds and
 an unchanged tree reuses the file.  It is written to a temporary name and
 moved into place with ``os.replace``, so concurrent processes never load a
-half-written file.
+half-written file.  Beside it, ``<name>.ptxas.txt`` keeps what ``ptxas -v``
+said of each kernel (registers, stack, spills); :func:`ptxas_report` reads
+it.
 
 Nothing here runs for CPU tensors: importing the package needs no CUDA
 toolkit.  A missing ``nvcc``, a failed build or a launch that returns a CUDA
@@ -24,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "Kernel", "library", "stream_of"]
+__all__ = ["NVCC_FLAGS", "Kernel", "library", "parse_ptxas", "ptxas_report", "stream_of"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -65,18 +68,20 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libopencv_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list) -> None:
-    """Run the commands concurrently; raise with the output of every one
-    that failed."""
+def _run_all(cmds: list) -> str:
+    """Run the commands concurrently; return their standard error, or raise
+    with the output of every one that failed."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)) for cmd in cmds]
-    errors = []
+    errors, logs = [], []
     for cmd, proc in procs:
         out, err = proc.communicate()
+        logs.append(err)
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
     if errors:
         raise RuntimeError("\n".join(errors))
+    return "".join(logs)
 
 
 def _build(so: Path) -> None:
@@ -87,9 +92,10 @@ def _build(so: Path) -> None:
     tmp = BUILD_DIR / f"{tag}.tmp.so"
     nvcc = _nvcc()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
-                  for src, obj in zip(sources, objs)])
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c", "-o",
+                         str(obj), str(src)] for src, obj in zip(sources, objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        so.with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, so)
     finally:
         for f in (*objs, tmp):
@@ -111,6 +117,36 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def ptxas_report() -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from what ``ptxas -v`` said when the loaded library was
+    built (bytes, but registers)."""
+    library()
+    return parse_ptxas(_library_path().with_suffix(".ptxas.txt").read_text())
+
+
+def parse_ptxas(text: str) -> dict:
+    """The kernels of a ``ptxas -v`` log, as :func:`ptxas_report` gives
+    them; the lines of functions that are not kernels are skipped."""
+    report, cur, entry = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            if "Compiling entry" in line:
+                entry = report.setdefault(m.group(1), {})
+            cur = report.get(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+    return report
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -120,15 +156,23 @@ class Kernel:
 
     ``launches`` goes up by one for every successful launch, and nowhere
     else, so a run can show that its main path went through the kernel.
+    An entry with several routes (kernels behind one entry point) also
+    counts each successful launch under its route, in ``routes``.
     """
 
-    def __init__(self, symbol: str, argtypes: list):
+    def __init__(self, symbol: str, argtypes: list, routes: tuple = ()):
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.routes = dict.fromkeys(routes, 0)
         self._fn = None
 
-    def __call__(self, device: torch.device, *args) -> None:
+    def reset(self) -> None:
+        """Set the launch count and the route counts to 0."""
+        self.launches = 0
+        self.routes = dict.fromkeys(self.routes, 0)
+
+    def __call__(self, device: torch.device, *args, route: str | None = None) -> None:
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes
@@ -140,3 +184,5 @@ class Kernel:
             msg = library().opencv_tpu_torch_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
         self.launches += 1
+        if route is not None:
+            self.routes[route] += 1

@@ -26,14 +26,18 @@ from ..core.dispatch import register
 from ..core.fixedpoint import saturate_cast
 from ._build import Kernel, stream_of
 
-__all__ = ["SEP_FILTER", "PYR_DOWN", "sep_correlate_int", "sep_filter_int",
-           "sep_filter_int_plain", "sep_filter_u8", "pyr_down_sum", "pyr_down_int_plain",
-           "pyr_down_u8", "pyr_down_u8_plain"]
+__all__ = ["SEP_FILTER", "PYR_DOWN", "SEP_ROUTES", "sep_correlate_int", "sep_filter_route",
+           "sep_filter_int", "sep_filter_int_plain", "sep_filter_u8", "pyr_down_sum",
+           "pyr_down_int_plain", "pyr_down_u8", "pyr_down_u8_plain"]
+
+# sep_filter's routes (csrc/sepfilter.cu): the template at K = 3, 5 or 7, and
+# the generic kernel (route 0), by the name each is counted under
+SEP_ROUTES = {3: "k3", 5: "k5", 7: "k7", 0: "generic"}
 
 _vp, _i, _ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SEP_FILTER = Kernel("opencv_sep_filter",
                     [_vp, _vp, _i, _i, _i, _i, _ip, _i, _ip, _i, _i, _i, _i,
-                     ctypes.c_float, _i, _ip, _i, _vp])
+                     ctypes.c_float, _i, _ip, _i, _i, _vp], routes=tuple(SEP_ROUTES.values()))
 PYR_DOWN = Kernel("opencv_pyr_down", [_vp, _vp, _i, _i, _i, _i, _i, _vp])
 
 _OUT_DTYPES = {"uint8": torch.uint8, "int16": torch.int16}
@@ -78,6 +82,18 @@ def sep_filter_int_plain(x, kx, ky, shift: int = 0, delta: int = 0, scale=None,
     return saturate_cast(v, _out_dtype(out_dtype))
 
 
+def sep_filter_route(kx, ky) -> int:
+    """The CUDA route of a ``sep_filter`` launch: K (3, 5 or 7) when
+    kw == kh == K and sum |kx| * 255 < 2^16, so the kernel's 16-bit
+    horizontal sums cannot carry (the template of ``csrc/sepfilter.cu``);
+    else 0 (the generic kernel).  The entry refuses taps that the route it
+    is given does not take."""
+    k = len(kx)
+    if k == len(ky) and k in (3, 5, 7) and sum(abs(int(v)) for v in kx) * 255 < 1 << 16:
+        return k
+    return 0
+
+
 def _check(x):
     if x.dtype != torch.uint8 or x.ndim != 4:
         raise ValueError(f"sep_filter: expected (N,H,W,C) uint8, got {tuple(x.shape)} {x.dtype}")
@@ -107,13 +123,14 @@ def sep_filter_int(x, kx, ky, shift: int = 0, delta: int = 0, scale=None,
     x = x.contiguous()
     out = torch.empty((N, H, W, C), dtype=out_dtype, device=x.device)
     bval = [int(v) for v in constant_vector(border_value, C)] + [0] * (4 - C)
+    k = sep_filter_route(kx, ky)
     SEP_FILTER(
         x.device, x.data_ptr(), out.data_ptr(), N, H, W, C,
         (ctypes.c_int * len(kx))(*kx), len(kx), (ctypes.c_int * len(ky))(*ky), len(ky),
         int(shift), int(delta), int(scale is not None),
         float(scale) if scale is not None else 0.0,
         border & ~K.BORDER_ISOLATED, (ctypes.c_int * 4)(*bval),
-        int(out_dtype == torch.int16), stream_of(x))
+        int(out_dtype == torch.int16), k, stream_of(x), route=SEP_ROUTES[k])
     return out
 
 

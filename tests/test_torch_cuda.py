@@ -6,6 +6,8 @@ on a GPU machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from opencv_tpu_torch.kernels.fused_preproc import (
     fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
     gauss5_down2_u8_plain)
 from opencv_tpu_torch.kernels.sepfilter import (
-    pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain)
+    pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain, sep_filter_route)
 from opencv_tpu_torch.features2d.fast import fast_keypoint_mask
 from opencv_tpu_torch.features2d.orb import level_sizes
 from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
@@ -60,26 +62,81 @@ def test_sep_filter_kernel_equals_plain(cuda, border, cn):
 
 # The kernels' block classes (see the notes in csrc/sepfilter.cu and
 # csrc/pyrdown.cu): interior blocks, rows one byte over and under the
-# 16-byte word and the 512-byte warp, W*C % 16 != 0 (the byte-wise path),
-# H not a multiple of the row strip; k = 3 and 5 (the main path) and 7, 31
-# (the generic kernel)
+# 16-byte word and the 512-byte warp, W*C % 16 != 0 (rows at an offset in
+# their granules; the generic kernel's byte-wise staging), H not a multiple
+# of the row strip; k = 3, 5 and 7 (the template) and 9, 31 (the generic
+# kernel)
 SEP_CLASS_SHAPES = [(1, 256, 4096, 1), (2, 40, 15, 1), (2, 40, 17, 1), (2, 33, 511, 1),
                     (2, 33, 513, 1), (2, 40, 101, 1), (2, 40, 101, 3), (2, 40, 101, 4),
                     (2, 33, 64, 1), (1, 127, 160, 2), (1, 161, 128, 4)]
 
 
 @pytest.mark.parametrize("border", BORDERS)
-@pytest.mark.parametrize("k", [3, 5, 7, 31])
+@pytest.mark.parametrize("k", [3, 5, 7, 9, 31])
 def test_sep_filter_kernel_block_classes(cuda, k, border):
     kq = _q8(k, 0.0 if k < 7 else 1.0 + k / 8)
+    route = "generic" if k > 7 else f"k{k}"
     for shape in SEP_CLASS_SHAPES:
         if k == 31 and shape[2] * shape[3] > 600:
             continue
         x = _rand(shape, k * 100 + border * 10 + shape[2]).to(cuda)
         kw = dict(kx=kq, ky=kq, shift=16, border=border, border_value=(9, 99, 199, 250)[:shape[3]])
+        before = SEP_FILTER.routes[route]
         got = sep_filter_int(x, **kw)
         torch.cuda.synchronize()
+        assert SEP_FILTER.routes[route] == before + 1
         assert torch.equal(got, sep_filter_int_plain(x, **kw)), shape
+
+
+# sep_filter's template at K = 7, at every row width: (C, widths) with
+# W*C % 16 = 1, 5, 15 (C = 1, 3; for C = 2, 4 the nearest their channel
+# count allows), 0, and one row over 512 bytes
+K7_WIDTHS = {1: (33, 37, 47, 48, 1029), 2: (33, 35, 39, 48, 517), 3: (43, 39, 37, 48, 345),
+             4: (33, 35, 34, 48, 259)}
+# Sobel ksize 7, (kx, ky) of dx = 1 and of dy = 1 (getDerivKernels)
+SOBEL7 = (((-1, -4, -5, 0, 5, 4, 1), (1, 6, 15, 20, 15, 6, 1)),
+          ((1, 6, 15, 20, 15, 6, 1), (-1, -4, -5, 0, 5, 4, 1)))
+
+
+@pytest.mark.parametrize("border", BORDERS)
+@pytest.mark.parametrize("cn", [1, 2, 3, 4])
+def test_sep_filter_k7_template_equals_plain(cuda, cn, border):
+    """The Q8 Gaussian into u8 and Sobel ksize 7 dx and dy into i16 (with
+    delta and scale), at H = 1, 7 and 33 and every width of K7_WIDTHS, on
+    a batch and on a view with an odd storage offset, all on route k7."""
+    bv = (9, 99, 199, 250)[:cn]
+    taps = [dict(kx=_q8(7, 2.0), ky=_q8(7, 2.0), shift=16)]
+    taps += [dict(kx=kx, ky=ky, delta=-5, scale=0.5, out_dtype=torch.int16) for kx, ky in SOBEL7]
+    for W in K7_WIDTHS[cn]:
+        for H in (1, 7, 33):
+            base = _rand((3, H, W, cn), W * 10 + H + cn).to(cuda)
+            for x in (base[:2], base.view(-1)[1:1 + 2 * H * W * cn].view(2, H, W, cn)):
+                for kw in taps:
+                    kw = dict(kw, border=border, border_value=bv)
+                    before = SEP_FILTER.routes["k7"]
+                    got = sep_filter_int(x, **kw)
+                    torch.cuda.synchronize()
+                    assert SEP_FILTER.routes["k7"] == before + 1
+                    assert torch.equal(got, sep_filter_int_plain(x, **kw)), \
+                        (W, H, x.storage_offset(), kw["kx"])
+
+
+def test_sep_filter_entry_refuses_a_route_its_taps_do_not_meet(cuda):
+    """The route is the host's (sep_filter_route); the entry checks it and
+    never sends the taps to another kernel."""
+    x = _rand((1, 16, 40, 1), 3).to(cuda)
+    out = torch.empty_like(x)
+    q7, q5 = _q8(7, 2.0), _q8(5, 1.0)
+    for kx, ky, route in ((q5, q5, 7), (q7, q7, 5), (q7, q5, 7), (tuple(2 * v for v in q7),) * 2
+                          + (7,), (q7, q7, 4), (_q8(9, 2.0), _q8(9, 2.0), 9)):
+        launches = SEP_FILTER.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            SEP_FILTER(x.device, x.data_ptr(), out.data_ptr(), 1, 16, 40, 1,
+                       (ctypes.c_int * len(kx))(*kx), len(kx), (ctypes.c_int * len(ky))(*ky),
+                       len(ky), 16, 0, 0, 0.0, tcv.BORDER_REFLECT_101, (ctypes.c_int * 4)(),
+                       0, route, torch.cuda.current_stream().cuda_stream, route="k7")
+        assert SEP_FILTER.launches == launches
+    assert sep_filter_route(q7, q7) == 7
 
 
 @pytest.mark.parametrize("border", BORDERS)
@@ -281,15 +338,17 @@ def test_warp_q5_map_on_the_card_equals_cpu(cuda, dtype):
 
 @pytest.mark.parametrize("level", range(8))
 def test_sep_filter_k7_at_orb_level_shapes(cuda, level):
-    """ORB's blur (GaussianBlur 7x7 sigma 2, REFLECT_101) takes the generic
-    kernel at each of its 1080p level shapes."""
+    """ORB's blur (GaussianBlur 7x7 sigma 2, REFLECT_101) takes the
+    template at K = 7 at each of its 1080p level shapes."""
     w, h = level_sizes(1080, 1920)[level]
     x = _rand((2, h, w, 1), level).to(cuda)
     kw = dict(kx=_q8(7, 2.0), ky=_q8(7, 2.0), shift=16, border=tcv.BORDER_REFLECT_101)
     before = SEP_FILTER.launches
+    routes = dict(SEP_FILTER.routes)
     got = sep_filter_int(x, **kw)
     torch.cuda.synchronize()
     assert SEP_FILTER.launches == before + 1
+    assert SEP_FILTER.routes == {**routes, "k7": routes["k7"] + 1}
     assert torch.equal(got, sep_filter_int_plain(x, **kw))
 
 

@@ -4,6 +4,9 @@ it), and the wrappers' CPU routing.  The CUDA kernels themselves are held
 against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +28,8 @@ from opencv_tpu_torch.kernels.fused_preproc import (
     fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
     gauss5_down2_u8_plain)
 from opencv_tpu_torch.kernels.sepfilter import (
-    pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain)
+    SEP_FILTER, pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain,
+    sep_filter_route)
 
 # test_kernels.py's Gaussian cases: (H, W, C, ksize, sigma, border)
 GAUSS_CASES = [
@@ -85,8 +89,9 @@ def test_sep_filter_constant_per_channel_and_delta_vs_pallas():
 
 # The CUDA kernels' block classes (csrc/sepfilter.cu, csrc/pyrdown.cu): a
 # row is W*C bytes, a warp covers 512 output bytes in 16-byte words, strips
-# of rows; k = 3 and 5 have their own code, other k the generic kernel; rows
-# whose W*C is not a multiple of 16 take the byte-wise path.  The plain
+# of rows; k = 3, 5 and 7 take sep_filter's template, which stages a row
+# whose W*C is not a multiple of 16 from its granules at an offset, other k
+# the generic kernel, which stages such a row byte by byte.  The plain
 # versions, which the kernels are held to on the card, are held here to the
 # Pallas kernels at the same shapes: (name, (N, H, W, C)).
 SEP_CLASS_SHAPES = [
@@ -123,6 +128,39 @@ def test_sep_filter_sobel_i16_block_classes_vs_pallas(border):
         got = sep_filter_int_plain(torch.from_numpy(x), (-1, 0, 1), (1, 2, 1),
                                    out_dtype=torch.int16, border=border)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# Sobel ksize 7, (kx, ky) of dx = 1 and of dy = 1 (getDerivKernels): the
+# template at K = 7 with negative taps, into i16
+SOBEL7 = (((-1, -4, -5, 0, 5, 4, 1), (1, 6, 15, 20, 15, 6, 1)),
+          ((1, 6, 15, 20, 15, 6, 1), (-1, -4, -5, 0, 5, 4, 1)))
+
+
+@pytest.mark.parametrize("border", ALL_BORDERS)
+def test_sep_filter_sobel7_i16_vs_pallas(border):
+    for shape in ((2, 40, 101, 3), (2, 40, 17, 1)):
+        x = np.random.default_rng(border + shape[2]).integers(0, 256, shape, np.uint8)
+        bv = (9, 99, 199)[:shape[3]]
+        for kx, ky in SOBEL7:
+            want = np.asarray(j_sep_filter_int(x, kx, ky, shift=0, out_dtype=jnp.int16,
+                                               border=border, border_value=bv, interpret=True))
+            got = sep_filter_int_plain(torch.from_numpy(x), kx, ky, out_dtype=torch.int16,
+                                       border=border, border_value=bv)
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=str((shape, kx)))
+
+
+@pytest.mark.parametrize("kx,ky,route", [
+    (_q8(7, 2.0), _q8(7, 2.0), 7),                        # ORB's blur: sum 256
+    (*SOBEL7[0], 7), (*SOBEL7[1], 7),                     # Sobel ksize 7
+    (tuple(2 * v for v in _q8(7, 2.0)),) * 2 + (0,),      # sum 512: the sums would carry
+    (_q8(7, 2.0), _q8(5, 1.0), 0),                        # kw != kh
+    (_q8(5, 1.0), _q8(7, 2.0), 0),
+    (_q8(9, 2.0), _q8(9, 2.0), 0),                        # k = 9
+    (_q8(3, 0.0), _q8(3, 0.0), 3), ((-1, 0, 1), (1, 2, 1), 3),
+    (_q8(5, 1.3), _q8(5, 1.3), 5),
+])
+def test_sep_filter_route(kx, ky, route):
+    assert sep_filter_route(kx, ky) == route
 
 
 def test_sep_filter_and_pyr_down_storage_offset_vs_pallas():
@@ -174,6 +212,7 @@ def test_gauss5_down2_gray_vs_pallas():
 
 def test_cpu_tensors_take_the_plain_version():
     before = [k.launches for k in KERNELS]
+    routes = dict(SEP_FILTER.routes)
     x = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (1, 8, 10, 3), np.uint8))
     kq = _q8(5, 0.0)
     assert torch.equal(sep_filter_int(x, kq, kq, shift=16),
@@ -181,6 +220,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(fused_gray_gauss5_down2(x), fused_gray_gauss5_down2_plain(x))
     assert torch.equal(pyr_down_u8(x), pyr_down_u8_plain(x))
     assert [k.launches for k in KERNELS] == before
+    assert SEP_FILTER.routes == routes
 
 
 def test_fused_rejects_odd_sizes_and_wrong_inputs():
@@ -258,3 +298,52 @@ def test_pyr_down_rejects_constant_border_and_wrong_inputs():
         with pytest.raises(ValueError):
             fn(torch.zeros((1, 20, 20, 1), dtype=torch.int16))
     assert pyr_down_u8(x, tcv.BORDER_REFLECT_101 | tcv.BORDER_ISOLATED).shape == (1, 10, 10, 1)
+
+
+def _sweep_module():
+    path = Path(__file__).resolve().parent.parent / "perf" / "sweep_stencil_tiles.py"
+    spec = importlib.util.spec_from_file_location("sweep_stencil_tiles", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_sweep_stencil_tiles_edits_match_the_sources():
+    """perf/sweep_stencil_tiles.py's variants and schedule probes are text
+    edits of csrc/sepfilter.cu and csrc/pyrdown.cu, each of which must match
+    the shipped source exactly once (patched() raises otherwise)."""
+    sweep = _sweep_module()
+    for kernel, consts in sweep.VARIANTS:
+        src = sweep.patched(kernel, consts)
+        for name, value in consts.items():
+            if name != "edits":
+                assert f"constexpr int {name} = {value};" in src
+        for _, new in consts.get("edits", ()):
+            assert new in src
+    for kernel in ("sep", "pyr"):
+        src = sweep.probed(kernel)
+        assert src.count("probe_record(g0, 1);") == 1 and src.count("probe_record(g0, 0);") == 1
+        assert "struct ProbeRec" in src
+
+
+def test_parse_ptxas_reads_each_kernel_and_skips_device_functions():
+    """chip_smoke.py fails on a spill in sep_filter's template from this
+    reading of nvcc's -Xptxas -v log."""
+    from opencv_tpu_torch.kernels._build import parse_ptxas
+    k7 = "_ZN12_GLOBAL__N_117sep_filter_kernelILi7ELi4EsEEvPKhPT1_NS_4TapsENS_6ParamsE"
+    gen = "_ZN12_GLOBAL__N_118sep_generic_kernelIhEEvPKhPT_NS_4TapsENS_6ParamsE"
+    log = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{k7}' for 'sm_90a'
+ptxas info    : Function properties for {k7}
+    80 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 156 registers, used 1 barriers, 904 bytes cmem[0]
+ptxas info    : Function properties for _ZN4ocvt11stage_bytesEPhPKhiiiPKNS_8EdgeMapsE
+    40 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Compiling entry function '{gen}' for 'sm_90a'
+ptxas info    : Function properties for {gen}
+    80 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 84 registers, 904 bytes cmem[0]
+"""
+    assert parse_ptxas(log) == {
+        k7: dict(stack=80, spill_stores=0, spill_loads=0, registers=156),
+        gen: dict(stack=80, spill_stores=4, spill_loads=4, registers=84)}
