@@ -52,6 +52,12 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       sep_filter launches; and
       BFMatcher(NORM_HAMMING, crossCheck) on image 0's descriptors against
       image 1's gives the CPU's pairs and distances;
+   e. BASELINE config 2: ``entry_resize_warp_4k("cuda")``'s forward (resize
+      to 1920x1080 with LINEAR, AREA and CUBIC, warpAffine and
+      warpPerspective at 3840x2160) on the (4, 2160, 3840, 3) batch, which
+      launches none of the kernels (plain torch); its shapes, and on images
+      0 and 1 the three resizes exactly and the two warps within the warp
+      bound against the CPU plain forward;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -65,8 +71,10 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    tail apart; config 5's forward on the host clock, its host syncs, and its
    stages (level-0 FAST, one LINEAR_EXACT step, torch.topk on the pooled
    and the unpooled level-0 map, level 0's sparse Harris/IC/descriptor
-   stage, the device rows and the host tail) and BFMatcher at 500 x 500.
-   A kernel's share of its bound is bound_ms / ms.
+   stage, the device rows and the host tail) and BFMatcher at 500 x 500;
+   config 2's forward and each of its five ops beside their bytes bounds,
+   the forward's device busy share (``torch.profiler``) and its peak
+   device memory.  A kernel's share of its bound is bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -105,6 +113,10 @@ GFTT_OVERLAP = 0.85
 # (octave, x, y), and per key the same response, angle and descriptor.  No
 # tolerance: cos and sin are taken in float64 and rounded to float32, and
 # every other float op runs alone on both devices (no fused multiply-add).
+
+
+# config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
+CFG2_OPS = ("resize LINEAR", "resize AREA", "resize CUBIC", "warpAffine", "warpPerspective")
 
 
 def log(msg: str) -> None:
@@ -253,6 +265,26 @@ def host_median(fn, iters: int = 20, warmup: int = 2) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def busy_share(fn, iters: int = 3) -> tuple[float, float, float]:
+    """(kernel time / wall time, kernel ms, wall ms) per call of fn, from
+    torch.profiler over `iters` calls after one warm-up; the wall time ends
+    in a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    cuda = torch.autograd.DeviceType.CUDA
+    k_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.key_averages() if e.device_type == cuda)
+    k_ms = k_us / iters / 1e3
+    return k_ms / wall_ms, k_ms, wall_ms
 
 
 def pyr_cases(K):
@@ -703,6 +735,32 @@ def main() -> int:
     log(f"BFMatcher(NORM_HAMMING, crossCheck) image 0 ({len(d0)}) vs image 1 ({len(d1)}) on "
         f"the card: {len(m_gpu)} matches, equal to the CPU's")
 
+    # -- 4e. BASELINE config 2: 4K resize x3, warpAffine, warpPerspective
+    forward2, (x2,) = E.entry_resize_warp_4k("cuda")
+    outs2, cfg2 = run_counted(lambda: forward2(x2))
+    log(f"config 2 path launches: {cfg2} (resize and the warps are plain torch)")
+    if any(cfg2[k.symbol] for k in KERNELS):
+        raise AssertionError(f"config 2 path: no kernel may launch, got {cfg2}")
+    N2, H2, W2, C2 = E.SHAPE_CFG2
+    for name, got, shape in zip(CFG2_OPS, outs2, [(N2, H2 // 2, W2 // 2, C2)] * 3
+                                + [E.SHAPE_CFG2] * 2):
+        if tuple(got.shape) != shape or got.dtype != torch.uint8:
+            raise AssertionError(f"config 2 {name}: {tuple(got.shape)} {got.dtype}, "
+                                 f"expected {shape} uint8")
+    want2 = forward2(x2[:2].cpu())
+    for name, got, want in zip(CFG2_OPS[:3], outs2[:3], want2[:3]):
+        check_equal(f"config 2 {name} vs CPU, images 0-1", got[:2].cpu(), want)
+    warp_diff = []
+    for name, got, want in zip(CFG2_OPS[3:], outs2[3:5], want2[3:5]):
+        d = (got[:2].cpu().to(torch.int32) - want.to(torch.int32)).abs()
+        n_diff = int(d.count_nonzero())
+        if int(d.max()) > WARP_ATOL or n_diff > WARP_MAX_FRACTION * d.numel():
+            raise AssertionError(f"config 2 {name} vs CPU: max |d| {int(d.max())}, "
+                                 f"{n_diff} differ")
+        warp_diff.append(f"{name} max |d| {int(d.max())}, {n_diff} of {d.numel()} differ")
+    log(f"config 2: shapes; resize LINEAR, AREA and CUBIC equal the CPU plain forward on "
+        f"images 0-1; {'; '.join(warp_diff)}; totals {outs2[5].tolist()}")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -859,6 +917,35 @@ def main() -> int:
     log(f"time BFMatcher(NORM_HAMMING, crossCheck).match {len(q5)} x {len(r5)}: {t_bf:.4f} ms "
         f"on the host clock; its Hamming matrix on the card {t_ham:.4f} ms  [{card}]")
 
+    # config 2, as the caller sees it (the warps copy their host vectors to
+    # the card on each call); bytes: each input read once, each output
+    # written once
+    half2 = (W2 // 2, H2 // 2)
+    n_in2, n_half2 = x2.numel(), outs2[0].numel()
+    ops2 = (
+        ("forward_resize_warp_4k", lambda: forward2(x2), 5 * n_in2 + 3 * n_half2 + 2 * n_in2),
+        *((name, lambda i=i: cv.resize(x2, half2, interpolation=i), n_in2 + n_half2)
+          for name, i in zip(CFG2_OPS, (cv.INTER_LINEAR, cv.INTER_AREA, cv.INTER_CUBIC))),
+        (CFG2_OPS[3], lambda: cv.warpAffine(x2, cv.getRotationMatrix2D(
+            (W2 / 2, H2 / 2), 15.0, 0.9), (W2, H2)), 2 * n_in2),
+        (CFG2_OPS[4], lambda: cv.warpPerspective(x2, E.PERSPECTIVE_CFG2, (W2, H2)), 2 * n_in2))
+    for name, fn, nbytes in ops2:
+        t = timer(fn)
+        b_ms = bound(nbytes, 0)[0]
+        log(f"time config 2 {name} {tuple(x2.shape)}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB), share of bound {b_ms / t:.4f}  [{card}]")
+    busy, k_ms, f_ms = busy_share(lambda: forward2(x2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    forward2(x2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"config 2 forward: device busy share {busy:.4f} (kernels {k_ms:.4f} ms of "
+        f"{f_ms:.4f} ms, torch.profiler); peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"({(peak - base) / 2 ** 30:.3f} GiB over the {base / 2 ** 30:.3f} GiB held before)  "
+        f"[{card}]")
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -867,7 +954,7 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a, 4b, 4c, 4d); the
+    # launches: the kernel's count over the main paths (4a to 4e); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
@@ -878,14 +965,14 @@ def main() -> int:
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": flagship[sym] + cfg3[sym] + cfg4[sym] + cfg5[sym],
+                        "launches": sum(c[sym] for c in (flagship, cfg3, cfg4, cfg5, cfg2)),
                         "max_abs_err": max_err[name],
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
                         "cases": [times[s] for s in shapes[name]]})
     # sep_filter's launches on the main paths by route
     kernels[0]["launches_by_route"] = {
-        r: sum(c["sep_filter routes"][r] for c in (flagship, cfg3, cfg4, cfg5))
+        r: sum(c["sep_filter routes"][r] for c in (flagship, cfg3, cfg4, cfg5, cfg2))
         for r in SEP_FILTER.routes}
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -13,8 +13,10 @@ the pyramid/corner/edge path of BASELINE config 3 (pyrDown, cornerHarris,
 Sobel, Canny) with the filter, derivative, pyramid and corner families
 around it, and BASELINE config 4 (matchTemplate, erode, dilate,
 morphologyEx) with goodFeaturesToTrack, GFTTDetector and the KeyPoint API,
-and BASELINE config 5 (ORB, with FAST, the INTER_LINEAR_EXACT resize of
-its pyramid and BFMatcher).
+BASELINE config 5 (ORB, with FAST, the INTER_LINEAR_EXACT resize of
+its pyramid and BFMatcher), and BASELINE config 2 with the whole of
+resize and the warps (warpAffine, warpPerspective, remap, the polar warps
+and the transform builders).
 """
 
 from .constants import *  # noqa: F401,F403
@@ -34,7 +36,11 @@ from .ops.corners import (  # noqa: F401
 from .ops.canny import Canny  # noqa: F401
 from .ops.templmatch import matchTemplate  # noqa: F401
 from .ops.resize import resize  # noqa: F401
-from .ops.warp import getRotationMatrix2D, invertAffineTransform, warpAffine  # noqa: F401
+from .ops.warp import (  # noqa: F401
+    WARP_POLAR_LINEAR, WARP_POLAR_LOG, getAffineTransform, getPerspectiveTransform,
+    getRotationMatrix2D, invertAffineTransform, linearPolar, logPolar, remap, warpAffine,
+    warpPerspective, warpPolar,
+)
 from .features2d import (  # noqa: F401
     BFMatcher, DMatch, FastFeatureDetector, FastFeatureDetector_create, GFTTDetector,
     GFTTDetector_create, KeyPoint, KeyPoint_convert, KeyPoint_overlap, ORB, ORB_create,

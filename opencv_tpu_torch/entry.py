@@ -24,6 +24,14 @@ nfeatures=500 over an (N, 1080, 1920) u8 batch, through
 levels, FAST, a sparse Harris rescore, the 7×7 σ 2 blur through
 ``sep_filter`` once per level, rotated BRIEF, and a host tail);
 ``entry_orb`` gives it ``bench.py``'s ``default_rng(0)`` batch.
+
+``forward_resize_warp_4k`` is BASELINE config 2 (``2_resize_warp_4k``):
+resize to half size with INTER_LINEAR (an exact 2× that reroutes to fast
+AREA), INTER_AREA and INTER_CUBIC, warpAffine (15°, 0.9 about the centre)
+and warpPerspective by ``bench.py``'s ``P``, both at the input's size, over
+an (N, H, W, 3) u8 batch; at (4, 2160, 3840, 3) that is ``bench.py``'s
+chain.  ``entry_resize_warp_4k`` gives it ``bench.py``'s batch at
+``BATCH_4K`` = 4.
 """
 
 from __future__ import annotations
@@ -43,14 +51,19 @@ from .ops.morph import dilate, erode
 from .ops.pyramids import pyrDown
 from .ops.resize import resize
 from .ops.templmatch import matchTemplate
-from .ops.warp import getRotationMatrix2D, warpAffine
+from .ops.warp import getRotationMatrix2D, warpAffine, warpPerspective
 
-__all__ = ["SHAPE", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "entry", "entry_pyr_corner_edge",
-           "entry_match_morph", "entry_orb", "make_batch", "preprocess", "preprocess_fused",
-           "warp", "forward", "forward_fused", "forward_pyr_corner_edge", "forward_match_morph",
-           "forward_orb"]
+__all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "PERSPECTIVE_CFG2",
+           "entry", "entry_resize_warp_4k", "entry_pyr_corner_edge", "entry_match_morph",
+           "entry_orb", "make_batch", "preprocess", "preprocess_fused", "warp", "forward",
+           "forward_fused", "forward_resize_warp_4k", "forward_pyr_corner_edge",
+           "forward_match_morph", "forward_orb"]
 
 SHAPE = (8, 1080, 1920, 3)
+SHAPE_CFG2 = (4, 2160, 3840, 3)
+# config 2's homography (bench.py:498-499)
+PERSPECTIVE_CFG2 = np.array([[0.95, 0.05, 8.0], [-0.04, 1.02, 4.0], [1e-6, -2e-6, 1.0]],
+                            np.float64)
 SHAPE_CFG3 = (8, 1080, 1920, 1)
 SHAPE_CFG4 = (8, 1080, 1920, 1)
 TEMPLATE_CFG4 = (32, 32)
@@ -99,6 +112,33 @@ def entry(device="cuda", shape=SHAPE):
 def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
     """An int64 sum as the int32 sum XLA computes: modulo 2^32, signed."""
     return ((v + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def forward_resize_warp_4k(x):
+    """BASELINE config 2 over an (N, H, W, C) u8 batch (``bench.py:501-520``).
+
+    Returns ``(linear, area, cubic, affine, perspective, totals)``: the three
+    resizes to (W/2, H/2), the two warps at (W, H), and the three int32
+    reductions ``bench.py`` takes (the three resizes together, then each
+    warp), as an int32 tensor of 3."""
+    H, W = x.shape[1], x.shape[2]
+    half = (W // 2, H // 2)
+    r1 = resize(x, half, interpolation=K.INTER_LINEAR)
+    r2 = resize(x, half, interpolation=K.INTER_AREA)
+    r3 = resize(x, half, interpolation=K.INTER_CUBIC)
+    wa = warpAffine(x, getRotationMatrix2D((W / 2, H / 2), 15.0, 0.9), (W, H))
+    wp = warpPerspective(x, PERSPECTIVE_CFG2, (W, H))
+    totals = torch.stack([
+        _wrap_int32(r1.sum(dtype=torch.int64) + r2.sum(dtype=torch.int64)
+                    + r3.sum(dtype=torch.int64)),
+        _wrap_int32(wa.sum(dtype=torch.int64)), _wrap_int32(wp.sum(dtype=torch.int64))])
+    return r1, r2, r3, wa, wp, totals
+
+
+def entry_resize_warp_4k(device="cuda", shape=SHAPE_CFG2):
+    """``(forward_resize_warp_4k, (x,))`` with ``bench.py``'s config-2 batch
+    (``default_rng(0)`` integers) on `device`."""
+    return forward_resize_warp_4k, (torch.from_numpy(make_batch(shape)).to(device),)
 
 
 def forward_pyr_corner_edge(x):

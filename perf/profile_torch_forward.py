@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--path flagship|cfg3|cfg4|cfg5] [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5] [--iters 5] [--table PATH]
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
-and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg3`` runs
+and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
+BASELINE config 2 (resize LINEAR, AREA, CUBIC, warpAffine,
+warpPerspective) on the (4, 2160, 3840, 3) batch; ``--path cfg3`` runs
 BASELINE config 3 (pyrDown, cornerHarris, Sobel, Canny) and ``--path
 cfg4`` BASELINE config 4 (matchTemplate, erode, dilate, erode) on the
 (8, 1080, 1920, 1) batch; ``--path cfg5`` BASELINE config 5 (ORB,
@@ -48,6 +50,20 @@ def flagship_stages():
             ("warpFused", E.warp)]
 
 
+def cfg2_stages():
+    """BASELINE config 2's five ops (``entry.forward_resize_warp_4k``
+    without its final reductions), each on the input batch."""
+    _, (x,) = E.entry_resize_warp_4k("cuda")
+    H, W = x.shape[1], x.shape[2]
+    M = cv.getRotationMatrix2D((W / 2, H / 2), 15.0, 0.9)
+    return [("resizeLinear", lambda _: cv.resize(x, (W // 2, H // 2))),
+            ("resizeArea", lambda _: cv.resize(x, (W // 2, H // 2), interpolation=cv.INTER_AREA)),
+            ("resizeCubic", lambda _: cv.resize(x, (W // 2, H // 2),
+                                                interpolation=cv.INTER_CUBIC)),
+            ("warpAffine", lambda _: cv.warpAffine(x, M, (W, H))),
+            ("warpPerspective", lambda _: cv.warpPerspective(x, E.PERSPECTIVE_CFG2, (W, H)))]
+
+
 def cfg3_stages():
     """BASELINE config 3's four ops (``entry.forward_pyr_corner_edge``
     without its final reduction), each on the input batch."""
@@ -79,8 +95,8 @@ def cfg5_stages():
             ("hostTail", lambda rows: orb._host_tail(*rows))]
 
 
-PATHS = {"flagship": flagship_stages, "cfg3": cfg3_stages, "cfg4": cfg4_stages,
-         "cfg5": cfg5_stages}
+PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
+         "cfg4": cfg4_stages, "cfg5": cfg5_stages}
 
 
 def staged(stages, marks=None):

@@ -440,3 +440,85 @@ def test_bf_matcher_on_the_card_equals_cpu(cuda, norm):
                                        torch.from_numpy(d2).to(cuda), 2)
     assert [[(m.trainIdx, m.distance) for m in r] for r in knn] == \
         [[(m.trainIdx, m.distance) for m in r] for r in tcv.BFMatcher(norm).knnMatch(d1, d2, 2)]
+
+
+# -- BASELINE config 2: the rest of resize and the warps (plain torch)
+
+def _assert_warp_bound(got, want, msg=""):
+    """max |d| <= 1 on at most 0.1% of pixels (chip_smoke.py's warp bound)."""
+    d = (got.cpu().to(torch.float64) - want.to(torch.float64)).abs()
+    assert float(d.max()) <= 1, f"{msg} max |d| {float(d.max())}"
+    assert int(d.count_nonzero()) <= d.numel() // 1000, msg
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
+@pytest.mark.parametrize("interp", [tcv.INTER_NEAREST, tcv.INTER_NEAREST_EXACT, tcv.INTER_LINEAR,
+                                    tcv.INTER_LINEAR_EXACT, tcv.INTER_CUBIC, tcv.INTER_AREA,
+                                    tcv.INTER_LANCZOS4])
+def test_resize_on_the_card_equals_cpu(cuda, interp, dtype):
+    """Integer paths bit for bit; f32 paths within 1e-5 (the card may round
+    a product in another order than the CPU); fractional AREA in IEEE f32,
+    whose i16 result may move by 1 where a sum lands on a rounding tie."""
+    x = _rand((2, 61, 97, 3), interp).to(dtype)
+    if dtype == torch.int16:
+        x = x * 100 - 12000
+    for size in ((53, 41), (194, 122), (45, 61), (33, 20)):
+        got = tcv.resize(x.to(cuda), size, interpolation=interp).cpu()
+        want = tcv.resize(x, size, interpolation=interp)
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), size
+        else:
+            assert float((got.to(torch.float64) - want.to(torch.float64)).abs().max()) <= \
+                (0 if dtype == torch.uint8 or interp != tcv.INTER_AREA else 1), size
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float64])
+@pytest.mark.parametrize("interp", [tcv.INTER_NEAREST, tcv.INTER_LINEAR, tcv.INTER_CUBIC,
+                                    tcv.INTER_LANCZOS4])
+def test_warps_on_the_card_equal_cpu(cuda, interp, dtype):
+    x = torch.from_numpy(np.random.default_rng(interp).integers(0, 256, (2, 48, 64, 3))).to(dtype)
+    M = tcv.getRotationMatrix2D((31.5, 23.4), 30.0, 0.8)
+    P = np.array([[0.95, 0.05, 8.0], [-0.04, 1.02, 4.0], [1e-4, -2e-4, 1.0]])
+    for border in BORDERS:
+        kw = dict(flags=interp, borderMode=border, borderValue=(7, 8, 9))
+        _assert_warp_bound(tcv.warpAffine(x.to(cuda), M, (70, 50), **kw),
+                           tcv.warpAffine(x, M, (70, 50), **kw), f"affine {border}")
+        _assert_warp_bound(tcv.warpPerspective(x.to(cuda), P, (70, 50), **kw),
+                           tcv.warpPerspective(x, P, (70, 50), **kw), f"perspective {border}")
+
+
+def test_remap_and_polar_on_the_card_equal_cpu(cuda):
+    x = _rand((40, 50, 3), 3)
+    ys, xs = np.mgrid[0:44, 0:55].astype(np.float32)
+    mapx = (xs * 0.9 - 0.7 + 3 * np.sin(ys * 0.2)).astype(np.float32)
+    mapy = (ys * 0.85 - 0.9 + 2 * np.cos(xs * 0.3)).astype(np.float32)
+    for interp in (tcv.INTER_NEAREST, tcv.INTER_LINEAR):
+        for border in BORDERS:
+            got = tcv.remap(x.to(cuda), torch.from_numpy(mapx).to(cuda),
+                            torch.from_numpy(mapy).to(cuda), interp, borderMode=border)
+            _assert_warp_bound(got, tcv.remap(x, mapx, mapy, interp, borderMode=border))
+    img = _rand((120, 160), 4)
+    for flags in (tcv.INTER_LINEAR, tcv.INTER_NEAREST + tcv.WARP_POLAR_LOG):
+        fwd = tcv.warpPolar(img.to(cuda), (80, 180), (80, 60), 70, flags)
+        _assert_warp_bound(fwd, tcv.warpPolar(img, (80, 180), (80, 60), 70, flags))
+        inv = flags + tcv.WARP_INVERSE_MAP
+        _assert_warp_bound(tcv.warpPolar(fwd, (160, 120), (80, 60), 70, inv),
+                           tcv.warpPolar(fwd.cpu(), (160, 120), (80, 60), 70, inv))
+
+
+def test_resize_warp_4k_on_the_card_equals_cpu(cuda):
+    """Config 2 at a tenth of 4K: no kernel launches; the resizes equal the
+    CPU's, the warps are within the warp bound, the resizes' total equal."""
+    _, (x,) = E.entry_resize_warp_4k("cpu", (2, 216, 384, 3))
+    before = (SEP_FILTER.launches, PYR_DOWN.launches, GAUSS5_DOWN2.launches)
+    reset_tier_stats()
+    got = E.forward_resize_warp_4k(x.to(cuda))
+    torch.cuda.synchronize()
+    assert tier_stats() == {}
+    assert (SEP_FILTER.launches, PYR_DOWN.launches, GAUSS5_DOWN2.launches) == before
+    want = E.forward_resize_warp_4k(x)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(got[3:5], want[3:5]):
+        _assert_warp_bound(g, w)
+    assert int(got[5][0]) == int(want[5][0])

@@ -448,6 +448,14 @@ def test_resize_linear_exact_u8(src, dst, cn):
 
 
 def test_resize_linear_exact_other_dtypes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcv.resize(torch.zeros((8, 8), dtype=torch.float32), (5, 3),
-                   interpolation=tcv.INTER_LINEAR_EXACT)
+    """Other depths raised NotImplementedError until config 2's slice; they
+    now take the f32 INTER_LINEAR path, as opencv_tpu reroutes them (1e-6:
+    XLA may fuse the multiply-adds)."""
+    rng = np.random.default_rng(5)
+    for x in (rng.random((2, 8, 8, 1), dtype=np.float32),
+              rng.integers(0, 65536, (2, 8, 8, 3)).astype(np.uint16)):
+        got = tcv.resize(torch.from_numpy(x), (5, 3), interpolation=tcv.INTER_LINEAR_EXACT)
+        want = np.asarray(jcv.resize(x, (5, 3), interpolation=jcv.INTER_LINEAR_EXACT))
+        assert got.dtype == torch.from_numpy(want).dtype
+        np.testing.assert_allclose(got.numpy().astype(np.float64), want.astype(np.float64),
+                                   rtol=0, atol=1e-6)

@@ -136,8 +136,13 @@ def test_resize_area_float_and_fx():
 
 @pytest.mark.parametrize("interp", [tcv.INTER_NEAREST, tcv.INTER_CUBIC, tcv.INTER_LANCZOS4])
 def test_resize_unported_mode_raises(interp):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcv.resize(torch.zeros((8, 8), dtype=torch.uint8), (5, 3), interpolation=interp)
+    """These modes raised NotImplementedError until config 2's slice ported
+    them; each now equals opencv_tpu on u8 (tests/test_torch_resize.py has
+    the full matrix)."""
+    x = np.random.default_rng(interp).integers(0, 256, (8, 8), np.uint8)
+    for dsize in ((5, 3), (13, 11)):
+        got = _port(tcv.resize, x, dsize, interpolation=interp)
+        np.testing.assert_array_equal(got, np.asarray(jcv.resize(x, dsize, interpolation=interp)))
 
 
 def test_rotation_and_inverse_matrix():
@@ -174,8 +179,12 @@ def test_warp_affine_inverse_map_and_unported():
     got = _port(tcv.warpAffine, x, M, (40, 40), flags=flags)
     _assert_warp_close(got, np.asarray(jcv.warpAffine(x, M, (40, 40), flags=flags)))
     _assert_warp_close(got, cv2.warpAffine(x, M, (40, 40), flags=flags))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcv.warpAffine(torch.from_numpy(x), M, (40, 40), flags=tcv.INTER_NEAREST)
+    # INTER_NEAREST raised NotImplementedError until config 2's slice; its
+    # integer AB_BITS grid now equals opencv_tpu and cv2 exactly
+    nn = _port(tcv.warpAffine, x, M, (40, 40), flags=tcv.INTER_NEAREST)
+    np.testing.assert_array_equal(nn, np.asarray(jcv.warpAffine(x, M, (40, 40),
+                                                                flags=tcv.INTER_NEAREST)))
+    np.testing.assert_array_equal(nn, cv2.warpAffine(x, M, (40, 40), flags=cv2.INTER_NEAREST))
 
 
 # (dtype, input range, max |d| allowed against cv2, share of pixels that may
