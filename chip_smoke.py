@@ -58,6 +58,16 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       launches none of the kernels (plain torch); its shapes, and on images
       0 and 1 the three resizes exactly and the two warps within the warp
       bound against the CPU plain forward;
+   f. the decode-and-colour path: ``entry_decode_color("cuda")``'s forward
+      (NV12 Y (8, 1080, 1920) and UV (8, 540, 960, 2) → cvtColorTwoPlane to
+      BGR → HSV, Lab and YCrCb → the fused gray + blur + 2x AREA map →
+      threshold BINARY | OTSU → integral), which must launch gauss5_down2
+      once, through the dispatch registry (``tier.gauss5_down2_u8.cuda``),
+      and no other kernel; on images 0 and 1 the card equals the CPU plain
+      forward exactly in every u8 and int32 output, the Otsu threshold and
+      the per-image sums, and the batch's own threshold equals the one the
+      CPU takes from the batch's map, its binary map and integral of images
+      0 and 1 equal to the CPU's at that threshold;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -74,7 +84,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    stage, the device rows and the host tail) and BFMatcher at 500 x 500;
    config 2's forward and each of its five ops beside their bytes bounds,
    the forward's device busy share (``torch.profiler``) and its peak
-   device memory.  A kernel's share of its bound is bound_ms / ms.
+   device memory; the same for the decode-and-colour forward and its seven
+   stages, with its host syncs.  A kernel's share of its bound is
+   bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -761,6 +773,54 @@ def main() -> int:
     log(f"config 2: shapes; resize LINEAR, AREA and CUBIC equal the CPU plain forward on "
         f"images 0-1; {'; '.join(warp_diff)}; totals {outs2[5].tolist()}")
 
+    # -- 4f. the decode-and-colour path: NV12 -> BGR -> HSV, Lab, YCrCb ->
+    # gauss5_down2 -> Otsu -> integral
+    from opencv_tpu_torch.core.dispatch import reset_tier_stats, tier_stats
+    forward6, (y6, uv6) = E.entry_decode_color("cuda")
+    reset_tier_stats()
+    outs6, cfg6 = run_counted(lambda: forward6(y6, uv6))
+    tiers6 = tier_stats()
+    log(f"decode-colour path launches: {cfg6}; dispatch {tiers6}")
+    if (cfg6["opencv_gauss5_down2"] != 1 or cfg6["opencv_sep_filter"] or cfg6["opencv_pyr_down"]
+            or tiers6 != {"tier.gauss5_down2_u8.cuda": 1}):
+        raise AssertionError(f"decode-colour path: gauss5_down2 must launch once, through the "
+                             f"registry, and no other kernel; got {cfg6}, {tiers6}")
+    N6, H6, W6 = E.SHAPE_NV12
+    full, half6 = (N6, H6, W6, 3), (N6, H6 // 2, W6 // 2, 1)
+    shapes6 = [full] * 4 + [half6] * 2 + [(N6, H6 // 2 + 1, W6 // 2 + 1, 1)]
+    dtypes6 = [torch.uint8] * 6 + [torch.int32]
+    for name, got, shape, dtype in zip(E.DECODE_COLOR_OUTPUTS, outs6, shapes6, dtypes6):
+        if tuple(got.shape) != shape or got.dtype != dtype:
+            raise AssertionError(f"decode-colour {name}: {tuple(got.shape)} {got.dtype}, "
+                                 f"expected {shape} {dtype}")
+    otsu6 = float(outs6[7])
+    # images 0-1 on the card against the CPU plain forward on the same two
+    # images: every output, their own Otsu threshold and the sums
+    got01 = forward6(y6[:2], uv6[:2])
+    want01 = forward6(y6[:2].cpu(), uv6[:2].cpu())
+    for name, got, want in zip((*E.DECODE_COLOR_OUTPUTS, "otsu", "sums"), got01, want01):
+        check_equal(f"decode-colour images 0-1 {name} vs CPU", got.cpu(), want)
+    # the batch's images 0-1: the outputs before the threshold are the
+    # same; the batch threshold is the CPU's over the batch's map, and at it
+    # the binary map and integral of images 0-1 are the CPU's
+    for i, name in enumerate(E.DECODE_COLOR_OUTPUTS[:5]):
+        check_equal(f"decode-colour batch {name}, images 0-1 vs CPU", outs6[i][:2].cpu(),
+                    want01[i])
+    t_cpu, _ = cv.threshold(outs6[4].cpu(), 0, 255, cv.THRESH_BINARY | cv.THRESH_OTSU)
+    if float(t_cpu) != otsu6:
+        raise AssertionError(f"decode-colour: batch Otsu {otsu6} on the card, {float(t_cpu)} on "
+                             f"the CPU")
+    _, bin01 = cv.threshold(want01[4], otsu6, 255, cv.THRESH_BINARY)
+    check_equal("decode-colour batch binary, images 0-1 vs CPU", outs6[5][:2].cpu(), bin01)
+    check_equal("decode-colour batch integral, images 0-1 vs CPU", outs6[6][:2].cpu(),
+                cv.integral(bin01))
+    check_equal("decode-colour batch sums, images 0-1 vs CPU", outs6[8][:2, :5].cpu(),
+                want01[8][:, :5])
+    log(f"decode-colour path: outputs {[tuple(o.shape) for o in outs6[:7]]}; images 0-1 equal "
+        f"the CPU plain forward (u8 and int32 outputs, Otsu {float(want01[7])}, sums); batch "
+        f"Otsu threshold {otsu6}, the CPU's over the batch map; "
+        f"{int(outs6[5].count_nonzero())} of {outs6[5].numel()} binary pixels set")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -946,6 +1006,49 @@ def main() -> int:
         f"({(peak - base) / 2 ** 30:.3f} GiB over the {base / 2 ** 30:.3f} GiB held before)  "
         f"[{card}]")
 
+    # the decode-and-colour path, as the caller sees it (threshold's
+    # bincount reads the map's maximum back, a host sync); bytes: each
+    # stage's inputs read once and outputs written once
+    bgr6, small6, bin6, int6 = outs6[0], outs6[4], outs6[5], outs6[6]
+    n_nv12, n_bgr, n_small = y6.numel() + uv6.numel(), bgr6.numel(), small6.numel()
+    otsu_type = cv.THRESH_BINARY | cv.THRESH_OTSU
+    stages6 = (
+        ("cvtColorTwoPlane NV12 -> BGR",
+         lambda: cv.cvtColorTwoPlane(y6, uv6, cv.COLOR_YUV2BGR_NV12), n_nv12 + n_bgr),
+        ("cvtColor BGR2HSV", lambda: cv.cvtColor(bgr6, cv.COLOR_BGR2HSV), 2 * n_bgr),
+        ("cvtColor BGR2Lab", lambda: cv.cvtColor(bgr6, cv.COLOR_BGR2Lab), 2 * n_bgr),
+        ("cvtColor BGR2YCrCb", lambda: cv.cvtColor(bgr6, cv.COLOR_BGR2YCrCb), 2 * n_bgr),
+        ("fusedPreprocessGrayBlurDown2 (gauss5_down2)",
+         lambda: cv.fusedPreprocessGrayBlurDown2(bgr6), n_bgr + n_small),
+        ("threshold BINARY | OTSU", lambda: cv.threshold(small6, 0, 255, otsu_type), 2 * n_small),
+        ("integral", lambda: cv.integral(bin6), n_small + 4 * int6.numel()))
+    stage_bytes = sum(b for _, _, b in stages6)
+    # the forward also reads each of its seven outputs once for the sums
+    fwd_bytes6 = stage_bytes + 4 * n_bgr + 2 * n_small + 4 * int6.numel()
+    t6 = timer(lambda: forward6(y6, uv6))
+    log(f"time forward_decode_color Y {tuple(y6.shape)} UV {tuple(uv6.shape)}: {t6:.4f} ms, bytes "
+        f"bound {bound(fwd_bytes6, 0)[0]:.4f} ms ({fwd_bytes6 / 1e6:.1f} MB with the sums' reads; "
+        f"the stages alone {bound(stage_bytes, 0)[0]:.4f} ms, {stage_bytes / 1e6:.1f} MB), share "
+        f"of bound {bound(fwd_bytes6, 0)[0] / t6:.4f}  [{card}]")
+    for name, fn, nbytes in stages6:
+        t = timer(fn)
+        b_ms = bound(nbytes, 0)[0]
+        log(f"time decode-colour {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB), share of bound {b_ms / t:.4f}  [{card}]")
+    n_sync6 = count_syncs(lambda: forward6(y6, uv6))
+    busy6, k_ms6, f_ms6 = busy_share(lambda: forward6(y6, uv6))
+    torch.cuda.synchronize()
+    del outs6, got01, bgr6, small6, bin6, int6
+    torch.cuda.reset_peak_memory_stats()
+    base6 = torch.cuda.memory_allocated()
+    forward6(y6, uv6)
+    torch.cuda.synchronize()
+    peak6 = torch.cuda.max_memory_allocated()
+    log(f"decode-colour forward: device busy share {busy6:.4f} (kernels {k_ms6:.4f} ms of "
+        f"{f_ms6:.4f} ms, torch.profiler); {n_sync6} host syncs per batch; peak device memory "
+        f"{peak6 / 2 ** 30:.3f} GiB ({(peak6 - base6) / 2 ** 30:.3f} GiB over the "
+        f"{base6 / 2 ** 30:.3f} GiB held before)  [{card}]")
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -954,25 +1057,26 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4e); the
+    # launches: the kernel's count over the main paths (4a to 4f); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
                              "sep_filter generic k9 level 2"),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"), "pyr_down": ("pyr_down",)}
+    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": sum(c[sym] for c in (flagship, cfg3, cfg4, cfg5, cfg2)),
+                        "launches": sum(c[sym] for c in main_paths),
                         "max_abs_err": max_err[name],
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
                         "cases": [times[s] for s in shapes[name]]})
     # sep_filter's launches on the main paths by route
     kernels[0]["launches_by_route"] = {
-        r: sum(c["sep_filter routes"][r] for c in (flagship, cfg3, cfg4, cfg5, cfg2))
+        r: sum(c["sep_filter routes"][r] for c in main_paths)
         for r in SEP_FILTER.routes}
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

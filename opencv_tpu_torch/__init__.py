@@ -7,7 +7,7 @@ package has a Pallas kernel, and plain PyTorch elsewhere; CPU tensors run
 plain PyTorch throughout.  This package imports neither jax nor
 ``opencv_tpu``.
 
-Ported so far: the flagship preprocess path (cvtColor gray family,
+Ported so far: the flagship preprocess path (cvtColor to gray,
 GaussianBlur, resize, warpAffine), the fused gray+blur+downsample entry,
 the pyramid/corner/edge path of BASELINE config 3 (pyrDown, cornerHarris,
 Sobel, Canny) with the filter, derivative, pyramid and corner families
@@ -16,11 +16,19 @@ morphologyEx) with goodFeaturesToTrack, GFTTDetector and the KeyPoint API,
 BASELINE config 5 (ORB, with FAST, the INTER_LINEAR_EXACT resize of
 its pyramid and BFMatcher), and BASELINE config 2 with the whole of
 resize and the warps (warpAffine, warpPerspective, remap, the polar warps
-and the transform builders).
+and the transform builders), and the decode-and-colour path: all of
+cvtColor (the Bayer codes through demosaicing) and cvtColorTwoPlane,
+threshold, adaptiveThreshold, thresholdWithMask, integral/2/3,
+copyMakeBorder and borderInterpolate.
 """
 
 from .constants import *  # noqa: F401,F403
-from .ops.color import cvtColor  # noqa: F401
+from .core.borders import border_interpolate as borderInterpolate  # noqa: F401
+from .core.borders import copy_make_border as copyMakeBorder  # noqa: F401
+from .ops.color import cvtColor, cvtColorTwoPlane  # noqa: F401
+from .ops.integral import integral, integral2, integral3  # noqa: F401
+from .ops.misc import demosaicing  # noqa: F401
+from .ops.thresh import adaptiveThreshold, threshold, thresholdWithMask  # noqa: F401
 from .ops.filter import (  # noqa: F401
     GaussianBlur, blur, boxFilter, filter2D, getGaussianKernel, sepFilter2D, sqrBoxFilter,
 )

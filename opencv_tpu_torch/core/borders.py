@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .arrays import from_batched, to_batched
+
 from ..constants import (
     BORDER_CONSTANT,
     BORDER_REPLICATE,
@@ -25,7 +27,8 @@ from ..constants import (
     BORDER_ISOLATED,
 )
 
-__all__ = ["border_interpolate", "border_index", "constant_vector", "pad_nhwc"]
+__all__ = ["border_interpolate", "border_index", "constant_vector", "copy_make_border",
+           "pad_nhwc"]
 
 
 # copy of opencv_tpu.core.borders.border_interpolate
@@ -101,3 +104,10 @@ def pad_nhwc(x: torch.Tensor, top: int, bottom: int, left: int, right: int,
         mask = torch.from_numpy(mask).to(x.device)[None, :, :, None]
         y = torch.where(mask, val, y)
     return y
+
+
+def copy_make_border(src, top: int, bottom: int, left: int, right: int,
+                     borderType: int = BORDER_CONSTANT, value=0):
+    """cv2-compatible `copyMakeBorder` over (H,W), (H,W,C) or (N,H,W,C)."""
+    x, meta = to_batched(src)
+    return from_batched(pad_nhwc(x, top, bottom, left, right, borderType, value), meta)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["descale", "saturate_cast"]
+__all__ = ["alpha_max", "descale", "saturate_cast"]
 
 _INT_RANGE = {
     torch.uint8: (0, 255),
@@ -42,3 +42,11 @@ def saturate_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
             x = torch.round(x)
         return x.clamp(lo, hi).to(dtype)
     return x.to(dtype)
+
+
+def alpha_max(dtype: torch.dtype):
+    """Alpha-channel fill value per depth (255 / 65535 / 1.0), matching
+    `cv::cvtColor` alpha conventions."""
+    if dtype in _INT_RANGE:
+        return _INT_RANGE[dtype][1]
+    return 1.0

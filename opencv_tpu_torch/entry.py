@@ -32,6 +32,14 @@ and warpPerspective by ``bench.py``'s ``P``, both at the input's size, over
 an (N, H, W, 3) u8 batch; at (4, 2160, 3840, 3) that is ``bench.py``'s
 chain.  ``entry_resize_warp_4k`` gives it ``bench.py``'s batch at
 ``BATCH_4K`` = 4.
+
+``forward_decode_color`` is the path from a decoded video frame to a binary
+map and its integral image: NV12 as a hardware decoder hands it over (a Y
+plane and an interleaved UV plane) → ``cvtColorTwoPlane`` to BGR →
+cvtColor to HSV, Lab (u8) and YCrCb → ``fusedPreprocessGrayBlurDown2`` →
+``threshold`` BINARY | OTSU → ``integral``.  ``entry_decode_color`` gives it
+Y (8, 1080, 1920) and UV (8, 540, 960, 2) u8 drawn from one
+``default_rng(0)`` in that order: the batch of 8 at 1080p of configs 3–5.
 """
 
 from __future__ import annotations
@@ -43,21 +51,24 @@ from . import constants as K
 from .features2d.orb import ORB_create
 from .kernels import fused_gray_gauss5_down2
 from .ops.canny import Canny
-from .ops.color import cvtColor
+from .ops.color import cvtColor, cvtColorTwoPlane
 from .ops.corners import cornerHarris
 from .ops.deriv import Sobel
 from .ops.filter import GaussianBlur
 from .ops.morph import dilate, erode
 from .ops.pyramids import pyrDown
+from .ops.integral import integral
 from .ops.resize import resize
 from .ops.templmatch import matchTemplate
+from .ops.thresh import threshold
 from .ops.warp import getRotationMatrix2D, warpAffine, warpPerspective
 
-__all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "PERSPECTIVE_CFG2",
-           "entry", "entry_resize_warp_4k", "entry_pyr_corner_edge", "entry_match_morph",
-           "entry_orb", "make_batch", "preprocess", "preprocess_fused", "warp", "forward",
+__all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
+           "PERSPECTIVE_CFG2", "DECODE_COLOR_OUTPUTS", "entry", "entry_resize_warp_4k",
+           "entry_pyr_corner_edge", "entry_match_morph", "entry_orb", "entry_decode_color",
+           "make_batch", "make_nv12", "preprocess", "preprocess_fused", "warp", "forward",
            "forward_fused", "forward_resize_warp_4k", "forward_pyr_corner_edge",
-           "forward_match_morph", "forward_orb"]
+           "forward_match_morph", "forward_orb", "forward_decode_color"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -68,6 +79,10 @@ SHAPE_CFG3 = (8, 1080, 1920, 1)
 SHAPE_CFG4 = (8, 1080, 1920, 1)
 TEMPLATE_CFG4 = (32, 32)
 SHAPE_CFG5 = (8, 1080, 1920)
+# the Y plane of the NV12 batch; its UV plane is (N, H/2, W/2, 2)
+SHAPE_NV12 = (8, 1080, 1920)
+# forward_decode_color's image outputs, in order
+DECODE_COLOR_OUTPUTS = ("bgr", "hsv", "lab", "ycrcb", "small", "binary", "integral")
 
 
 def make_batch(shape=SHAPE, seed: int = 0) -> np.ndarray:
@@ -200,3 +215,44 @@ def entry_orb(device="cuda", shape=SHAPE_CFG5):
     """``(forward_orb, (x, orb))`` with ``bench.py``'s config-5 batch
     (``default_rng(0)`` integers) on `device` and ``ORB_create(nfeatures=500)``."""
     return forward_orb, (torch.from_numpy(make_batch(shape)).to(device), ORB_create(nfeatures=500))
+
+
+def forward_decode_color(y, uv):
+    """From NV12 to a binary map and its integral image: Y (N, H, W) and
+    UV (N, H/2, W/2, 2) u8.
+
+    Returns ``(bgr, hsv, lab, ycrcb, small, binary, integral, otsu, sums)``:
+    the decoded (N, H, W, 3) BGR frame, its HSV, Lab and YCrCb u8
+    conversions, the (N, H/2, W/2, 1) gray + 5×5 Gaussian + 2× AREA map,
+    its Otsu binary map (one threshold over the batch, as ``opencv_tpu``
+    takes it), the binary map's (N, H/2+1, W/2+1, 1) int32 integral, the
+    Otsu threshold (an f64 0-dim tensor) and the int64 sum of each of the
+    seven outputs per image, an (N, 7) tensor."""
+    bgr = cvtColorTwoPlane(y, uv, K.COLOR_YUV2BGR_NV12)
+    hsv = cvtColor(bgr, K.COLOR_BGR2HSV)
+    lab = cvtColor(bgr, K.COLOR_BGR2Lab)
+    ycrcb = cvtColor(bgr, K.COLOR_BGR2YCrCb)
+    small = fused_gray_gauss5_down2(bgr, 0.0)[..., None]
+    otsu, binary = threshold(small, 0, 255, K.THRESH_BINARY | K.THRESH_OTSU)
+    integ = integral(binary)
+    outs = (bgr, hsv, lab, ycrcb, small, binary, integ)
+    sums = torch.stack([o.reshape(o.shape[0], -1).sum(dim=1, dtype=torch.int64) for o in outs],
+                       dim=1)
+    return (*outs, otsu, sums)
+
+
+def make_nv12(shape=SHAPE_NV12, seed: int = 0):
+    """Y (N, H, W) and UV (N, H/2, W/2, 2) u8 from one ``default_rng(seed)``,
+    in that order."""
+    N, H, W = shape
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 256, size=(N, H, W), dtype=np.uint8)
+    uv = rng.integers(0, 256, size=(N, H // 2, W // 2, 2), dtype=np.uint8)
+    return y, uv
+
+
+def entry_decode_color(device="cuda", shape=SHAPE_NV12):
+    """``(forward_decode_color, (y, uv))`` with the NV12 batch of
+    :func:`make_nv12` on `device`."""
+    y, uv = make_nv12(shape)
+    return forward_decode_color, (torch.from_numpy(y).to(device), torch.from_numpy(uv).to(device))

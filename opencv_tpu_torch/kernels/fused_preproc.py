@@ -8,7 +8,9 @@ with the gray conversion folded in when the input is BGR.
 
 Bit-exact with the composed ops: Q15 gray, separable Q8·Q8 MAC with one
 round ``(v + 2^15) >> 16`` and saturate, then ``(a+b+c+d+2) >> 2``.
-A CPU tensor takes the plain version, a CUDA tensor the kernel.
+A CPU tensor takes the plain version, a CUDA tensor the kernel, resolved
+through the dispatch registry as ``gauss5_down2_u8`` (u8, 1 or 3 channels,
+even H and W), which counts both in ``tier_stats()``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import ctypes
 import torch
 
 from .. import constants as K
-from ..core.arrays import as_tensor
+from ..core.arrays import as_tensor, dtype_name
+from ..core.dispatch import lookup, register
 from ..core.fixedpoint import descale
 from ..ops.color import BY15, GRAY_SHIFT, GY15, RY15
 from ..ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
@@ -64,8 +67,6 @@ def fused_gray_gauss5_down2_plain(imgs, sigma: float = 0.0):
 
 
 def _launch(x, sigma: float, has_bgr: bool):
-    if x.device.type != "cuda":
-        raise RuntimeError(f"gauss5_down2: no kernel for device {x.device}")
     N, H, W = x.shape[:3]
     x = x.contiguous()
     out = torch.empty((N, H // 2, W // 2), dtype=torch.uint8, device=x.device)
@@ -74,14 +75,36 @@ def _launch(x, sigma: float, has_bgr: bool):
     return out
 
 
+def _gauss5_down2_pred(ctx):
+    return (ctx.get("dtype") == "uint8" and ctx.get("channels") in (1, 3)
+            and ctx.get("height", 1) % 2 == 0 and ctx.get("width", 1) % 2 == 0)
+
+
+@register("gauss5_down2_u8", _gauss5_down2_pred)
+def _gauss5_down2_kernel(ctx, x, sigma):
+    return _launch(x, sigma, has_bgr=ctx["channels"] == 3)
+
+
+def _resolve(x, sigma: float, plain):
+    """The kernel through the dispatch registry on a CUDA tensor, `plain`
+    on a CPU tensor; any other device, or a CUDA tensor the predicate
+    refuses, raises (no fall-through to the plain version)."""
+    kern = lookup("gauss5_down2_u8", x.device, dtype=dtype_name(x.dtype),
+                  channels=x.shape[3] if x.ndim == 4 else 1, height=x.shape[1], width=x.shape[2])
+    if kern is not None:
+        return kern(x, sigma)
+    if x.device.type != "cpu":
+        raise RuntimeError(f"gauss5_down2: no kernel for {tuple(x.shape)} {x.dtype} on "
+                           f"{x.device}")
+    return plain(x, sigma)
+
+
 def gauss5_down2_u8(gray, sigma: float = 0.0):
     """gray: (N, H, W) u8 with H, W even. Returns (N, H//2, W//2) u8 ==
     resize(GaussianBlur(gray, (5,5), sigma), (W//2, H//2), INTER_AREA)."""
     gray = as_tensor(gray)
     _check(gray, 3, "gauss5_down2_u8")
-    if gray.device.type == "cpu":
-        return gauss5_down2_u8_plain(gray, sigma)
-    return _launch(gray, sigma, has_bgr=False)
+    return _resolve(gray, sigma, gauss5_down2_u8_plain)
 
 
 def fused_gray_gauss5_down2(imgs, sigma: float = 0.0):
@@ -90,6 +113,4 @@ def fused_gray_gauss5_down2(imgs, sigma: float = 0.0):
     ops, in one kernel on the card."""
     imgs = as_tensor(imgs)
     _check(imgs, 4, "fused_gray_gauss5_down2")
-    if imgs.device.type == "cpu":
-        return fused_gray_gauss5_down2_plain(imgs, sigma)
-    return _launch(imgs, sigma, has_bgr=True)
+    return _resolve(imgs, sigma, fused_gray_gauss5_down2_plain)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5] [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5|decode] [--iters 5] [--table PATH]
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
@@ -12,7 +12,10 @@ cfg4`` BASELINE config 4 (matchTemplate, erode, dilate, erode) on the
 (8, 1080, 1920, 1) batch; ``--path cfg5`` BASELINE config 5 (ORB,
 nfeatures=500) on the (8, 1080, 1920) batch in its four stages: the level
 maps (pyramid, FAST, blur, pre-pool, pad), the candidate stage with its
-tie-count read, the readback of the rows and the host tail.  Each runs under ``torch.profiler`` with one
+tie-count read, the readback of the rows and the host tail; ``--path
+decode`` the decode-colour path (``entry.forward_decode_color``) on NV12
+(8, 1080, 1920) in its stages: cvtColorTwoPlane, HSV, Lab, YCrCb,
+gauss5_down2, threshold OTSU, integral and the per-image sums.  Each runs under ``torch.profiler`` with one
 ``record_function`` span per stage.  Prints, per stage, the time between
 CUDA events around it (median of 20, unprofiled) beside the device time of
 its torch-op kernels (profiled); the device busy share (all kernel time
@@ -95,8 +98,33 @@ def cfg5_stages():
             ("hostTail", lambda rows: orb._host_tail(*rows))]
 
 
+def decode_stages():
+    """``entry.forward_decode_color`` stage by stage; the three conversions
+    and the fused map each read the decoded frame, kept from the first."""
+    _, (y, uv) = E.entry_decode_color("cuda")
+    frame = {}
+
+    def decode(_):
+        frame["bgr"] = cv.cvtColorTwoPlane(y, uv, cv.COLOR_YUV2BGR_NV12)
+        return frame["bgr"]
+
+    def sums(binary_integral):
+        return [o.reshape(o.shape[0], -1).sum(dim=1, dtype=torch.int64)
+                for o in (frame["bgr"], *binary_integral)]
+
+    return [("cvtColorTwoPlane", decode),
+            ("HSV", lambda bgr: (cv.cvtColor(bgr, cv.COLOR_BGR2HSV), bgr)[1]),
+            ("Lab", lambda bgr: (cv.cvtColor(bgr, cv.COLOR_BGR2Lab), bgr)[1]),
+            ("YCrCb", lambda bgr: (cv.cvtColor(bgr, cv.COLOR_BGR2YCrCb), bgr)[1]),
+            ("gauss5_down2", lambda bgr: cv.fusedPreprocessGrayBlurDown2(bgr)[..., None]),
+            ("thresholdOtsu", lambda small: cv.threshold(small, 0, 255,
+                                                          cv.THRESH_BINARY | cv.THRESH_OTSU)[1]),
+            ("integral", lambda binary: (binary, cv.integral(binary))),
+            ("sums", sums)]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
-         "cfg4": cfg4_stages, "cfg5": cfg5_stages}
+         "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages}
 
 
 def staged(stages, marks=None):

@@ -522,3 +522,74 @@ def test_resize_warp_4k_on_the_card_equals_cpu(cuda):
     for g, w in zip(got[3:5], want[3:5]):
         _assert_warp_bound(g, w)
     assert int(got[5][0]) == int(want[5][0])
+
+
+def test_gauss5_down2_resolves_through_the_registry(cuda):
+    """Both entries of the fused kernel resolve ``gauss5_down2_u8`` with
+    lookup on a CUDA tensor, which counts the cuda tier and launches the
+    kernel; odd H raises before any launch, as before the registry."""
+    x = _rand((2, 40, 64, 3), 31).to(cuda)
+    before = GAUSS5_DOWN2.launches
+    reset_tier_stats()
+    got = fused_gray_gauss5_down2(x)
+    g = gauss5_down2_u8(x[..., 1].contiguous())
+    torch.cuda.synchronize()
+    assert tier_stats() == {"tier.gauss5_down2_u8.cuda": 2}
+    assert GAUSS5_DOWN2.launches == before + 2
+    assert torch.equal(got, fused_gray_gauss5_down2_plain(x))
+    assert torch.equal(g, gauss5_down2_u8_plain(x[..., 1].contiguous()))
+    for bad in (_rand((1, 41, 64, 3), 32).to(cuda), _rand((1, 40, 63, 3), 33).to(cuda)):
+        with pytest.raises(ValueError, match="even"):
+            fused_gray_gauss5_down2(bad)
+        with pytest.raises(ValueError, match="even"):
+            gauss5_down2_u8(bad[..., 0].contiguous())
+    assert GAUSS5_DOWN2.launches == before + 2
+
+
+def test_cvtcolor_on_the_card_equals_cpu(cuda):
+    """Every registry code on u8 (and each float-capable code on f32) on the
+    card against the CPU: u8 exact (but linear-RGB Luv, ±1), f32 within the
+    tests' 2e-3."""
+    from opencv_tpu_torch.ops.color import _REGISTRY
+
+    x3 = _rand((2, 24, 32, 4), 41)
+    yuv420, yuv422 = _rand((2, 36, 64, 1), 42), _rand((2, 24, 32, 2), 43)
+    for code, fn in sorted(_REGISTRY.items()):
+        for x in (x3[..., :1], x3[..., :2], x3[..., :3], x3, yuv420, yuv422):
+            try:
+                want = fn(x)
+            except (RuntimeError, ValueError, IndexError):
+                continue  # a layout the conversion does not take
+            got = fn(x.to(cuda)).cpu()
+            if code in (tcv.COLOR_LBGR2Luv, tcv.COLOR_LRGB2Luv):
+                # u8 through the float path, whose pow (cbrt) may differ
+                # by an ulp between the devices before the rounding
+                assert (got.to(torch.int32) - want.to(torch.int32)).abs().max() <= 1, code
+            else:
+                assert torch.equal(got, want), code
+            if x.shape[-1] in (1, 3, 4) and x.shape[1] == 24:
+                xf = x.to(torch.float32) / 255.0
+                try:
+                    wf = fn(xf)
+                except (RuntimeError, ValueError, TypeError):
+                    continue
+                gf = fn(xf.to(cuda)).cpu()
+                assert gf.dtype == wf.dtype and gf.shape == wf.shape, code
+                assert torch.allclose(gf, wf, rtol=0, atol=2e-3, equal_nan=True), code
+
+
+def test_decode_color_on_the_card_equals_cpu(cuda):
+    """The decode-and-colour path at (2, 108, 192): every output, the Otsu
+    threshold and the sums equal the CPU's; one gauss5_down2 launch,
+    resolved through the registry."""
+    y, uv = E.make_nv12((2, 108, 192))
+    y, uv = torch.from_numpy(y), torch.from_numpy(uv)
+    before = GAUSS5_DOWN2.launches
+    reset_tier_stats()
+    got = E.forward_decode_color(y.to(cuda), uv.to(cuda))
+    torch.cuda.synchronize()
+    assert tier_stats() == {"tier.gauss5_down2_u8.cuda": 1}
+    assert GAUSS5_DOWN2.launches == before + 1
+    want = E.forward_decode_color(y, uv)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

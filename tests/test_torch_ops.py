@@ -57,9 +57,13 @@ def test_cvtcolor_gray_refuses_depths_cv2_refuses(dtype):
 
 
 def test_cvtcolor_unported_code_raises():
-    x = torch.zeros((4, 4, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcv.cvtColor(x, tcv.COLOR_BGR2HSV)
+    # every code of opencv_tpu's registry is ported; a code it does not
+    # serve either (VNG demosaicing) raises
+    x = torch.zeros((4, 4), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="opencv_tpu does not serve it"):
+        tcv.cvtColor(x, tcv.COLOR_BayerBG2BGR_VNG)
+    with pytest.raises(NotImplementedError):
+        jcv.cvtColor(x.numpy(), jcv.COLOR_BayerBG2BGR_VNG)
 
 
 @pytest.mark.parametrize("border", BORDERS)
