@@ -68,6 +68,17 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       the per-image sums, and the batch's own threshold equals the one the
       CPU takes from the batch's map, its binary map and integral of images
       0 and 1 equal to the CPU's at that threshold;
+   g. the enhancement path: ``entry_enhance("cuda")``'s forward (gray →
+      medianBlur 5 → CLAHE 2.0, 8x8 → the unsharp mask of GaussianBlur 5x5 →
+      bilateralFilter 5, 50, 50 → the gamma LUT → applyColorMap JET, with the
+      CLAHE output's histogram per image) on the (8, 1080, 1920, 3) batch,
+      which must launch sep_filter once, on route k5, through the registry
+      (``tier.sep_filter_u8.cuda``), and no other kernel; on images 0 and 1
+      each stage, fed the card's own input to it, equals the CPU's on that
+      input (a float stage, CLAHE, the unsharp mask or bilateralFilter, that
+      is not exact prints how many pixels differ and by how much, and is held
+      to the warp bound: max |d| <= 1 on at most 0.1% of pixels), and so do
+      the histograms and the whole chain;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -85,7 +96,8 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    config 2's forward and each of its five ops beside their bytes bounds,
    the forward's device busy share (``torch.profiler``) and its peak
    device memory; the same for the decode-and-colour forward and its seven
-   stages, with its host syncs.  A kernel's share of its bound is
+   stages, and for the enhancement forward and its eight, each with its
+   host syncs.  A kernel's share of its bound is
    bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
@@ -125,6 +137,12 @@ GFTT_OVERLAP = 0.85
 # (octave, x, y), and per key the same response, angle and descriptor.  No
 # tolerance: cos and sin are taken in float64 and rounded to float32, and
 # every other float op runs alone on both devices (no fused multiply-add).
+
+
+# (enhancement path) the stages computed in float (CLAHE's blend, the unsharp
+# mask's addWeighted, bilateralFilter), held to the warp bound where they are
+# not exact; in the whole chain, the stages after them too, and the sums
+ENHANCE_FLOAT_STAGES = ("clahe", "unsharp", "bilateral", "gamma", "colour", "sums")
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -500,6 +518,7 @@ def main() -> int:
     from opencv_tpu_torch.ops.canny import HYST_CHECK_EVERY
     from opencv_tpu_torch.ops.corners import _gftt_host_tail, good_features_response
     from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
+    from opencv_tpu_torch.ops.hist import hist_per_image
     from opencv_tpu_torch.features2d import orb as orb_mod
     from opencv_tpu_torch.features2d.fast import fast_keypoint_mask
     from opencv_tpu_torch.features2d.matchers import hamming_distance_matrix
@@ -821,6 +840,60 @@ def main() -> int:
         f"Otsu threshold {otsu6}, the CPU's over the batch map; "
         f"{int(outs6[5].count_nonzero())} of {outs6[5].numel()} binary pixels set")
 
+    # -- 4g. the enhancement path: gray -> medianBlur -> CLAHE -> unsharp
+    # mask (sep_filter k5) -> bilateralFilter -> gamma LUT -> JET
+    forward7, (x7,) = E.entry_enhance("cuda")
+    reset_tier_stats()
+    outs7, cfg7 = run_counted(lambda: forward7(x7))
+    tiers7 = tier_stats()
+    log(f"enhancement path launches: {cfg7}; dispatch {tiers7}")
+    if (cfg7["opencv_sep_filter"] != 1 or cfg7["sep_filter routes"]["k5"] != 1
+            or cfg7["opencv_pyr_down"] or cfg7["opencv_gauss5_down2"]
+            or tiers7 != {"tier.sep_filter_u8.cuda": 1}):
+        raise AssertionError(f"enhancement path: sep_filter must launch once, on route k5, "
+                             f"through the registry, and no other kernel; got {cfg7}, {tiers7}")
+    N7, H7, W7, _ = E.SHAPE
+    names7 = (*E.ENHANCE_OUTPUTS, "hist", "sums")
+    shapes7 = [(N7, H7, W7, 1)] * 6 + [(N7, H7, W7, 3), (N7, 256), (N7, 8)]
+    dtypes7 = [torch.uint8] * 7 + [torch.float32, torch.int64]
+    for name, got, shape, dtype in zip(names7, outs7, shapes7, dtypes7):
+        if tuple(got.shape) != shape or got.dtype != dtype:
+            raise AssertionError(f"enhancement {name}: {tuple(got.shape)} {got.dtype}, "
+                                 f"expected {shape} {dtype}")
+
+    def near(what, name, got, want) -> str:
+        """Exact, or (a float stage, or one after it in the chain) max |d| <=
+        WARP_ATOL on at most WARP_MAX_FRACTION of the values; raise
+        otherwise; return a summary."""
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"enhancement {what} {name}: {tuple(got.shape)} {got.dtype} "
+                                 f"!= {tuple(want.shape)} {want.dtype}")
+        d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        n_diff = int(d.count_nonzero())
+        if not n_diff:
+            return f"{name} exact"
+        d_max = int(d.max())
+        if (name not in ENHANCE_FLOAT_STAGES or d_max > WARP_ATOL
+                or n_diff > WARP_MAX_FRACTION * d.numel()):
+            raise AssertionError(f"enhancement {what} {name} vs CPU: {n_diff} of {d.numel()} "
+                                 f"differ, max |d| {d_max}")
+        return f"{name} {n_diff} of {d.numel()} differ, max |d| {d_max}"
+
+    # each stage of images 0-1 on the card's own input to it, then the
+    # histograms and the whole chain against the CPU plain forward
+    ins7 = [x7[:2]] + [o[:2] for o in outs7[:len(E.ENHANCE_STAGES) - 1]]
+    stage_report = [near("stage", name, got[:2].cpu(), stage(a.cpu()))
+                    for (name, stage), a, got in zip(E.ENHANCE_STAGES, ins7, outs7)]
+    check_equal("enhancement hist, images 0-1 vs CPU", outs7[7][:2].cpu(),
+                hist_per_image(outs7[2][:2].cpu()))
+    want7 = forward7(x7[:2].cpu())
+    chain_report = [near("chain", name, got[:2].cpu(), want)
+                    for name, got, want in zip(names7, outs7, want7)]
+    log(f"enhancement path, images 0-1: each stage on the card's own input vs the CPU: "
+        f"{'; '.join(stage_report)}; the whole chain vs the CPU plain forward: "
+        f"{'; '.join(chain_report)}")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -892,10 +965,8 @@ def main() -> int:
         log(f"time op {name} (8,1080,1920,1): {timer(fn):.4f} ms  [{card}]")
     log(f"time forward_pyr_corner_edge (8,1080,1920,1): {timer(lambda: forward3(x3)):.4f} ms  "
         f"[{card}]")
-    # config 4, as the caller sees it (a pad's host-to-device copies of its
-    # index vectors come from pageable memory and wait for the queue, so
-    # no spin can hold the host part out of the window; the device part of
-    # each op is perf/profile_torch_forward.py --path cfg4's).  Bytes: each
+    # config 4, as the caller sees it (host work included; the device part
+    # of each op is perf/profile_torch_forward.py --path cfg4's).  Bytes: each
     # input read once, each output written once.
     m_bytes = x4.numel() + outs4[0].numel() * 4
     for name, fn, nbytes in (
@@ -1006,8 +1077,7 @@ def main() -> int:
         f"({(peak - base) / 2 ** 30:.3f} GiB over the {base / 2 ** 30:.3f} GiB held before)  "
         f"[{card}]")
 
-    # the decode-and-colour path, as the caller sees it (threshold's
-    # bincount reads the map's maximum back, a host sync); bytes: each
+    # the decode-and-colour path, as the caller sees it; bytes: each
     # stage's inputs read once and outputs written once
     bgr6, small6, bin6, int6 = outs6[0], outs6[4], outs6[5], outs6[6]
     n_nv12, n_bgr, n_small = y6.numel() + uv6.numel(), bgr6.numel(), small6.numel()
@@ -1045,9 +1115,61 @@ def main() -> int:
     torch.cuda.synchronize()
     peak6 = torch.cuda.max_memory_allocated()
     log(f"decode-colour forward: device busy share {busy6:.4f} (kernels {k_ms6:.4f} ms of "
-        f"{f_ms6:.4f} ms, torch.profiler); {n_sync6} host syncs per batch; peak device memory "
+        f"{f_ms6:.4f} ms, torch.profiler); {n_sync6} host syncs per batch (threshold's "
+        f"histogram is one scatter); peak device memory "
         f"{peak6 / 2 ** 30:.3f} GiB ({(peak6 - base6) / 2 ** 30:.3f} GiB over the "
         f"{base6 / 2 ** 30:.3f} GiB held before)  [{card}]")
+
+    # the enhancement path, as the caller sees it; bytes: each stage's inputs
+    # read once and outputs written once (the unsharp mask as GaussianBlur,
+    # then addWeighted of the image and the blur)
+    g7, m7, c7, u7, b7, v7 = outs7[:6]
+    n7 = g7.numel()
+    stages7 = (
+        ("cvtColor BGR2GRAY", lambda: cv.cvtColor(x7, cv.COLOR_BGR2GRAY), 4 * n7),
+        ("medianBlur 5", lambda: cv.medianBlur(g7, 5), 2 * n7),
+        ("CLAHE 2.0 8x8", lambda: cv.createCLAHE(2.0, (8, 8)).apply(m7), 2 * n7),
+        ("unsharp mask (GaussianBlur 5x5 + addWeighted)",
+         lambda: cv.addWeighted(c7, 1.5, cv.GaussianBlur(c7, (5, 5), 0), -0.5, 0), 5 * n7),
+        ("bilateralFilter 5 50 50", lambda: cv.bilateralFilter(u7, 5, 50, 50), 2 * n7),
+        ("LUT gamma 0.8", lambda: cv.LUT(b7, E.GAMMA_LUT), 2 * n7),
+        ("applyColorMap JET", lambda: cv.applyColorMap(v7, cv.COLORMAP_JET), 4 * n7),
+        ("calcHist per image", lambda: hist_per_image(c7), n7 + 4 * N7 * 256))
+    stage_bytes7 = sum(b for _, _, b in stages7)
+    # the forward also reads its seven images and the histograms for the sums
+    fwd_bytes7 = stage_bytes7 + 9 * n7 + 4 * N7 * 256
+    t7 = timer(lambda: forward7(x7))
+    log(f"time forward_enhance {tuple(x7.shape)}: {t7:.4f} ms, bytes bound "
+        f"{bound(fwd_bytes7, 0)[0]:.4f} ms ({fwd_bytes7 / 1e6:.1f} MB with the sums' reads; the "
+        f"stages alone {bound(stage_bytes7, 0)[0]:.4f} ms, {stage_bytes7 / 1e6:.1f} MB), share "
+        f"of bound {bound(fwd_bytes7, 0)[0] / t7:.4f}  [{card}]")
+    for name, fn, nbytes in stages7:
+        t = timer(fn)
+        b_ms = bound(nbytes, 0)[0]
+        log(f"time enhancement {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB), share of bound {b_ms / t:.4f}  [{card}]")
+    n_sync7 = count_syncs(lambda: forward7(x7))
+    busy7, k_ms7, f_ms7 = busy_share(lambda: forward7(x7))
+    torch.cuda.synchronize()
+    del outs7, want7, g7, m7, c7, u7, b7, v7
+    torch.cuda.reset_peak_memory_stats()
+    base7 = torch.cuda.memory_allocated()
+    forward7(x7)
+    torch.cuda.synchronize()
+    peak7 = torch.cuda.max_memory_allocated()
+    g7 = cv.cvtColor(x7, cv.COLOR_BGR2GRAY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_med = torch.cuda.memory_allocated()
+    cv.medianBlur(g7, 5)
+    torch.cuda.synchronize()
+    peak_med = torch.cuda.max_memory_allocated() - base_med
+    del g7
+    log(f"enhancement forward: device busy share {busy7:.4f} (kernels {k_ms7:.4f} ms of "
+        f"{f_ms7:.4f} ms, torch.profiler); {n_sync7} host syncs per batch; peak device memory "
+        f"{peak7 / 2 ** 30:.3f} GiB ({(peak7 - base7) / 2 ** 30:.3f} GiB over the "
+        f"{base7 / 2 ** 30:.3f} GiB held before); medianBlur 5 on (8,1080,1920,1) alone "
+        f"{peak_med / 2 ** 30:.3f} GiB over its input  [{card}]")
 
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
@@ -1057,14 +1179,14 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4f); the
+    # launches: the kernel's count over the main paths (4a to 4g); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
                              "sep_filter generic k9 level 2"),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"), "pyr_down": ("pyr_down",)}
-    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6)
+    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

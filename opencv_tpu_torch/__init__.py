@@ -19,7 +19,11 @@ resize and the warps (warpAffine, warpPerspective, remap, the polar warps
 and the transform builders), and the decode-and-colour path: all of
 cvtColor (the Bayer codes through demosaicing) and cvtColorTwoPlane,
 threshold, adaptiveThreshold, thresholdWithMask, integral/2/3,
-copyMakeBorder and borderInterpolate.
+copyMakeBorder and borderInterpolate, and the enhancement path: histograms
+(calcHist, equalizeHist, compareHist, calcBackProject, CLAHE), medianBlur,
+bilateralFilter, stackBlur, the core array ops (arithmetic, bitwise, LUT,
+normalize, reductions, the polar and math functions and the utility
+surface) and applyColorMap.
 """
 
 from .constants import *  # noqa: F401,F403
@@ -49,6 +53,38 @@ from .ops.warp import (  # noqa: F401
     getRotationMatrix2D, invertAffineTransform, linearPolar, logPolar, remap, warpAffine,
     warpPerspective, warpPolar,
 )
+from .ops.hist import (  # noqa: F401
+    CLAHE, calcBackProject, calcHist, compareHist, createCLAHE, equalizeHist,
+)
+from .ops.smooth import bilateralFilter, medianBlur, stackBlur  # noqa: F401
+from .ops.core_ops import (  # noqa: F401
+    add, subtract, multiply, divide, absdiff, scaleAdd, addWeighted,
+    bitwise_and, bitwise_or, bitwise_xor, bitwise_not,
+    compare, inRange, LUT, convertScaleAbs, normalize,
+    split, merge, flip, rotate, transpose,
+    minMaxLoc, mean, meanStdDev, norm, countNonZero, sumElems,
+    magnitude, phase, cartToPolar, polarToCart,
+    mixChannels, setIdentity, completeSymm, solveCubic, solvePoly,
+    PSNR, batchDistance,
+    hconcat, vconcat, repeat, reduce, reduceArgMax, reduceArgMin,
+    sort, sortIdx, findNonZero, hasNonZero, checkRange, patchNaNs,
+    extractChannel, insertChannel, copyTo, gemm, calcCovarMatrix,
+    divSpectrums, fastAtan2, cubeRoot, clipLine, flipND, transposeND,
+    broadcast, finiteMask, solveLP, buildMST,
+    REDUCE_SUM, REDUCE_AVG, REDUCE_MAX, REDUCE_MIN, REDUCE_SUM2,
+    SORT_EVERY_ROW, SORT_EVERY_COLUMN, SORT_ASCENDING, SORT_DESCENDING,
+    GEMM_1_T, GEMM_2_T, GEMM_3_T,
+    COVAR_SCRAMBLED, COVAR_NORMAL, COVAR_USE_AVG, COVAR_SCALE,
+    COVAR_ROWS, COVAR_COLS,
+)
+from .ops import core_ops as _core_ops
+min = _core_ops.min  # noqa: A001 — cv2-compatible names
+max = _core_ops.max  # noqa: A001
+exp = _core_ops.exp
+log = _core_ops.log
+sqrt = _core_ops.sqrt
+pow = _core_ops.pow  # noqa: A001
+from .ops.colormap import applyColorMap  # noqa: F401,E402
 from .features2d import (  # noqa: F401
     BFMatcher, DMatch, FastFeatureDetector, FastFeatureDetector_create, GFTTDetector,
     GFTTDetector_create, KeyPoint, KeyPoint_convert, KeyPoint_overlap, ORB, ORB_create,

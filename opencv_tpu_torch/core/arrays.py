@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "dtype_name", "to_batched", "from_batched"]
+__all__ = ["as_tensor", "dtype_name", "to_batched", "from_batched", "to_device"]
 
 
 def as_tensor(src) -> torch.Tensor:
@@ -22,6 +22,17 @@ def as_tensor(src) -> torch.Tensor:
     if isinstance(src, torch.Tensor):
         return src
     return torch.from_numpy(np.ascontiguousarray(src))
+
+
+def to_device(table, device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on `device`, without making the
+    host wait: a copy to the card goes through pinned memory, queued on the
+    current stream (a copy from pageable memory would wait for the queue)."""
+    t = torch.from_numpy(np.ascontiguousarray(table)) if isinstance(table, np.ndarray) else table
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def dtype_name(dtype: torch.dtype) -> str:

@@ -4,10 +4,12 @@ Replicates `cv::borderInterpolate` (`core/src/copy.cpp:748`) and
 `cv::copyMakeBorder` semantics: CONSTANT / REPLICATE / REFLECT / WRAP /
 REFLECT_101 (+ISOLATED, a no-op because tensors carry no ROI).
 
-The index vectors are host numpy (copied from the JAX package); on the
-device a pad is two ``index_select`` gathers, plus a masked fill for
-BORDER_CONSTANT.  The TPU's concat-of-border-segments layout is not carried
-over: a GPU gathers a full index vector at memory speed.
+The index vectors are host numpy (copied from the JAX package), queued to
+the device through pinned memory (``to_device``), so a pad never makes the
+host wait; on the device a pad is two ``index_select`` gathers, plus a
+masked fill for BORDER_CONSTANT.  The TPU's concat-of-border-segments
+layout is not carried over: a GPU gathers a full index vector at memory
+speed.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .arrays import from_batched, to_batched
+from .arrays import from_batched, to_batched, to_device
 
 from ..constants import (
     BORDER_CONSTANT,
@@ -95,13 +97,13 @@ def pad_nhwc(x: torch.Tensor, top: int, bottom: int, left: int, right: int,
     N, H, W, C = x.shape
     ridx = border_index(H, top, bottom, bt)
     cidx = border_index(W, left, right, bt)
-    y = x.index_select(1, torch.from_numpy(np.maximum(ridx, 0).astype(np.int64)).to(x.device))
-    y = y.index_select(2, torch.from_numpy(np.maximum(cidx, 0).astype(np.int64)).to(x.device))
+    y = x.index_select(1, to_device(np.maximum(ridx, 0).astype(np.int64), x.device))
+    y = y.index_select(2, to_device(np.maximum(cidx, 0).astype(np.int64), x.device))
     if bt == BORDER_CONSTANT:
-        val = torch.tensor(constant_vector(value, C), dtype=torch.float64)
-        val = val.to(x.dtype).to(x.device).reshape(1, 1, 1, C)
+        val = torch.tensor(constant_vector(value, C), dtype=torch.float64).to(x.dtype)
+        val = to_device(val, x.device).reshape(1, 1, 1, C)
         mask = (ridx < 0)[:, None] | (cidx < 0)[None, :]
-        mask = torch.from_numpy(mask).to(x.device)[None, :, :, None]
+        mask = to_device(mask, x.device)[None, :, :, None]
         y = torch.where(mask, val, y)
     return y
 

@@ -40,6 +40,14 @@ cvtColor to HSV, Lab (u8) and YCrCb → ``fusedPreprocessGrayBlurDown2`` →
 ``threshold`` BINARY | OTSU → ``integral``.  ``entry_decode_color`` gives it
 Y (8, 1080, 1920) and UV (8, 540, 960, 2) u8 drawn from one
 ``default_rng(0)`` in that order: the batch of 8 at 1080p of configs 3–5.
+
+``forward_enhance`` is the contrast-enhancement and visualisation front
+end: cvtColor to gray → medianBlur 5 → CLAHE (clip 2, 8×8 tiles) → an
+unsharp mask (addWeighted of the image and its ``GaussianBlur((5, 5), 0)``,
+1.5 and −0.5; the one ``sep_filter`` launch) → bilateralFilter(5, 50, 50)
+→ a γ = 0.8 ``LUT`` → ``applyColorMap`` JET, with the per-image histogram
+of the CLAHE output.  ``entry_enhance`` gives it ``make_batch()``'s
+(8, 1080, 1920, 3) u8 batch, the flagship's.
 """
 
 from __future__ import annotations
@@ -52,6 +60,10 @@ from .features2d.orb import ORB_create
 from .kernels import fused_gray_gauss5_down2
 from .ops.canny import Canny
 from .ops.color import cvtColor, cvtColorTwoPlane
+from .ops.colormap import applyColorMap
+from .ops.core_ops import LUT, addWeighted
+from .ops.hist import createCLAHE, hist_per_image
+from .ops.smooth import bilateralFilter, medianBlur
 from .ops.corners import cornerHarris
 from .ops.deriv import Sobel
 from .ops.filter import GaussianBlur
@@ -64,11 +76,12 @@ from .ops.thresh import threshold
 from .ops.warp import getRotationMatrix2D, warpAffine, warpPerspective
 
 __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
-           "PERSPECTIVE_CFG2", "DECODE_COLOR_OUTPUTS", "entry", "entry_resize_warp_4k",
-           "entry_pyr_corner_edge", "entry_match_morph", "entry_orb", "entry_decode_color",
+           "PERSPECTIVE_CFG2", "DECODE_COLOR_OUTPUTS", "ENHANCE_STAGES", "ENHANCE_OUTPUTS",
+           "GAMMA_LUT", "entry", "entry_resize_warp_4k", "entry_pyr_corner_edge",
+           "entry_match_morph", "entry_orb", "entry_decode_color", "entry_enhance",
            "make_batch", "make_nv12", "preprocess", "preprocess_fused", "warp", "forward",
            "forward_fused", "forward_resize_warp_4k", "forward_pyr_corner_edge",
-           "forward_match_morph", "forward_orb", "forward_decode_color"]
+           "forward_match_morph", "forward_orb", "forward_decode_color", "forward_enhance"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -83,6 +96,8 @@ SHAPE_CFG5 = (8, 1080, 1920)
 SHAPE_NV12 = (8, 1080, 1920)
 # forward_decode_color's image outputs, in order
 DECODE_COLOR_OUTPUTS = ("bgr", "hsv", "lab", "ycrcb", "small", "binary", "integral")
+# forward_enhance's gamma table: 255 * (v / 255) ** 0.8, rounded, as a u8 LUT
+GAMMA_LUT = np.rint(255.0 * (np.arange(256) / 255.0) ** 0.8).astype(np.uint8)
 
 
 def make_batch(shape=SHAPE, seed: int = 0) -> np.ndarray:
@@ -256,3 +271,46 @@ def entry_decode_color(device="cuda", shape=SHAPE_NV12):
     :func:`make_nv12` on `device`."""
     y, uv = make_nv12(shape)
     return forward_decode_color, (torch.from_numpy(y).to(device), torch.from_numpy(uv).to(device))
+
+
+# forward_enhance's stages in order, (name, fn of the previous stage's output);
+# the names are its image outputs
+ENHANCE_STAGES = (
+    ("gray", lambda a: cvtColor(a, K.COLOR_BGR2GRAY)),
+    ("median", lambda a: medianBlur(a, 5)),
+    ("clahe", lambda a: createCLAHE(2.0, (8, 8)).apply(a)),
+    ("unsharp", lambda a: addWeighted(a, 1.5, GaussianBlur(a, (5, 5), 0), -0.5, 0)),
+    ("bilateral", lambda a: bilateralFilter(a, 5, 50, 50)),
+    ("gamma", lambda a: LUT(a, GAMMA_LUT)),
+    ("colour", lambda a: applyColorMap(a, K.COLORMAP_JET)),
+)
+ENHANCE_OUTPUTS = tuple(name for name, _ in ENHANCE_STAGES)
+
+
+def forward_enhance(x):
+    """Contrast enhancement and false colour over an (N, H, W, 3) u8 BGR
+    batch, the front end that inspection, thermal, medical and low-light
+    video run before a display or a detector: gray, impulse noise removed
+    (medianBlur 5), local contrast (CLAHE clip 2 on 8×8 tiles), sharpened
+    (unsharp mask: 1.5 × image − 0.5 × its 5×5 Gaussian), edge-preserving
+    smoothing (bilateralFilter d = 5, σ 50, 50), brightened (γ = 0.8 LUT)
+    and mapped to JET (:data:`ENHANCE_STAGES`).
+
+    Returns ``(gray, median, clahe, unsharp, bilateral, gamma, colour, hist,
+    sums)``: the six (N, H, W, 1) u8 stages and the (N, H, W, 3) colour
+    image, the CLAHE output's 256-bin f32 histogram per image (N, 256), and
+    the int64 sum of each of the seven images and of the histogram per
+    image, an (N, 8) tensor."""
+    outs, cur = [], x
+    for _, stage in ENHANCE_STAGES:
+        cur = stage(cur)
+        outs.append(cur)
+    outs.append(hist_per_image(outs[2]))
+    sums = torch.stack([o.reshape(o.shape[0], -1).sum(dim=1, dtype=torch.int64) for o in outs],
+                       dim=1)
+    return (*outs, sums)
+
+
+def entry_enhance(device="cuda", shape=SHAPE):
+    """``(forward_enhance, (x,))`` with ``make_batch()``'s batch on `device`."""
+    return forward_enhance, (torch.from_numpy(make_batch(shape)).to(device),)

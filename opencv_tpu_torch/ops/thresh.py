@@ -2,7 +2,8 @@
 ``opencv_tpu/ops/thresh.py``; imgproc/src/thresh.cpp).
 
 Thresholding is elementwise.  OTSU and TRIANGLE take one 256-bin histogram
-(``torch.bincount``) over the whole input, the batch included, as the JAX
+(``hist.hist_fixed``: one scatter, with an overflow bin for the pixels a
+mask leaves out) over the whole input, the batch included, as the JAX
 package does (cv2 takes one per image), and pick the threshold on the
 input's device, so the host never waits for it.  The Otsu and Triangle math
 runs in f64 as ``thresh.cpp`` does, where the JAX package has f32: Triangle
@@ -17,18 +18,13 @@ import math
 import torch
 
 from .. import constants as K
-from ..core.arrays import as_tensor, from_batched, to_batched
+from ..core.arrays import as_tensor, from_batched, to_batched, to_device
 from ..core.fixedpoint import saturate_cast
+from .hist import hist_fixed
 
 __all__ = ["threshold", "adaptiveThreshold", "thresholdWithMask"]
 
 _FLT_EPSILON = 1.1920928955078125e-07
-
-
-def _hist256(x) -> torch.Tensor:
-    """The int64 256-bin histogram of a u8 tensor.  On a CUDA tensor
-    ``torch.bincount`` reads the input's maximum back to the host."""
-    return torch.bincount(x.reshape(-1), minlength=256)
 
 
 def _otsu_from_hist(hist) -> torch.Tensor:
@@ -49,7 +45,7 @@ def _otsu_from_hist(hist) -> torch.Tensor:
     valid = (torch.minimum(q1, q2) >= _FLT_EPSILON) & (torch.maximum(q1, q2) <= 1.0 - _FLT_EPSILON)
     sigma = torch.where(valid, q1 * q2 * (mu1 - mu2) ** 2, 0.0)
     best = torch.argmax(sigma)              # the first maximum, as `>` keeps it
-    return torch.where(sigma[best] > 0, best, 0).to(f)
+    return torch.where(sigma.max() > 0, best, 0).to(f)
 
 
 def _triangle_from_hist(hist) -> torch.Tensor:
@@ -62,7 +58,7 @@ def _triangle_from_hist(hist) -> torch.Tensor:
     left = (torch.argmax(nz.to(torch.uint8)) - 1).clamp(min=0)
     right = (255 - torch.argmax(nz.flip(0).to(torch.uint8)) + 1).clamp(max=255)
     peak = torch.argmax(h)
-    hmax = h[peak]
+    hmax = h.max()
     flip = (peak - left) < (right - peak)
     hh = torch.where(flip, h.flip(0), h)
     left_b = torch.where(flip, 255 - right, left)
@@ -71,14 +67,14 @@ def _triangle_from_hist(hist) -> torch.Tensor:
     # the reference keeps thresh = left_bound unless some tempdist > 0
     dist = torch.where((idx > left_b) & (idx <= max_i), dist, -1)
     best = torch.argmax(dist)
-    t = torch.where(dist[best] > 0, best, left_b) - 1
+    t = torch.where(dist.max() > 0, best, left_b) - 1
     return torch.where(flip, 255 - t, t).to(torch.float64)
 
 
 def _auto_threshold(x, type: int) -> torch.Tensor:
     if x.dtype != torch.uint8:
         raise ValueError("OTSU/TRIANGLE require 8-bit input")
-    hist = _hist256(x)
+    hist = hist_fixed(x.to(torch.int32), 256)
     return _otsu_from_hist(hist) if type & K.THRESH_OTSU else _triangle_from_hist(hist)
 
 
@@ -170,17 +166,17 @@ def thresholdWithMask(src, dst, mask, thresh: float, maxval: float, type: int):
     x = as_tensor(src)
     if mask is None or as_tensor(mask).numel() == 0:
         return threshold(src, thresh, maxval, type)
-    m = as_tensor(mask).to(x.device) != 0
+    m = to_device(as_tensor(mask), x.device) != 0
     if m.ndim < x.ndim:
         m = m[..., None]
     if type & (K.THRESH_OTSU | K.THRESH_TRIANGLE):
         if x.dtype != torch.uint8:
             raise ValueError("OTSU/TRIANGLE require 8-bit input")
-        hist = _hist256(torch.masked_select(x, m))
+        hist = hist_fixed(torch.where(m, x.to(torch.int32), 256), 256)
         tval = _otsu_from_hist(hist) if type & K.THRESH_OTSU else _triangle_from_hist(hist)
         out = _apply(x, type & K.THRESH_MASK, torch.floor(tval), maxval)
     else:
         tval, out = threshold(x, thresh, maxval, type)
         out = as_tensor(out)
-    base = x if dst is None else as_tensor(dst).to(x.device)
+    base = x if dst is None else to_device(as_tensor(dst), x.device)
     return tval, torch.where(m, out, base).to(x.dtype)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5|decode] [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5|decode|enhance] [--iters 5] [--table PATH]
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
@@ -15,7 +15,11 @@ maps (pyramid, FAST, blur, pre-pool, pad), the candidate stage with its
 tie-count read, the readback of the rows and the host tail; ``--path
 decode`` the decode-colour path (``entry.forward_decode_color``) on NV12
 (8, 1080, 1920) in its stages: cvtColorTwoPlane, HSV, Lab, YCrCb,
-gauss5_down2, threshold OTSU, integral and the per-image sums.  Each runs under ``torch.profiler`` with one
+gauss5_down2, threshold OTSU, integral and the per-image sums; ``--path
+enhance`` the enhancement path (``entry.forward_enhance``) on the
+(8, 1080, 1920, 3) batch in its stages: gray, medianBlur, CLAHE, the
+unsharp mask, bilateralFilter, the gamma LUT, applyColorMap, the per-image
+histogram and the sums.  Each runs under ``torch.profiler`` with one
 ``record_function`` span per stage.  Prints, per stage, the time between
 CUDA events around it (median of 20, unprofiled) beside the device time of
 its torch-op kernels (profiled); the device busy share (all kernel time
@@ -40,6 +44,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import opencv_tpu_torch as cv  # noqa: E402
 from opencv_tpu_torch import entry as E  # noqa: E402
+from opencv_tpu_torch.ops.hist import hist_per_image  # noqa: E402
 
 def flagship_stages():
     """Both flagship forwards as (name, fn of the previous stage's output)."""
@@ -123,8 +128,34 @@ def decode_stages():
             ("sums", sums)]
 
 
+def enhance_stages():
+    """``entry.forward_enhance`` stage by stage (``entry.ENHANCE_STAGES``),
+    then the CLAHE output's histogram per image and the per-image sums."""
+    _, (x,) = E.entry_enhance("cuda")
+    outs = []
+
+    def kept(fn):
+        def run(a):
+            outs.append(fn(x if a is None else a))
+            return outs[-1]
+        return run
+
+    def hist(_):
+        outs.append(hist_per_image(outs[2]))
+        return outs
+
+    def sums(o):
+        s = [v.reshape(v.shape[0], -1).sum(dim=1, dtype=torch.int64) for v in o]
+        outs.clear()
+        return s
+
+    return [(name, kept(fn)) for name, fn in E.ENHANCE_STAGES] + [("calcHist", hist),
+                                                                   ("sums", sums)]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
-         "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages}
+         "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages,
+         "enhance": enhance_stages}
 
 
 def staged(stages, marks=None):

@@ -593,3 +593,45 @@ def test_decode_color_on_the_card_equals_cpu(cuda):
     want = E.forward_decode_color(y, uv)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def test_enhance_on_the_card_equals_cpu(cuda):
+    """The enhancement path at (2, 72, 128, 3): each stage on the card, fed
+    the card's own input to it, equals the CPU's on that input, and so does
+    the whole chain; GaussianBlur launches sep_filter once, on route k5."""
+    x = torch.from_numpy(E.make_batch((2, 72, 128, 3)))
+    before, k5 = SEP_FILTER.launches, SEP_FILTER.routes["k5"]
+    reset_tier_stats()
+    got = E.forward_enhance(x.to(cuda))
+    torch.cuda.synchronize()
+    assert tier_stats() == {"tier.sep_filter_u8.cuda": 1}
+    assert SEP_FILTER.launches == before + 1 and SEP_FILTER.routes["k5"] == k5 + 1
+    ins = [x.to(cuda)] + list(got[:len(E.ENHANCE_STAGES) - 1])
+    for (name, stage), a in zip(E.ENHANCE_STAGES, ins):
+        assert torch.equal(stage(a).cpu(), stage(a.cpu())), name
+    for g, w in zip(got, E.forward_enhance(x)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_histograms_read_nothing_back(cuda):
+    """threshold (OTSU, TRIANGLE), thresholdWithMask and calcHist take their
+    histograms by one scatter on the card: under sync debug mode "error"
+    none of them makes the host wait, and each equals the CPU's."""
+    x = _rand((2, 64, 96, 1), 11)
+    m = _rand((2, 64, 96, 1), 12) > 100
+    calls = (lambda a, k: tcv.threshold(a, 0, 255, tcv.THRESH_BINARY | tcv.THRESH_OTSU),
+             lambda a, k: tcv.threshold(a, 0, 255, tcv.THRESH_TOZERO | tcv.THRESH_TRIANGLE),
+             lambda a, k: tcv.thresholdWithMask(a, None, k, 0, 255,
+                                                tcv.THRESH_BINARY | tcv.THRESH_OTSU),
+             lambda a, k: (tcv.calcHist([a], [0], None, [256], [0, 256]),),
+             lambda a, k: (tcv.calcHist([a], [0], k, [32], [0, 256]),))
+    xc, mc = x.to(cuda), m.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [fn(xc, mc) for fn in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, fn in zip(got, calls):
+        for a, b in zip(g, fn(x, m)):
+            assert torch.equal(a.cpu(), b)
