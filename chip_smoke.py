@@ -79,6 +79,22 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       is not exact prints how many pixels differ and by how much, and is held
       to the warp bound: max |d| <= 1 on at most 0.1% of pixels), and so do
       the histograms and the whole chain;
+   h. the motion path: ``entry_motion("cuda")``'s forward (gray → GaussianBlur
+      5x5 → the phase correlation of frames 1-7 against frame 0 under a
+      Hanning window → warpAffine by minus each shift → an accumulateWeighted
+      background → absdiff, threshold 25 and a 3x3 opening →
+      connectedComponentsWithStats, distanceTransform L2 3x3 and binary
+      moments of every frame → the last frame's contours) on
+      ``make_motion_video()``'s (8, 1080, 1920, 3) frames, which must launch
+      sep_filter once, on route k5, through the registry, and no other
+      kernel; every recovered shift within MOTION_SHIFT_TOL px of the
+      video's, and every object box of frames 1-7 overlapping a component of
+      its frame; then the path on frames 0-2 on the card and on the CPU, each
+      stage fed the card's own input to it and then the whole chain, within
+      the bounds of ``motion_compare`` (shifts within 1e-6 px, u8 images,
+      labels and stats exact, the background exact in f32, distances within
+      1e-5, moments within rel 1e-12), printing the count and size of any
+      difference;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -96,9 +112,12 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    config 2's forward and each of its five ops beside their bytes bounds,
    the forward's device busy share (``torch.profiler``) and its peak
    device memory; the same for the decode-and-colour forward and its seven
-   stages, and for the enhancement forward and its eight, each with its
-   host syncs.  A kernel's share of its bound is
-   bound_ms / ms.
+   stages, for the enhancement forward and its eight, and for the motion
+   forward and its eleven (with the sub-steps of the phase correlation),
+   each with its host syncs; the motion path's propagation steps and
+   fixpoint checks (connectedComponents, distanceTransform), and
+   distanceTransform DIST_MASK_PRECISE on its mask batch with its peak
+   memory.  A kernel's share of its bound is bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -143,6 +162,14 @@ GFTT_OVERLAP = 0.85
 # mask's addWeighted, bilateralFilter), held to the warp bound where they are
 # not exact; in the whole chain, the stages after them too, and the sums
 ENHANCE_FLOAT_STAGES = ("clahe", "unsharp", "bilateral", "gamma", "colour", "sums")
+
+
+# (motion path) the recovered shifts against the video's, px
+MOTION_SHIFT_TOL = 0.25
+# (motion path) card vs CPU: the shifts and responses, and the distances
+MOTION_SHIFT_ATOL = 1e-6
+MOTION_DIST_ATOL = 1e-5
+MOTION_MOMENTS_RTOL = 1e-12
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -315,6 +342,54 @@ def busy_share(fn, iters: int = 3) -> tuple[float, float, float]:
                for e in prof.key_averages() if e.device_type == cuda)
     k_ms = k_us / iters / 1e3
     return k_ms / wall_ms, k_ms, wall_ms
+
+
+def motion_compare(what, got, want) -> list[str]:
+    """Hold the motion path's outputs `got` (the card's, on the host) to
+    `want` (the CPU's), key by key, for the keys they share: the shifts and
+    responses within MOTION_SHIFT_ATOL, the distances within
+    MOTION_DIST_ATOL, the moments within MOTION_MOMENTS_RTOL relative, the
+    centroids within 1e-12 relative, everything else (u8 images, labels,
+    counts, stats, the f32 background, contours, areas, rects, step counts)
+    exactly.  Raise with the count and size of the differences; return one
+    summary per key."""
+    report = []
+    for key in want:
+        g, w = got[key], want[key]
+        if key in ("moments",):
+            worst = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(g, w) for k in b)
+            if worst > MOTION_MOMENTS_RTOL:
+                raise AssertionError(f"motion {what} {key}: max rel |d| {worst}")
+            report.append(f"{key} max rel |d| {worst:.3g}")
+            continue
+        if key in ("contours", "areas", "rects", "cc_steps", "dt_steps"):
+            same = (len(g) == len(w) and all(np.array_equal(a, b) for a, b in zip(g, w))
+                    if key == "contours" else g == w)
+            if not same:
+                raise AssertionError(f"motion {what} {key}: {g} != {w}")
+            report.append(f"{key} equal")
+            continue
+        g = torch.as_tensor(np.asarray(g) if not isinstance(g, torch.Tensor) else g)
+        w = torch.as_tensor(np.asarray(w) if not isinstance(w, torch.Tensor) else w)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"motion {what} {key}: {tuple(g.shape)} {g.dtype} != "
+                                 f"{tuple(w.shape)} {w.dtype}")
+        d = (g.to(torch.float64) - w.to(torch.float64)).abs()
+        n_diff, d_max = int(d.count_nonzero()), float(d.max()) if d.numel() else 0.0
+        tol = {"shifts": MOTION_SHIFT_ATOL, "responses": MOTION_SHIFT_ATOL,
+               "distance": MOTION_DIST_ATOL}.get(key, 0.0)
+        if key == "centroids":
+            tol = 1e-12 * max(1.0, float(w.abs().max()))
+        if d_max > tol:
+            raise AssertionError(f"motion {what} {key}: {n_diff} of {d.numel()} differ, "
+                                 f"max |d| {d_max}")
+        report.append(f"{key} {'exact' if not n_diff else f'{n_diff} differ, max |d| {d_max:.3g}'}")
+    return report
+
+
+def host_state(st) -> dict:
+    """The motion path's state dict with its tensors on the host."""
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in st.items()}
 
 
 def pyr_cases(K):
@@ -894,6 +969,62 @@ def main() -> int:
         f"{'; '.join(stage_report)}; the whole chain vs the CPU plain forward: "
         f"{'; '.join(chain_report)}")
 
+    # -- 4h. the motion path: gray -> GaussianBlur (sep_filter k5) -> phase
+    # correlation -> warpAffine -> background -> mask -> components, distance,
+    # moments -> contours
+    video8, true_shifts8, boxes8 = E.make_motion_video()
+    x8 = torch.from_numpy(video8).to(dev)
+    reset_tier_stats()
+    outs8, cfg8 = run_counted(lambda: E.forward_motion(x8))
+    tiers8 = tier_stats()
+    log(f"motion path launches: {cfg8}; dispatch {tiers8}")
+    if (cfg8["opencv_sep_filter"] != 1 or cfg8["sep_filter routes"]["k5"] != 1
+            or cfg8["opencv_pyr_down"] or cfg8["opencv_gauss5_down2"]
+            or tiers8 != {"tier.sep_filter_u8.cuda": 1}):
+        raise AssertionError(f"motion path: sep_filter must launch once, on route k5, through "
+                             f"the registry, and no other kernel; got {cfg8}, {tiers8}")
+    N8, H8, W8, _ = E.SHAPE_MOTION
+    for key, shape, dtype in (("smooth", (N8, H8, W8, 1), torch.uint8),
+                              ("aligned", (N8, H8, W8, 1), torch.uint8),
+                              ("background", (1, H8, W8, 1), torch.float32),
+                              ("mask", (N8, H8, W8, 1), torch.uint8),
+                              ("labels", (N8, H8, W8), torch.int32),
+                              ("distance", (N8, H8, W8, 1), torch.float32),
+                              ("sums", (N8, len(E.MOTION_SUMS)), torch.int64)):
+        got = outs8[key]
+        if tuple(got.shape) != shape or got.dtype != dtype or not torch.isfinite(
+                got.to(torch.float64)).all():
+            raise AssertionError(f"motion {key}: {tuple(got.shape)} {got.dtype}, expected "
+                                 f"{shape} {dtype}, finite")
+    shift_err = np.abs(outs8["shifts"] - true_shifts8[1:])
+    if not shift_err.max() < MOTION_SHIFT_TOL:
+        raise AssertionError(f"motion shifts {outs8['shifts'].tolist()} against the video's "
+                             f"{true_shifts8[1:].tolist()}: max error {shift_err.max()}")
+    labels8 = outs8["labels"].cpu().numpy()
+    missed = [(i, k) for i in range(1, N8) for k, (bx, by, bw, bh) in enumerate(boxes8[i])
+              if not labels8[i, by:by + bh, bx:bx + bw].any()]
+    if missed:
+        raise AssertionError(f"motion: object boxes (frame, object) {missed} overlap no "
+                             f"component")
+    log(f"motion path: shifts {np.round(outs8['shifts'], 4).tolist()} (the video's "
+        f"{true_shifts8[1:].tolist()}, max error {shift_err.max():.4f} px, responses "
+        f"{np.round(outs8['responses'], 4).tolist()}); all {(N8 - 1) * E.MOTION_OBJECTS} object "
+        f"boxes of frames 1-{N8 - 1} overlap a component; labels per frame "
+        f"{outs8['n_labels'].tolist()}; {len(outs8['contours'])} contours in frame {N8 - 1}; "
+        f"connectedComponents {outs8['cc_steps']}, distanceTransform {outs8['dt_steps']}")
+    # frames 0-2 as a three-frame video on the card and the CPU: each stage on
+    # the card's own input to it, then the whole chain
+    got3 = host_state(E.forward_motion(x8[:3]))
+    got3["x"] = x8[:3].cpu()
+    stage_report8 = []
+    for name, stage, keys in E.MOTION_STAGES:
+        st = dict(got3)
+        stage(st)
+        stage_report8 += motion_compare(f"stage {name}", got3, {k: st[k] for k in keys})
+    chain_report8 = motion_compare("chain", got3, E.forward_motion(got3["x"]))
+    log(f"motion path, frames 0-2: each stage on the card's own input vs the CPU: "
+        f"{'; '.join(stage_report8)}; the whole chain vs the CPU: {'; '.join(chain_report8)}")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -1171,6 +1302,67 @@ def main() -> int:
         f"{base7 / 2 ** 30:.3f} GiB held before); medianBlur 5 on (8,1080,1920,1) alone "
         f"{peak_med / 2 ** 30:.3f} GiB over its input  [{card}]")
 
+    # the motion path, as the caller sees it; bytes: each stage's inputs read
+    # once and outputs written once, the phase correlation counted by its
+    # sub-steps (window, rfft2, normalised cross-power, irfft2, peak) with
+    # their f64 planes and complex128 half spectra
+    n8, P8, F8 = N8 * H8 * W8, H8 * W8, H8 * (W8 // 2 + 1)
+    pc_steps = (("window multiply (u8 -> f64)", 9 * n8 + 8 * P8),
+                ("rfft2 (f64 -> complex128)", 8 * n8 + 16 * N8 * F8),
+                ("normalised cross-power spectrum", 16 * N8 * F8 + 16 * (N8 - 1) * F8),
+                ("irfft2", 16 * (N8 - 1) * F8 + 8 * (N8 - 1) * P8),
+                ("peak and centroid", 8 * (N8 - 1) * P8))
+    stage_bytes8 = {"gray": 4 * n8, "smooth": 2 * n8, "shifts": sum(b for _, b in pc_steps),
+                    "aligned": 2 * n8, "background": n8 + 4 * P8, "mask": 2 * n8 + 4 * P8,
+                    "components": 5 * n8, "distance": 5 * n8, "moments": n8, "contours": P8,
+                    "sums": 11 * n8}
+    fwd_bytes8 = sum(stage_bytes8.values())
+    state8 = {"x": x8}
+    for _, stage, _ in E.MOTION_STAGES:
+        stage(state8)
+    t8 = timer(lambda: E.forward_motion(x8), iters=10)
+    log(f"time forward_motion {tuple(x8.shape)}: {t8:.4f} ms, bytes bound "
+        f"{bound(fwd_bytes8, 0)[0]:.4f} ms ({fwd_bytes8 / 1e6:.1f} MB), share of bound "
+        f"{bound(fwd_bytes8, 0)[0] / t8:.4f}  [{card}]")
+    for name, stage, keys in E.MOTION_STAGES:
+        t = timer(lambda: stage(dict(state8)), iters=10)
+        b_ms = bound(stage_bytes8[name], 0)[0]
+        log(f"time motion {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({stage_bytes8[name] / 1e6:.1f} MB), share of bound {b_ms / t:.4f}  [{card}]")
+    for name, nbytes in pc_steps:
+        log(f"motion shifts sub-step {name}: bytes bound {bound(nbytes, 0)[0]:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)")
+    n_sync8 = count_syncs(lambda: E.forward_motion(x8))
+    busy8, k_ms8, f_ms8 = busy_share(lambda: E.forward_motion(x8))
+    mask8 = state8["mask"]
+    del outs8, state8, labels8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base8 = torch.cuda.memory_allocated()
+    E.forward_motion(x8)
+    torch.cuda.synchronize()
+    peak8 = torch.cuda.max_memory_allocated()
+    log(f"motion forward: device busy share {busy8:.4f} (kernels {k_ms8:.4f} ms of "
+        f"{f_ms8:.4f} ms, torch.profiler); {n_sync8} host syncs per batch; peak device memory "
+        f"{peak8 / 2 ** 30:.3f} GiB ({(peak8 - base8) / 2 ** 30:.3f} GiB over the "
+        f"{base8 / 2 ** 30:.3f} GiB held before)  [{card}]")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_p = torch.cuda.memory_allocated()
+    t_p0 = time.perf_counter()
+    precise = cv.distanceTransform(mask8, cv.DIST_L2, cv.DIST_MASK_PRECISE)
+    torch.cuda.synchronize()
+    t_p = (time.perf_counter() - t_p0) * 1e3
+    peak_p = torch.cuda.max_memory_allocated() - base_p
+    if not (precise.shape == mask8.shape and torch.isfinite(precise).all()):
+        raise AssertionError(f"DIST_MASK_PRECISE: {tuple(precise.shape)}")
+    full_nhww = N8 * H8 * W8 * W8 * 4
+    log(f"distanceTransform DIST_MASK_PRECISE on the motion mask {tuple(mask8.shape)}: "
+        f"{t_p:.4f} ms on the host clock (first call), peak "
+        f"{peak_p / 2 ** 30:.3f} GiB over its input (an (N, H, W, W) f32 array would be "
+        f"{full_nhww / 1e9:.1f} GB); max distance {float(precise.max()):.3f}  [{card}]")
+    del precise, mask8
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -1179,14 +1371,14 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4g); the
+    # launches: the kernel's count over the main paths (4a to 4h); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
                              "sep_filter generic k9 level 2"),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"), "pyr_down": ("pyr_down",)}
-    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7)
+    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

@@ -23,7 +23,10 @@ copyMakeBorder and borderInterpolate, and the enhancement path: histograms
 (calcHist, equalizeHist, compareHist, calcBackProject, CLAHE), medianBlur,
 bilateralFilter, stackBlur, the core array ops (arithmetic, bitwise, LUT,
 normalize, reductions, the polar and math functions and the utility
-surface) and applyColorMap.
+surface) and applyColorMap, and the motion path: linalg, the DFT/DCT and
+accumulate family, the rest of misc (phaseCorrelate, getRectSubPix,
+convertMaps, blendLinear, matchShapes), moments, connectedComponents,
+distanceTransform and the contour geometry.
 """
 
 from .constants import *  # noqa: F401,F403
@@ -31,7 +34,10 @@ from .core.borders import border_interpolate as borderInterpolate  # noqa: F401
 from .core.borders import copy_make_border as copyMakeBorder  # noqa: F401
 from .ops.color import cvtColor, cvtColorTwoPlane  # noqa: F401
 from .ops.integral import integral, integral2, integral3  # noqa: F401
-from .ops.misc import demosaicing  # noqa: F401
+from .ops.misc import (  # noqa: F401
+    CONTOURS_MATCH_I1, CONTOURS_MATCH_I2, CONTOURS_MATCH_I3, blendLinear, convertMaps,
+    createHanningWindow, demosaicing, getRectSubPix, matchShapes, phaseCorrelate,
+)
 from .ops.thresh import adaptiveThreshold, threshold, thresholdWithMask  # noqa: F401
 from .ops.filter import (  # noqa: F401
     GaussianBlur, blur, boxFilter, filter2D, getGaussianKernel, sepFilter2D, sqrBoxFilter,
@@ -90,6 +96,39 @@ from .features2d import (  # noqa: F401
     GFTTDetector_create, KeyPoint, KeyPoint_convert, KeyPoint_overlap, ORB, ORB_create,
 )
 from .features2d.fast import FAST as FastFeatureDetector_detect  # noqa: F401
+
+from .ops.contours import (  # noqa: F401,E402
+    findContours, contourArea, arcLength, boundingRect, minAreaRect,
+    boxPoints, convexHull, convexityDefects, approxPolyDP,
+    isContourConvex,
+    pointPolygonTest, minEnclosingCircle, fitEllipse, fitEllipseAMS,
+    fitEllipseDirect, approxPolyN, HuMoments,
+    rotatedRectangleIntersection, intersectConvexConvex,
+    minEnclosingTriangle, INTERSECT_NONE, INTERSECT_PARTIAL,
+    INTERSECT_FULL,
+)
+from .ops.transform import (  # noqa: F401,E402
+    dft, idft, dct, idct, mulSpectrums, getOptimalDFTSize, getGaborKernel,
+    accumulate, accumulateSquare, accumulateProduct, accumulateWeighted,
+    DFT_INVERSE, DFT_SCALE, DFT_ROWS, DFT_COMPLEX_OUTPUT, DFT_REAL_OUTPUT,
+    DFT_COMPLEX_INPUT, DCT_INVERSE, DCT_ROWS,
+)
+from .ops.shape import (  # noqa: F401,E402
+    moments,
+    connectedComponents,
+    connectedComponentsWithStats,
+    connectedComponentsWithAlgorithm,
+    connectedComponentsWithStatsWithAlgorithm,
+    distanceTransform,
+    distanceTransformWithLabels,
+)
+from .ops.linalg import (  # noqa: F401,E402
+    solve, SVDecomp, SVBackSubst, eigen, eigenNonSymmetric,
+    PCACompute, PCACompute2, PCAProject, PCABackProject,
+    Mahalanobis, mulTransposed, transform, invert, determinant, trace,
+    setRNGSeed, theRNG, randu, randn, randShuffle, RNG,
+    SVD_MODIFY_A, SVD_NO_UV, SVD_FULL_UV,
+)
 
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
 from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401

@@ -48,40 +48,62 @@ unsharp mask (addWeighted of the image and its ``GaussianBlur((5, 5), 0)``,
 → a γ = 0.8 ``LUT`` → ``applyColorMap`` JET, with the per-image histogram
 of the CLAHE output.  ``entry_enhance`` gives it ``make_batch()``'s
 (8, 1080, 1920, 3) u8 batch, the flagship's.
+
+``forward_motion`` stabilises a shaking or panning camera and finds what
+moves in the frame, as surveillance, traffic and drone video run it: gray →
+GaussianBlur 5×5 (the one ``sep_filter`` launch) → the phase correlation of
+each frame against frame 0 under a Hanning window → warpAffine of each frame
+by minus its shift (LINEAR, BORDER_REPLICATE) → a running background
+(``accumulateWeighted``, α = 0.05, frame by frame) → absdiff against it,
+threshold 25 and a 3×3 opening → connectedComponentsWithStats,
+distanceTransform (L2, 3×3) and binary moments of every frame →
+findContours (external, simple) of the last frame, with each contour's
+area and bounding rect (:data:`MOTION_STAGES`).  ``entry_motion`` gives it
+``make_motion_video()``'s (8, 1080, 1920, 3) u8 frames.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from . import constants as K
+from .core.arrays import to_device
 from .features2d.orb import ORB_create
 from .kernels import fused_gray_gauss5_down2
 from .ops.canny import Canny
 from .ops.color import cvtColor, cvtColorTwoPlane
 from .ops.colormap import applyColorMap
-from .ops.core_ops import LUT, addWeighted
+from .ops.core_ops import LUT, absdiff, addWeighted, convertScaleAbs
 from .ops.hist import createCLAHE, hist_per_image
 from .ops.smooth import bilateralFilter, medianBlur
 from .ops.corners import cornerHarris
 from .ops.deriv import Sobel
 from .ops.filter import GaussianBlur
-from .ops.morph import dilate, erode
+from .ops.morph import dilate, erode, getStructuringElement, morphologyEx
 from .ops.pyramids import pyrDown
 from .ops.integral import integral
 from .ops.resize import resize
 from .ops.templmatch import matchTemplate
 from .ops.thresh import threshold
 from .ops.warp import getRotationMatrix2D, warpAffine, warpPerspective
+from .ops.contours import boundingRect, contourArea, findContours
+from .ops.misc import createHanningWindow, phase_correlate_batch
+from .ops.shape import component_stats, components_batch, distanceTransform, moments_dict, \
+    raw_moments
+from .ops.transform import accumulateWeighted
 
 __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
-           "PERSPECTIVE_CFG2", "DECODE_COLOR_OUTPUTS", "ENHANCE_STAGES", "ENHANCE_OUTPUTS",
-           "GAMMA_LUT", "entry", "entry_resize_warp_4k", "entry_pyr_corner_edge",
-           "entry_match_morph", "entry_orb", "entry_decode_color", "entry_enhance",
-           "make_batch", "make_nv12", "preprocess", "preprocess_fused", "warp", "forward",
+           "SHAPE_MOTION", "PERSPECTIVE_CFG2", "DECODE_COLOR_OUTPUTS", "ENHANCE_STAGES",
+           "ENHANCE_OUTPUTS", "GAMMA_LUT", "MOTION_STAGES", "MOTION_SUMS", "entry",
+           "entry_resize_warp_4k", "entry_pyr_corner_edge", "entry_match_morph", "entry_orb",
+           "entry_decode_color", "entry_enhance", "entry_motion", "make_batch", "make_nv12",
+           "make_motion_video", "preprocess", "preprocess_fused", "warp", "forward",
            "forward_fused", "forward_resize_warp_4k", "forward_pyr_corner_edge",
-           "forward_match_morph", "forward_orb", "forward_decode_color", "forward_enhance"]
+           "forward_match_morph", "forward_orb", "forward_decode_color", "forward_enhance",
+           "forward_motion"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -314,3 +336,217 @@ def forward_enhance(x):
 def entry_enhance(device="cuda", shape=SHAPE):
     """``(forward_enhance, (x,))`` with ``make_batch()``'s batch on `device`."""
     return forward_enhance, (torch.from_numpy(make_batch(shape)).to(device),)
+
+
+# ------------------------------------------------------------ motion path
+
+SHAPE_MOTION = (8, 1080, 1920, 3)
+MOTION_MAX_SHIFT = 16       # the camera's shake, px per axis against frame 0
+MOTION_OBJECTS = 6
+MOTION_ALPHA = 0.05         # accumulateWeighted's rate for the background
+MOTION_THRESH = 25          # the absdiff threshold, grey levels
+
+
+def _box_mean(a: np.ndarray, k: int) -> np.ndarray:
+    """The k×k box mean of `a` over the windows that fit (valid mode)."""
+    c = np.pad(a.cumsum(0).cumsum(1), ((1, 0), (1, 0)))
+    return (c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / (k * k)
+
+
+def make_motion_video(shape=SHAPE_MOTION, seed: int = 0):
+    """A shaking camera over a textured scene with moving objects, all from
+    one ``default_rng(seed)``: ``(frames, shifts, boxes)``.
+
+    - the scene: uniform noise smoothed by a 9×9 box mean and stretched to
+      0–255, on a canvas 2 × :data:`MOTION_MAX_SHIFT` × 2 px larger than a
+      frame;
+    - frame i is the crop of the canvas at an integer shift (dx_i, dy_i)
+      drawn in [-16, 16] (frame 0 at (0, 0)), so that frame i is frame 0
+      moved by (dx_i, dy_i): ``shifts`` is that (N, 2) int64 (x, y), what
+      the phase correlation of frame i against frame 0 should find;
+    - :data:`MOTION_OBJECTS` filled rectangles and discs, 40–160 px across
+      at 1080p (scaled with the frame), 70–110 grey levels off the scene's
+      median, each moving on its own at 30–60 px per frame (bouncing off
+      the edges); ``boxes`` is their (N, 6, 4) int64 (x, y, w, h) in the
+      scene's coordinates, which are frame 0's and the aligned frames';
+    - sensor noise, uniform in ±2 per channel.
+
+    Returns the (N, H, W, 3) u8 BGR frames."""
+    N, H, W, C = shape
+    rng = np.random.default_rng(seed)
+    m = MOTION_MAX_SHIFT * 2
+    scene = _box_mean(rng.random((H + 2 * m + 8, W + 2 * m + 8)), 9)
+    scene = np.rint((scene - scene.min()) / (scene.max() - scene.min()) * 255.0)
+    median = float(np.median(scene))
+    shifts = rng.integers(-MOTION_MAX_SHIFT, MOTION_MAX_SHIFT + 1, (N, 2))
+    shifts[0] = 0
+    frames = np.empty((N, H, W), np.uint8)
+    for i, (dx, dy) in enumerate(shifts):
+        frames[i] = scene[m - dy:m - dy + H, m - dx:m - dx + W]
+    scale = min(H / 1080, W / 1920)
+    boxes = np.empty((N, MOTION_OBJECTS, 4), np.int64)
+    ys, xs = np.mgrid[0:H, 0:W]
+    for k in range(MOTION_OBJECTS):
+        disc = k % 2 == 1
+        w = h = max(6, int(rng.integers(40, 161) * scale))
+        if not disc:
+            h = max(6, int(rng.integers(40, 161) * scale))
+        level = np.clip(median + rng.choice((-1, 1)) * rng.uniform(70, 110), 0, 255)
+        lo = np.array([m, m])
+        hi = np.array([W - m - w, H - m - h])
+        p = lo + rng.random(2) * (hi - lo)
+        ang = rng.uniform(0, 2 * np.pi)
+        v = rng.uniform(30, 60) * scale * np.array([np.cos(ang), np.sin(ang)])
+        for i in range(N):
+            # the position bounces between lo and hi
+            q = p + i * v - lo
+            span = hi - lo
+            q = np.abs((q + span) % (2 * span) - span) + lo
+            x0, y0 = (int(t) for t in np.rint(q))
+            boxes[i, k] = (x0, y0, w, h)
+            fx, fy = x0 + shifts[i, 0], y0 + shifts[i, 1]
+            if disc:
+                r = w / 2.0
+                inside = (xs - (fx + r - 0.5)) ** 2 + (ys - (fy + r - 0.5)) ** 2 <= r * r
+                frames[i][inside] = level
+            else:
+                frames[i, fy:fy + h, fx:fx + w] = level
+    noise = rng.integers(-2, 3, (N, H, W, C), dtype=np.int8)
+    video = np.clip(frames[..., None].astype(np.int16) + noise, 0, 255).astype(np.uint8)
+    return video, shifts, boxes
+
+
+@functools.lru_cache(maxsize=4)
+def _hanning(h: int, w: int, device) -> torch.Tensor:
+    """createHanningWindow((w, h), CV_64F) on `device`, built once."""
+    return to_device(createHanningWindow((w, h), K.CV_64F), device)
+
+
+def _gray(st):
+    st["gray"] = cvtColor(st["x"], K.COLOR_BGR2GRAY)
+
+
+def _smooth(st):
+    st["smooth"] = GaussianBlur(st["gray"], (5, 5), 0)
+
+
+def _shifts(st):
+    """The (N-1, 2) f64 shifts of frames 1.. against frame 0 and their
+    responses, read back once."""
+    s = st["smooth"][..., 0]
+    shifts, resp = phase_correlate_batch(s[:1], s[1:], _hanning(s.shape[1], s.shape[2],
+                                                                 s.device))
+    host = torch.cat([shifts, resp[:, None]], dim=1).cpu().numpy()
+    st["shifts"], st["responses"] = host[:, :2], host[:, 2]
+
+
+def _align(st):
+    s = st["smooth"]
+    H, W = s.shape[1], s.shape[2]
+    frames = [s[:1]]
+    for i, (sx, sy) in enumerate(st["shifts"], 1):
+        M = np.array([[1.0, 0.0, -sx], [0.0, 1.0, -sy]])
+        frames.append(warpAffine(s[i:i + 1], M, (W, H), K.INTER_LINEAR, K.BORDER_REPLICATE))
+    st["aligned"] = torch.cat(frames)
+
+
+def _background(st):
+    a = st["aligned"]
+    bg = a[:1].to(torch.float32)
+    for i in range(1, len(a)):
+        bg = accumulateWeighted(a[i:i + 1], bg, MOTION_ALPHA)
+    st["background"] = bg
+
+
+def _mask(st):
+    d = absdiff(st["aligned"], convertScaleAbs(st["background"]))
+    _, m = threshold(d, MOTION_THRESH, 255, K.THRESH_BINARY)
+    st["mask"] = morphologyEx(m, K.MORPH_OPEN, getStructuringElement(K.MORPH_RECT, (3, 3)))
+
+
+def _components(st):
+    """Labels, stats and centroids of every frame; the per-frame label
+    counts are the one read."""
+    steps = {}
+    labels, counts = components_batch(st["mask"][..., 0], 8, steps)
+    n = counts.cpu().numpy() + 1
+    stats, cent = component_stats(labels, int(n.max()))
+    st.update(labels=labels, n_labels=n, stats=stats, centroids=cent, cc_steps=steps)
+
+
+def _distance(st):
+    steps = {}
+    st["distance"] = distanceTransform(st["mask"], K.DIST_L2, 3, stats=steps)
+    st["dt_steps"] = steps
+
+
+def _moments(st):
+    raw = raw_moments(st["mask"][..., 0], binaryImage=True).cpu().numpy()
+    st["moments"] = [moments_dict(r) for r in raw]
+
+
+def _contours(st):
+    cs, _ = findContours(st["mask"][-1, ..., 0], K.RETR_EXTERNAL, K.CHAIN_APPROX_SIMPLE)
+    st.update(contours=cs, areas=[contourArea(c) for c in cs],
+              rects=[boundingRect(c) for c in cs])
+
+
+# the per-frame sums of forward_motion's "sums" table, in its column order
+MOTION_SUMS = ("smooth", "aligned", "mask", "labels", "distance", "stats")
+
+
+def _sums(st):
+    cols = []
+    for name in MOTION_SUMS:
+        v = st[name]
+        if name == "distance":
+            v = torch.round(v)
+        cols.append(v.reshape(v.shape[0], -1).sum(dim=1, dtype=torch.int64))
+    st["sums"] = torch.stack(cols, dim=1)
+
+
+# forward_motion's stages in order: (name, fn of the state dict, the keys it
+# writes); each reads only keys written before it
+MOTION_STAGES = (
+    ("gray", _gray, ("gray",)),
+    ("smooth", _smooth, ("smooth",)),
+    ("shifts", _shifts, ("shifts", "responses")),
+    ("aligned", _align, ("aligned",)),
+    ("background", _background, ("background",)),
+    ("mask", _mask, ("mask",)),
+    ("components", _components, ("labels", "n_labels", "stats", "centroids", "cc_steps")),
+    ("distance", _distance, ("distance", "dt_steps")),
+    ("moments", _moments, ("moments",)),
+    ("contours", _contours, ("contours", "areas", "rects")),
+    ("sums", _sums, ("sums",)),
+)
+
+
+def forward_motion(x):
+    """Stabilisation and motion detection over an (N, H, W, 3) u8 BGR video
+    (:data:`MOTION_STAGES`), frame 0 the reference.
+
+    Returns a dict: ``gray`` and ``smooth`` (N, H, W, 1) u8; ``shifts``
+    ((N-1, 2) f64 numpy, cv2's (x, y) shift of frames 1.. against frame 0)
+    and their ``responses``; ``aligned`` (N, H, W, 1) u8; ``background``
+    (1, H, W, 1) f32; ``mask`` (N, H, W, 1) u8 (0 or 255); ``labels`` (N, H,
+    W) int32, ``n_labels`` (N,) numpy (cv2's n, background included),
+    ``stats`` (N, L, 5) int32 and ``centroids`` (N, L, 2) f64 with L the
+    largest n (rows past a frame's n are 0); ``distance`` (N, H, W, 1) f32;
+    ``moments``, one cv2 moments dict per frame; ``contours``, ``areas`` and
+    ``rects`` of the last frame; ``sums``, the (N, 6) int64 per-frame sums
+    of :data:`MOTION_SUMS` (the distances rounded); and ``cc_steps`` /
+    ``dt_steps``, the propagation steps and fixpoint checks of the
+    components and the distance transform."""
+    st = {"x": x}
+    for _, stage, _ in MOTION_STAGES:
+        stage(st)
+    del st["x"]
+    return st
+
+
+def entry_motion(device="cuda", shape=SHAPE_MOTION):
+    """``(forward_motion, (x,))`` with :func:`make_motion_video`'s frames on
+    `device`."""
+    video, _, _ = make_motion_video(shape)
+    return forward_motion, (torch.from_numpy(video).to(device),)

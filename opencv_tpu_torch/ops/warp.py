@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from .. import constants as K
-from ..core.arrays import as_tensor, to_batched, from_batched
+from ..core.arrays import as_tensor, to_batched, from_batched, to_device
 from ..core.fixedpoint import saturate_cast
 from ..core.mathfuncs import fast_atan2
 from .resize import _interpolate_cubic, _interpolate_lanczos4
@@ -252,7 +252,7 @@ class _Taps:
         self.x0, self.y0, self.border_type = x0, y0, border_type
         self.flat = x.reshape(N, H * W, C)
         self.acc_dtype = acc_dtype
-        self.cval = _cval_vec(border_value, x.dtype, C).to(x.device)
+        self.cval = to_device(_cval_vec(border_value, x.dtype, C), x.device)
         self.cval_t = self.cval.to(x.dtype).to(acc_dtype).reshape(1, 1, C)
         self.xs = [_resolve_tap(x0 + (d - self.off), W, border_type) for d in range(ksize)]
         self.ys = [_resolve_tap(y0 + (d - self.off), H, border_type) for d in range(ksize)]
@@ -448,7 +448,7 @@ def warpAffine(src, M, dsize, flags: int = K.INTER_LINEAR,
     ys = np.arange(dh, dtype=np.float64)
 
     def dev(v, dtype=None):
-        return torch.from_numpy(v if dtype is None else v.astype(dtype)).to(x.device)
+        return to_device(v if dtype is None else v.astype(dtype), x.device)
 
     if interp == K.INTER_NEAREST:
         # per-column adelta and per-row X0 assembled in int32 on the device:
@@ -505,8 +505,7 @@ def warpPerspective(src, M, dsize, flags: int = K.INTER_LINEAR,
 
     def plane(col, row):
         """row[:, None] + col[None, :] in f64 on the device."""
-        return (torch.from_numpy(row).to(x.device)[:, None]
-                + torch.from_numpy(col).to(x.device)[None, :])
+        return to_device(row, x.device)[:, None] + to_device(col, x.device)[None, :]
 
     xn = plane(m[0] * xs, m[1] * ys + m[2])
     yn = plane(m[3] * xs, m[4] * ys + m[5])

@@ -1,31 +1,34 @@
 #!/usr/bin/env python3
 """Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5|decode|enhance] [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5|decode|enhance|motion] [--iters 5] [--table PATH]
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
-BASELINE config 2 (resize LINEAR, AREA, CUBIC, warpAffine,
-warpPerspective) on the (4, 2160, 3840, 3) batch; ``--path cfg3`` runs
-BASELINE config 3 (pyrDown, cornerHarris, Sobel, Canny) and ``--path
-cfg4`` BASELINE config 4 (matchTemplate, erode, dilate, erode) on the
-(8, 1080, 1920, 1) batch; ``--path cfg5`` BASELINE config 5 (ORB,
-nfeatures=500) on the (8, 1080, 1920) batch in its four stages: the level
-maps (pyramid, FAST, blur, pre-pool, pad), the candidate stage with its
-tie-count read, the readback of the rows and the host tail; ``--path
-decode`` the decode-colour path (``entry.forward_decode_color``) on NV12
-(8, 1080, 1920) in its stages: cvtColorTwoPlane, HSV, Lab, YCrCb,
-gauss5_down2, threshold OTSU, integral and the per-image sums; ``--path
-enhance`` the enhancement path (``entry.forward_enhance``) on the
-(8, 1080, 1920, 3) batch in its stages: gray, medianBlur, CLAHE, the
-unsharp mask, bilateralFilter, the gamma LUT, applyColorMap, the per-image
-histogram and the sums.  Each runs under ``torch.profiler`` with one
-``record_function`` span per stage.  Prints, per stage, the time between
-CUDA events around it (median of 20, unprofiled) beside the device time of
-its torch-op kernels (profiled); the device busy share (all kernel time
-over the stage spans, where a low share means the device waits on the
-host); and the top kernels.  ``--table`` writes the profiler's full table
-to a file.  Needs a CUDA device.
+BASELINE config 2 (resize LINEAR, AREA, CUBIC, warpAffine, warpPerspective)
+on the (4, 2160, 3840, 3) batch; ``--path cfg3`` runs BASELINE config 3
+(pyrDown, cornerHarris, Sobel, Canny) and ``--path cfg4`` BASELINE config 4
+(matchTemplate, erode, dilate, erode) on the (8, 1080, 1920, 1) batch;
+``--path cfg5`` BASELINE config 5 (ORB, nfeatures=500) on the (8, 1080,
+1920) batch in its four stages: the level maps (pyramid, FAST, blur,
+pre-pool, pad), the candidate stage with its tie-count read, the readback of
+the rows and the host tail; ``--path decode`` the decode-colour path
+(``entry.forward_decode_color``) on NV12 (8, 1080, 1920) in its stages:
+cvtColorTwoPlane, HSV, Lab, YCrCb, gauss5_down2, threshold OTSU, integral
+and the per-image sums; ``--path enhance`` the enhancement path
+(``entry.forward_enhance``) on the (8, 1080, 1920, 3) batch in its stages:
+gray, medianBlur, CLAHE, the unsharp mask, bilateralFilter, the gamma LUT,
+applyColorMap, the per-image histogram and the sums; ``--path motion`` the
+motion path (``entry.forward_motion``) on ``make_motion_video()``'s (8,
+1080, 1920, 3) frames in its stages (``entry.MOTION_STAGES``): gray,
+GaussianBlur, the phase correlation, warpAffine, the background, the mask,
+the components, the distance transform, the moments, the contours and the
+sums. Each runs under ``torch.profiler`` with one ``record_function`` span
+per stage. Prints, per stage, the time between CUDA events around it (median
+of 20, unprofiled) beside the device time of its torch-op kernels
+(profiled); the device busy share (all kernel time over the stage spans,
+where a low share means the device waits on the host); and the top kernels.
+``--table`` writes the profiler's full table to a file. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -153,9 +156,24 @@ def enhance_stages():
                                                                    ("sums", sums)]
 
 
+def motion_stages():
+    """``entry.forward_motion`` stage by stage (``entry.MOTION_STAGES``), each
+    adding its outputs to the state dict the previous stage passed on."""
+    _, (x,) = E.entry_motion("cuda")
+
+    def step(fn):
+        def run(st):
+            st = {"x": x} if st is None else st
+            fn(st)
+            return st
+        return run
+
+    return [(name, step(fn)) for name, fn, _ in E.MOTION_STAGES]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
          "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages,
-         "enhance": enhance_stages}
+         "enhance": enhance_stages, "motion": motion_stages}
 
 
 def staged(stages, marks=None):

@@ -23,6 +23,7 @@ from opencv_tpu_torch.kernels.sepfilter import (
     pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain, sep_filter_route)
 from opencv_tpu_torch.features2d.fast import fast_keypoint_mask
 from opencv_tpu_torch.features2d.orb import level_sizes
+from opencv_tpu_torch.ops import shape as S
 from opencv_tpu_torch.ops.filter import gaussian_kernel_bitexact, gaussian_kernel_fixedpoint_ed
 
 pytestmark = pytest.mark.gpu
@@ -635,3 +636,140 @@ def test_histograms_read_nothing_back(cuda):
     for g, fn in zip(got, calls):
         for a, b in zip(g, fn(x, m)):
             assert torch.equal(a.cpu(), b)
+
+
+def _motion_same(key, g, w):
+    """The motion path's card output `g` against the CPU's `w`: the shifts
+    and responses within 1e-6, distances within 1e-5, moments within rel
+    1e-12, centroids within 1e-12 relative, everything else exactly."""
+    if key == "moments":
+        for a, b in zip(g, w):
+            assert all(abs(a[k] - b[k]) <= 1e-12 * max(1.0, abs(b[k])) for k in b), key
+    elif key == "contours":
+        assert len(g) == len(w) and all(np.array_equal(a, b) for a, b in zip(g, w))
+    elif key in ("areas", "rects", "cc_steps", "dt_steps"):
+        assert g == w, key
+    else:
+        g = g.cpu() if isinstance(g, torch.Tensor) else torch.from_numpy(np.asarray(g))
+        w = w if isinstance(w, torch.Tensor) else torch.from_numpy(np.asarray(w))
+        assert g.shape == w.shape and g.dtype == w.dtype, key
+        tol = {"shifts": 1e-6, "responses": 1e-6, "distance": 1e-5,
+               "centroids": 1e-12 * max(1.0, float(w.abs().max()) if w.numel() else 1.0)}
+        d = (g.to(torch.float64) - w.to(torch.float64)).abs()
+        assert not d.numel() or float(d.max()) <= tol.get(key, 0.0), key
+
+
+def test_motion_on_the_card_equals_cpu(cuda):
+    """The motion path at (3, 144, 256, 3): GaussianBlur launches sep_filter
+    once, on route k5; each stage on the card, fed the card's own input to
+    it, equals the CPU's on that input, and so does the whole chain."""
+    x = torch.from_numpy(E.make_motion_video((3, 144, 256, 3))[0])
+    before, k5 = SEP_FILTER.launches, SEP_FILTER.routes["k5"]
+    reset_tier_stats()
+    got = E.forward_motion(x.to(cuda))
+    torch.cuda.synchronize()
+    assert tier_stats() == {"tier.sep_filter_u8.cuda": 1}
+    assert SEP_FILTER.launches == before + 1 and SEP_FILTER.routes["k5"] == k5 + 1
+    card = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in got.items()}
+    card["x"] = x
+    for name, stage, keys in E.MOTION_STAGES:
+        st = dict(card)
+        stage(st)
+        for k in keys:
+            _motion_same(k, card[k], st[k])
+    for k, w in E.forward_motion(x).items():
+        _motion_same(k, got[k], w)
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+def test_components_on_the_card_equal_cpu(cuda, conn):
+    rng = np.random.default_rng(conn)
+    masks = np.stack([(rng.random((47, 63)) > p).astype(np.uint8) * 255 for p in (0.3, 0.55, 0.8)])
+    masks[0, 10:40, 5:9] = masks[0, 10:40, 30:34] = masks[0, 36:40, 5:34] = 255
+    labels, counts = S.components_batch(torch.from_numpy(masks).to(cuda), conn)
+    want_l, want_c = S.components_batch(torch.from_numpy(masks), conn)
+    assert torch.equal(labels.cpu(), want_l) and torch.equal(counts.cpu(), want_c)
+    n = int(want_c.max()) + 1
+    for g, w in zip(S.component_stats(labels, n),
+                    S.component_stats(want_l, n)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("dist,mask", [("DIST_L2", 3), ("DIST_L1", 3), ("DIST_C", 5),
+                                       ("DIST_L2", 5), ("DIST_L2", 0)])
+def test_distance_transform_on_the_card_equals_cpu(cuda, dist, mask):
+    x = (_rand((2, 60, 90, 1), 21) > 12).to(torch.uint8) * 255
+    got = tcv.distanceTransform(x.to(cuda), getattr(tcv, dist), mask)
+    assert torch.equal(got.cpu(), tcv.distanceTransform(x, getattr(tcv, dist), mask))
+
+
+def test_distance_transform_with_labels_on_the_card_equals_cpu(cuda):
+    x = (_rand((40, 50), 22) > 12).to(torch.uint8) * 255
+    for lt in (tcv.DIST_LABEL_PIXEL, tcv.DIST_LABEL_CCOMP):
+        for g, w in zip(tcv.distanceTransformWithLabels(x.to(cuda), tcv.DIST_L2, 5, lt),
+                        tcv.distanceTransformWithLabels(x, tcv.DIST_L2, 5, lt)):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_spectra_and_moments_on_the_card(cuda):
+    """dft/idft (CCS, rows, f64), dct, mulSpectrums, phaseCorrelate and
+    moments on the card against the CPU: f32 spectra within 1e-5 of the
+    largest magnitude, f64 within 1e-12, shifts within 1e-6 px, moments
+    within rel 1e-12."""
+    rng = np.random.default_rng(5)
+    for shape, dtype in (((30, 42), np.float32), ((31, 43), np.float32), ((20, 17), np.float64)):
+        a = torch.from_numpy(rng.random(shape).astype(dtype))
+        tol = 1e-12 if dtype == np.float64 else 1e-5
+        for fn, flags in ((tcv.dft, 0), (tcv.dft, tcv.DFT_ROWS),
+                          (tcv.dft, tcv.DFT_COMPLEX_OUTPUT), (tcv.dct, 0), (tcv.dct, tcv.DCT_ROWS)):
+            g, w = fn(a.to(cuda), flags).cpu(), fn(a, flags)
+            assert g.dtype == w.dtype and float((g - w).abs().max()) <= tol * float(w.abs().max())
+        f = tcv.dft(a)
+        g = tcv.idft(f.to(cuda), tcv.DFT_SCALE).cpu()
+        assert float((g - tcv.idft(f, tcv.DFT_SCALE)).abs().max()) <= tol * float(a.abs().max())
+        g = tcv.mulSpectrums(f.to(cuda), f.to(cuda), 0, True).cpu()
+        w = tcv.mulSpectrums(f, f, 0, True)
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+    img = torch.from_numpy((rng.random((64, 96)) * 255).astype(np.uint8))
+    moved = torch.roll(img, (3, -5), (0, 1))
+    (gx, gy), gr = tcv.phaseCorrelate(img.to(cuda), moved.to(cuda))
+    (cx, cy), cr = tcv.phaseCorrelate(img, moved)
+    assert abs(gx - cx) < 1e-6 and abs(gy - cy) < 1e-6 and abs(gr - cr) < 1e-6
+    g, w = tcv.moments(img.to(cuda)), tcv.moments(img)
+    assert all(abs(g[k] - w[k]) <= 1e-12 * max(1.0, abs(w[k])) for k in w)
+
+
+def test_accumulate_transform_rng_on_the_card_bit_equal(cuda):
+    """The accumulate family, cv2.transform, convertMaps, blendLinear and
+    getRectSubPix on the card equal the CPU bit for bit; the RNG fills a
+    card tensor with the CPU's numbers for one seed."""
+    src = _rand((40, 50), 31)
+    dst = torch.from_numpy(np.random.default_rng(32).random((40, 50)).astype(np.float32) * 10)
+    mask = _rand((40, 50), 33) > 100
+    for fn, args in ((tcv.accumulate, (src, dst)), (tcv.accumulateSquare, (src, dst)),
+                     (tcv.accumulateProduct, (src, src, dst)),
+                     (tcv.accumulateWeighted, (src, dst, 0.05))):
+        for m in (None, mask):
+            g = fn(*[a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args],
+                   mask=None if m is None else m.to(cuda))
+            assert torch.equal(g.cpu(), fn(*args, mask=m))
+    img = _rand((30, 40, 3), 34)
+    M = np.random.default_rng(35).random((3, 4))
+    assert torch.equal(tcv.transform(img.to(cuda), M).cpu(), tcv.transform(img, M))
+    mx = torch.from_numpy(np.random.default_rng(36).random((30, 30)).astype(np.float32) * 28)
+    for g, w in zip(tcv.convertMaps(mx.to(cuda), mx.t().contiguous().to(cuda), None),
+                    tcv.convertMaps(mx, mx.t().contiguous(), None)):
+        assert torch.equal(g.cpu(), w)
+    w1 = torch.rand(30, 40)
+    assert torch.equal(tcv.blendLinear(img.to(cuda), img.flip(0).to(cuda), w1.to(cuda),
+                                       (1 - w1).to(cuda)).cpu(),
+                       tcv.blendLinear(img, img.flip(0), w1, 1 - w1))
+    assert torch.equal(tcv.getRectSubPix(img.to(cuda), (9, 7), (12.3, 4.6)).cpu(),
+                       tcv.getRectSubPix(img, (9, 7), (12.3, 4.6)))
+    tcv.setRNGSeed(3)
+    t = torch.zeros(5, 7, device=cuda)
+    tcv.randu(t, 0, 1)
+    tcv.setRNGSeed(3)
+    c = torch.zeros(5, 7)
+    tcv.randu(c, 0, 1)
+    assert torch.equal(t.cpu(), c)
