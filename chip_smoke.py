@@ -95,6 +95,24 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       labels and stats exact, the background exact in f32, distances within
       1e-5, moments within rel 1e-12), printing the count and size of any
       difference;
+   i. the lane-and-sign path: ``entry_lines("cuda")``'s forward (gray →
+      GaussianBlur 5x5 → Canny 50/150 → the Hough accumulator of every
+      frame and HoughLinesP → HoughCircles of the blurred frames → fitLine
+      of each half's segments → the line segment detector on frame 0 →
+      drawing all of it on a copy of the frames) on ``make_road_video()``'s
+      (8, 1080, 1920, 3) frames, which must launch sep_filter through the
+      registry once on route k5 and 6 times on route k3 (the Sobels of the
+      two Canny calls and of HoughCircles' gradient), and no other kernel;
+      every marking edge of the video must have a segment within 3 px and
+      2 degrees, and every circle a detection within 2 px (centre) and 3 px
+      (radius); then frames 0-2 on the card and on the CPU, each stage fed
+      the card's own input to it and then the whole chain, exact (LSD's
+      prefilter, a float stage, prints how many pixels differ and is held to
+      the warp bound; its segments then exact, or the same count within
+      LSD_ATOL px); and a sweep of the slice's other public functions on
+      small inputs, card against CPU (HoughLinesPointSet, the generalized
+      Hough of Ballard and Guil, findContoursLinkRuns, filter2Dp,
+      phaseCorrelateIterative, fitLine, and drawing on a card tensor);
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -117,7 +135,12 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    each with its host syncs; the motion path's propagation steps and
    fixpoint checks (connectedComponents, distanceTransform), and
    distanceTransform DIST_MASK_PRECISE on its mask batch with its peak
-   memory.  A kernel's share of its bound is bound_ms / ms.
+   memory; the lane-and-sign forward and its nine stages beside their bytes
+   bounds, with busy share, host syncs, peak memory, the two Hough
+   accumulations' own peaks, the line accumulation against the same number
+   of votes on distinct addresses (its atomic contention), LSD's host tail
+   and the drawing's device writes.  A kernel's share of its bound is
+   bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -170,6 +193,9 @@ MOTION_SHIFT_TOL = 0.25
 MOTION_SHIFT_ATOL = 1e-6
 MOTION_DIST_ATOL = 1e-5
 MOTION_MOMENTS_RTOL = 1e-12
+# (lines path) card vs CPU: LSD's segment end points where its prefilter
+# differs (exact where it does not)
+LSD_ATOL = 1e-4
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -387,6 +413,46 @@ def motion_compare(what, got, want) -> list[str]:
     return report
 
 
+def same_results(a, b) -> bool:
+    """Two per-frame result lists (arrays, None, nested lists or tuples of
+    them) equal exactly."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_results(x, y) for x, y in zip(a, b)))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def lines_compare(what, got, want) -> list[str]:
+    """Hold the lines path's outputs `got` (the card's, on the host) to `want`
+    (the CPU's), key by key, for the keys they share: everything exactly (the
+    images, sums, lines, segments, circles, lane fits, draw counts and vote
+    statistics), but LSD's segments, which may differ by LSD_ATOL px in
+    their end points (the same count) where its float prefilter differs.
+    Raise with the size of a difference; return one summary per key."""
+    report = []
+    for key in want:
+        g, w = got[key], want[key]
+        if isinstance(w, torch.Tensor):
+            ok = g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+        elif isinstance(w, dict) or isinstance(w, int):
+            ok = g == w
+        else:
+            ok = same_results(g, w)
+        if ok:
+            report.append(f"{key} exact")
+            continue
+        if key == "lsd" and g[0] is not None and w[0] is not None and len(g[0]) == len(w[0]):
+            d = float(np.abs(g[0] - w[0]).max())
+            if d <= LSD_ATOL:
+                report.append(f"lsd {len(w[0])} segments, ends within {d:.3g} px")
+                continue
+        raise AssertionError(f"lines {what} {key}: card and CPU differ")
+    return report
+
+
 def host_state(st) -> dict:
     """The motion path's state dict with its tensors on the host."""
     return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in st.items()}
@@ -437,7 +503,11 @@ def sep_cases(K, gauss_taps, orb_sizes):
              ("main canny dx i16 REPLICATE", main,
               dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16", border=K.BORDER_REPLICATE)),
              ("main canny dy i16 REPLICATE", main,
-              dict(kx=(1, 2, 1), ky=(-1, 0, 1), out_dtype="int16", border=K.BORDER_REPLICATE))]
+              dict(kx=(1, 2, 1), ky=(-1, 0, 1), out_dtype="int16", border=K.BORDER_REPLICATE)),
+             # the lines path: HoughCircles' Sobel(blur, CV_16S, 0, 1)
+             ("main sobel dy i16 REFLECT_101", main,
+              dict(kx=(1, 2, 1), ky=(-1, 0, 1), out_dtype="int16",
+                   border=K.BORDER_REFLECT_101))]
     for bname, border in borders.items():
         for C in (1, 3, 4):
             for k, sigma in ((3, 0.8), (9, 2.0), (31, 5.0)):
@@ -1025,6 +1095,138 @@ def main() -> int:
     log(f"motion path, frames 0-2: each stage on the card's own input vs the CPU: "
         f"{'; '.join(stage_report8)}; the whole chain vs the CPU: {'; '.join(chain_report8)}")
 
+    # -- 4i. the lane-and-sign path: gray -> GaussianBlur (sep_filter k5) ->
+    # Canny (k3) -> Hough lines -> HoughLinesP -> HoughCircles (k3) -> fitLine
+    # -> LSD on frame 0 -> drawing
+    from opencv_tpu_torch.ops import hough as hough_mod
+    forward9, (x9,) = E.entry_lines("cuda")
+    _, truth9 = E.make_road_video()
+    reset_tier_stats()
+    outs9, cfg9 = run_counted(lambda: forward9(x9))
+    tiers9 = tier_stats()
+    log(f"lines path launches: {cfg9}; dispatch {tiers9}")
+    if (cfg9["opencv_sep_filter"] != 7 or cfg9["sep_filter routes"] != {
+            "k3": 6, "k5": 1, "k7": 0, "generic": 0}
+            or cfg9["opencv_pyr_down"] or cfg9["opencv_gauss5_down2"]
+            or tiers9 != {"tier.sep_filter_u8.cuda": 1, "tier.sep_filter_int.cuda": 6}):
+        raise AssertionError(f"lines path: sep_filter must launch through the registry once on "
+                             f"route k5 and 6 times on route k3, and no other kernel; got "
+                             f"{cfg9}, {tiers9}")
+    N9, H9, W9, _ = E.SHAPE_LINES
+    for key, shape, dtype in (("gray", (N9, H9, W9, 1), torch.uint8),
+                              ("blur", (N9, H9, W9, 1), torch.uint8),
+                              ("edges", (N9, H9, W9, 1), torch.uint8),
+                              ("drawn", (N9, H9, W9, 3), torch.uint8),
+                              ("sums", (N9, len(E.LINES_SUMS)), torch.int64)):
+        got = outs9[key]
+        if tuple(got.shape) != shape or got.dtype != dtype or got.device.type != "cuda":
+            raise AssertionError(f"lines {key}: {tuple(got.shape)} {got.dtype} {got.device}, "
+                                 f"expected {shape} {dtype} on the card")
+    misses9 = E.road_truth_misses(outs9["segments"], outs9["circles"], truth9)
+    if misses9:
+        raise AssertionError(f"lines path: not found in the road video: {misses9}")
+    n_seg9 = [0 if s_ is None else len(s_) for s_ in outs9["segments"]]
+    n_circ9 = [0 if c_ is None else c_.shape[1] for c_ in outs9["circles"]]
+    log(f"lines path: all {4 * 2 * N9} marking edges and {truth9['circles'][:, :, 0].size} "
+        f"circles of the video found; segments per frame {n_seg9}, circles {n_circ9}, "
+        f"{0 if outs9['lsd'][0] is None else len(outs9['lsd'][0])} LSD segments in frame 0, "
+        f"{outs9['draw_writes']} device writes of the drawing; Hough lines "
+        f"{outs9['hough_stats']}, circles {outs9['circle_stats']}")
+    # frames 0-2 on the card and the CPU: each stage on the card's own input
+    # to it, then the whole chain
+    got9 = host_state(E.forward_lines(x9[:3]))
+    got9["x"] = x9[:3].cpu()
+    stage_report9 = []
+    for name, stage, keys in E.LINES_STAGES:
+        st = dict(got9)
+        stage(st)
+        stage_report9 += lines_compare(f"stage {name}", got9, {k: st[k] for k in keys})
+    chain_report9 = lines_compare("chain", got9, E.forward_lines(got9["x"]))
+    lsd9 = cv.createLineSegmentDetector()
+    pre_g = lsd9.scaled(outs9["gray"][0, ..., 0])
+    pre_c = lsd9.scaled(outs9["gray"][0, ..., 0].cpu())
+    d_pre = np.abs(pre_g.astype(np.float64) - pre_c)
+    n_pre = int(np.count_nonzero(d_pre))
+    if d_pre.max() > WARP_ATOL or n_pre > WARP_MAX_FRACTION * d_pre.size:
+        raise AssertionError(f"LSD prefilter on the card vs CPU: {n_pre} of {d_pre.size} "
+                             f"differ, max |d| {d_pre.max()}")
+    log(f"lines path, frames 0-2: each stage on the card's own input vs the CPU: "
+        f"{'; '.join(stage_report9)}; the whole chain vs the CPU: {'; '.join(chain_report9)}; "
+        f"LSD's prefilter {n_pre} of {d_pre.size} pixels differ (max |d| {d_pre.max():.3g})")
+
+    # the slice's other public functions, card against CPU, on small inputs
+    rng9 = np.random.default_rng(9)
+    sweep = []
+
+    def same(name, g, c):
+        if not same_results(g, c):
+            raise AssertionError(f"{name} on the card != CPU")
+        sweep.append(name)
+
+    pts9 = np.concatenate([np.stack([np.arange(60), 2 * np.arange(60) + 3], 1),
+                           rng9.uniform(0, 120, (40, 2))]).astype(np.float32)
+    args9 = (20, 5, -50, 250, 1.0, 0.0, np.pi, np.pi / 180)
+    same("HoughLinesPointSet", cv.HoughLinesPointSet(torch.from_numpy(pts9).to(dev), *args9),
+         cv.HoughLinesPointSet(pts9, *args9))
+    templ9 = np.zeros((40, 40), np.uint8)
+    templ9[10:31, 10:12] = templ9[10:31, 29:31] = templ9[10:12, 10:31] = 255
+    templ9[29:31, 10:31] = 255
+    scene9 = np.zeros((120, 140), np.uint8)
+    scene9[45:47, 40:61] = scene9[64:66, 40:61] = scene9[45:66, 40:42] = 255
+    scene9[45:66, 59:61] = 255
+    for name, make in (("GeneralizedHoughBallard", cv.createGeneralizedHoughBallard),
+                       ("GeneralizedHoughGuil", cv.createGeneralizedHoughGuil)):
+        res = []
+        for d in (dev, "cpu"):
+            g = make()
+            g.setMinDist(10)
+            g.setVotesThreshold(20)
+            if name.endswith("Guil"):
+                g.setMinAngle(0)
+                g.setMaxAngle(30)
+                g.setAngleStep(10)
+                g.setMinScale(0.8)
+                g.setMaxScale(1.2)
+                g.setScaleStep(0.1)
+                g.setPosThresh(20)
+            g.setTemplate(torch.from_numpy(templ9).to(d))
+            res.append(g.detect(torch.from_numpy(scene9).to(d)))
+        if res[0][0] is None:
+            raise AssertionError(f"{name}: nothing found on the card")
+        same(name, res[0], res[1])
+    mask9 = ((rng9.random((64, 80)) < 0.45) * 255).astype(np.uint8)
+    same("findContoursLinkRuns", cv.findContoursLinkRuns(torch.from_numpy(mask9).to(dev)),
+         cv.findContoursLinkRuns(mask9))
+    f9 = rng9.random((48, 64)).astype(np.float32)
+    k9 = rng9.random((3, 3)).astype(np.float32)
+    u9 = rng9.integers(0, 256, (48, 64), np.uint8)
+    for name, src in (("filter2Dp f32", f9), ("filter2Dp u8", u9)):
+        same(name, cv.filter2Dp(torch.from_numpy(src).to(dev), k9, scale=0.5, shift=1.25)
+             .cpu().numpy(), cv.filter2Dp(src, k9, scale=0.5, shift=1.25).numpy())
+    p9 = rng9.random((64, 80)).astype(np.float32)
+    q9 = np.roll(p9, (3, -5), (0, 1))
+    pc_g = cv.phaseCorrelateIterative(torch.from_numpy(p9).to(dev), torch.from_numpy(q9).to(dev))
+    pc_c = cv.phaseCorrelateIterative(p9, q9)
+    if max(abs(a - b) for a, b in zip(pc_g, pc_c)) > MOTION_SHIFT_ATOL:
+        raise AssertionError(f"phaseCorrelateIterative: card {pc_g}, CPU {pc_c}")
+    sweep.append("phaseCorrelateIterative")
+    lp9 = (np.arange(50)[:, None] * [1.0, 0.5] + rng9.normal(0, 1, (50, 2))).astype(np.float32)
+    same("fitLine", cv.fitLine(torch.from_numpy(lp9).to(dev), cv.DIST_HUBER, 0, 0.01, 0.01),
+         cv.fitLine(lp9, cv.DIST_HUBER, 0, 0.01, 0.01))
+    base9 = rng9.integers(0, 256, (60, 80, 3), np.uint8)
+    for name, fn in (
+            ("line LINE_AA", lambda im: cv.line(im, (3, 5.5), (70.2, 50), (255, 0, 40), 2,
+                                                cv.LINE_AA)),
+            ("circle filled", lambda im: cv.circle(im, (40, 30), 17, (9, 8, 7), -1)),
+            ("ellipse", lambda im: cv.ellipse(im, (40, 30), (20, 10), 30, 0, 270, (1, 2, 3), 2)),
+            ("putText", lambda im: cv.putText(im, "Ab 12!", (3, 40), cv.FONT_HERSHEY_SIMPLEX,
+                                              0.8, (255, 255, 255), 2)),
+            ("drawContours", lambda im: cv.drawContours(
+                im, [np.array([[[5, 5]], [[40, 8]], [[30, 35]]])], -1, (0, 0, 255), -1))):
+        g = fn(torch.from_numpy(base9.copy()).to(dev))
+        same(name, g.cpu().numpy(), fn(base9.copy()))
+    log(f"lines slice sweep, card equal to the CPU: {', '.join(sweep)}")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -1363,6 +1565,74 @@ def main() -> int:
         f"{full_nhww / 1e9:.1f} GB); max distance {float(precise.max()):.3f}  [{card}]")
     del precise, mask8
 
+    # the lane-and-sign path, as the caller sees it (host reads and host
+    # tails included); bytes: each stage's inputs read once and outputs
+    # written once (n = N*H*W; the accumulators are the stages' own work)
+    n9 = N9 * H9 * W9
+    stage_bytes9 = {"gray": 4 * n9, "blur": 2 * n9, "edges": 2 * n9, "segments": n9,
+                    "circles": n9, "lanes": 0, "lsd": H9 * W9, "draw": 6 * n9, "sums": 6 * n9}
+    fwd_bytes9 = sum(stage_bytes9.values())
+    state9 = {"x": x9}
+    for _, stage, _ in E.LINES_STAGES:
+        stage(state9)
+    t9 = timer(lambda: E.forward_lines(x9), iters=5, warmup=1)
+    log(f"time forward_lines {tuple(x9.shape)}: {t9:.4f} ms, bytes bound "
+        f"{bound(fwd_bytes9, 0)[0]:.4f} ms ({fwd_bytes9 / 1e6:.1f} MB), share of bound "
+        f"{bound(fwd_bytes9, 0)[0] / t9:.4f}  [{card}]")
+    for name, stage, keys in E.LINES_STAGES:
+        t = timer(lambda: stage(dict(state9)), iters=5, warmup=1)
+        b_ms = bound(stage_bytes9[name], 0)[0]
+        log(f"time lines {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({stage_bytes9[name] / 1e6:.1f} MB), share of bound "
+            f"{b_ms / t if b_ms else 0.0:.4f}  [{card}]")
+    # the line accumulation as the path runs it (its nonzero read included),
+    # then its scatter alone against the same number of votes on distinct
+    # addresses: the atomic contention of the votes that meet on a bin
+    e9 = state9["edges"][..., 0] != 0
+    acc_stats = {}
+    votes9 = list(hough_mod.line_vote_chunks(e9, 1, np.pi / 180, 0, np.pi, acc_stats))
+    t_acc = timer(lambda: hough_mod.hough_accum_batch(e9, 1, np.pi / 180, 0, np.pi))
+    n_votes = acc_stats["edge_pixels"] * 180
+    acc_size = N9 * 180 * ((W9 + H9) * 2 + 1)
+    acc9 = torch.zeros(acc_size + 4096, dtype=torch.int32, device=dev)
+    spread = torch.arange(n_votes, device=dev) * 7919 % acc_size
+    inside = torch.ones(n_votes, dtype=torch.bool, device=dev)
+    t_scatter = timer(lambda: [hough_mod._vote(acc9, acc_size, f, o) for f, o in votes9],
+                      device_only=True)
+    t_spread = timer(lambda: hough_mod._vote(acc9, acc_size, spread, inside), device_only=True)
+    log(f"lines Hough accumulation ({N9} frames, {acc_stats['edge_pixels']} edge pixels, "
+        f"{n_votes} votes in {len(votes9)} chunk(s)): {t_acc:.4f} ms with its nonzero read; "
+        f"its scatter alone {t_scatter:.4f} ms, the same number of votes on distinct "
+        f"addresses {t_spread:.4f} ms  [{card}]")
+    del spread, inside, acc9, votes9
+    n_sync9 = count_syncs(lambda: E.forward_lines(x9))
+    busy9, k_ms9, f_ms9 = busy_share(lambda: E.forward_lines(x9), iters=2)
+    img_s9 = lsd9.scaled(state9["gray"][0, ..., 0])
+    t_lsd = host_median(lambda: lsd9.segments(img_s9), iters=3, warmup=1)
+    draw_writes9 = state9["draw_writes"]
+    del outs9, state9, got9
+    peaks9 = {}
+    for name, fn in (("forward", lambda: E.forward_lines(x9)),
+                     ("line accumulation", lambda: hough_mod.hough_lines_batch(
+                         e9, 1, np.pi / 180, 120)),
+                     ("circle accumulation", lambda: hough_mod.hough_circles_batch(
+                         cv.GaussianBlur(cv.cvtColor(x9, cv.COLOR_BGR2GRAY), (5, 5), 0),
+                         **E.LINES_CIRCLES))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base9 = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peaks9[name] = (torch.cuda.max_memory_allocated() - base9) / 2 ** 30
+    log(f"lines forward: device busy share {busy9:.4f} (kernels {k_ms9:.4f} ms of "
+        f"{f_ms9:.4f} ms, torch.profiler); {n_sync9} host syncs per batch; peak device memory "
+        f"over the inputs: forward {peaks9['forward']:.3f} GiB, line accumulation "
+        f"{peaks9['line accumulation']:.3f} GiB, circle accumulation (with its gray and "
+        f"blur) {peaks9['circle accumulation']:.3f} GiB; LSD's host tail on frame 0 "
+        f"{t_lsd:.4f} ms on the host clock; the drawing's device writes {draw_writes9}  "
+        f"[{card}]")
+    del e9
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -1371,14 +1641,14 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4h); the
+    # launches: the kernel's count over the main paths (4a to 4i); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
                              "sep_filter generic k9 level 2"),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"), "pyr_down": ("pyr_down",)}
-    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8)
+    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

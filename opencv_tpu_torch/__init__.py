@@ -26,7 +26,10 @@ normalize, reductions, the polar and math functions and the utility
 surface) and applyColorMap, and the motion path: linalg, the DFT/DCT and
 accumulate family, the rest of misc (phaseCorrelate, getRectSubPix,
 convertMaps, blendLinear, matchShapes), moments, connectedComponents,
-distanceTransform and the contour geometry.
+distanceTransform and the contour geometry, and the lane-and-sign path:
+the Hough transforms (lines, circles, point sets, the generalized Hough),
+fitLine, the line segment detector, drawing and putText, and the small
+geometry of ``geometry_extra``.
 """
 
 from .constants import *  # noqa: F401,F403
@@ -128,6 +131,28 @@ from .ops.linalg import (  # noqa: F401,E402
     Mahalanobis, mulTransposed, transform, invert, determinant, trace,
     setRNGSeed, theRNG, randu, randn, randShuffle, RNG,
     SVD_MODIFY_A, SVD_NO_UV, SVD_FULL_UV,
+)
+
+from .ops.drawing import (  # noqa: F401,E402
+    line, rectangle, circle, ellipse, ellipse2Poly, polylines, fillPoly,
+    fillConvexPoly, drawContours, drawMarker, arrowedLine,
+    drawKeypoints, drawMatches, drawMatchesKnn,
+    putText, getTextSize, getFontScaleFromHeight,
+)
+from .ops.hough import (  # noqa: F401,E402
+    HoughLines, HoughLinesP, HoughCircles, HoughLinesPointSet,
+    HoughLinesWithAccumulator, HoughCirclesWithAccumulator,
+    GeneralizedHoughBallard, createGeneralizedHoughBallard,
+    GeneralizedHoughGuil, createGeneralizedHoughGuil,
+)
+from .ops.linefit import fitLine  # noqa: F401,E402
+from .ops.lsd import (  # noqa: F401,E402
+    createLineSegmentDetector, LineSegmentDetector,
+    LSD_REFINE_NONE, LSD_REFINE_STD, LSD_REFINE_ADV,
+)
+from .ops.geometry_extra import (  # noqa: F401,E402
+    rectangleIntersectionArea, getClosestEllipsePoints,
+    phaseCorrelateIterative, filter2Dp, findContoursLinkRuns,
 )
 
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel

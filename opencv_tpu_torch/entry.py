@@ -60,6 +60,16 @@ distanceTransform (L2, 3×3) and binary moments of every frame →
 findContours (external, simple) of the last frame, with each contour's
 area and bounding rect (:data:`MOTION_STAGES`).  ``entry_motion`` gives it
 ``make_motion_video()``'s (8, 1080, 1920, 3) u8 frames.
+
+``forward_lines`` finds lane markings and round signs in road video and
+burns them into the frames, as dashcam, ADAS and road-survey pipelines do:
+gray → GaussianBlur 5×5 (``sep_filter`` k5) → Canny 50/150 → the Hough
+accumulator of every frame and HoughLinesP → HoughCircles (HOUGH_GRADIENT)
+of the blurred frames → fitLine (DIST_HUBER) of each half's segments →
+the line segment detector on frame 0 → drawing the segments, lane fits,
+circles, frame 0's LSD segments and a caption on a copy of the frames
+(:data:`LINES_STAGES`).  ``entry_lines`` gives it ``make_road_video()``'s
+(8, 1080, 1920, 3) u8 frames.
 """
 
 from __future__ import annotations
@@ -94,16 +104,22 @@ from .ops.misc import createHanningWindow, phase_correlate_batch
 from .ops.shape import component_stats, components_batch, distanceTransform, moments_dict, \
     raw_moments
 from .ops.transform import accumulateWeighted
+from .ops.drawing import _Canvas, _circle, _line, _put_text
+from .ops.hough import hough_circles_batch, hough_lines_batch, hough_lines_p_batch
+from .ops.linefit import fitLine
+from .ops.lsd import _segment_ends, createLineSegmentDetector
 
 __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
-           "SHAPE_MOTION", "PERSPECTIVE_CFG2", "DECODE_COLOR_OUTPUTS", "ENHANCE_STAGES",
-           "ENHANCE_OUTPUTS", "GAMMA_LUT", "MOTION_STAGES", "MOTION_SUMS", "entry",
+           "SHAPE_MOTION", "SHAPE_LINES", "PERSPECTIVE_CFG2", "DECODE_COLOR_OUTPUTS",
+           "ENHANCE_STAGES", "ENHANCE_OUTPUTS", "GAMMA_LUT", "MOTION_STAGES", "MOTION_SUMS",
+           "LINES_STAGES", "LINES_SUMS", "LINES_HOUGH", "LINES_CIRCLES", "entry",
            "entry_resize_warp_4k", "entry_pyr_corner_edge", "entry_match_morph", "entry_orb",
-           "entry_decode_color", "entry_enhance", "entry_motion", "make_batch", "make_nv12",
-           "make_motion_video", "preprocess", "preprocess_fused", "warp", "forward",
+           "entry_decode_color", "entry_enhance", "entry_motion", "entry_lines", "make_batch",
+           "make_nv12", "make_motion_video", "make_road_video", "road_truth_misses",
+           "lane_ends", "caption", "preprocess", "preprocess_fused", "warp", "forward",
            "forward_fused", "forward_resize_warp_4k", "forward_pyr_corner_edge",
            "forward_match_morph", "forward_orb", "forward_decode_color", "forward_enhance",
-           "forward_motion"]
+           "forward_motion", "forward_lines"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -550,3 +566,290 @@ def entry_motion(device="cuda", shape=SHAPE_MOTION):
     `device`."""
     video, _, _ = make_motion_video(shape)
     return forward_motion, (torch.from_numpy(video).to(device),)
+
+
+# ------------------------------------------------------------- lines path
+
+SHAPE_LINES = (8, 1080, 1920, 3)
+# HoughLinesP's and HoughCircles' parameters on the path
+LINES_HOUGH = dict(rho=1, theta=np.pi / 180, threshold=120, minLineLength=80, maxLineGap=10)
+LINES_CIRCLES = dict(dp=1, minDist=100, param1=100, param2=40, minRadius=20, maxRadius=90)
+ROAD_MAX_SHIFT = 6          # the camera's shake, px per axis against frame 0
+# the colours the path draws with (BGR)
+SEGMENT_BGR, LANE_BGR, CIRCLE_BGR, LSD_BGR, TEXT_BGR = ((0, 0, 255), (0, 255, 0), (255, 0, 0),
+                                                        (0, 255, 255), (255, 255, 255))
+
+
+def make_road_video(shape=SHAPE_LINES, seed: int = 0):
+    """Road video from one ``default_rng(seed)``: ``(frames, truth)``.
+
+    - the road: uniform noise smoothed by a 31×31 box mean, stretched to
+      70–110 grey, on a canvas 2 × :data:`ROAD_MAX_SHIFT` px larger than a
+      frame;
+    - 4 lane markings, 12–20 px wide at 1080p (scaled with the frame, at
+      least 3 px), bright white or yellow, converging to a vanishing point
+      on the horizon (35% of the height, its x within 5% of the centre) at
+      48–56° and 14–22° either side of the vertical (a whole degree ±0.15°)
+      and ending 12% of the height below it; one of them is dashed (dashes
+      of max(96, H/7) rows, gaps of max(16, H/12));
+    - 3–5 bright rings (3–4 px thick) and discs (radius 40 and up) above
+      the horizon, one per column of the frame (as many columns of 105 px
+      as fit, at most the 3–5 drawn), of radius 25 to min(80, (horizon −
+      8) / 2) px, their centres ≥ 100 px apart (HoughCircles' minDist);
+    - the markings and circles are drawn with their pixels' coverage
+      (anti-aliased), as a camera sees them;
+    - frame i is the canvas moved by an integer (dx, dy) in [-6, 6] (frame
+      0 by (0, 0)), plus sensor noise uniform in ±2 per channel.
+
+    ``truth`` is a dict of, per frame, ``"edges"``: (N, 4, 2, 2, 2) f64, the
+    two edges of each marking as (x, y) end points (the far end first), and
+    ``"circles"``: (N, k, 3) f64 (x, y, radius: a disc's, or the middle of a
+    ring); and ``"dashed"``, the dashed marking's index."""
+    N, H, W, C = shape
+    rng = np.random.default_rng(seed)
+    m = ROAD_MAX_SHIFT
+    scale = min(H / 1080, W / 1920)
+    road = _box_mean(rng.random((H + 2 * m + 30, W + 2 * m + 30)), 31)
+    road = 70.0 + 40.0 * (road - road.min()) / (road.max() - road.min())
+    canvas = np.repeat(road[..., None], 3, axis=2)
+
+    def paint(cover, colour):
+        cover = cover[..., None]
+        canvas[:] = canvas * (1 - cover) + np.asarray(colour, np.float64) * cover
+
+    horizon = int(0.35 * H)
+    far = horizon + int(0.12 * H)
+    vx = W / 2 + rng.uniform(-0.05, 0.05) * W
+    # each marking's angle from the vertical: a whole degree in its range,
+    # within 0.15 of it, so that each edge's votes gather in one or two
+    # (theta, rho) bins
+    lo = np.array([-56, -22, 14, 48])
+    phi = lo + rng.integers(0, 9, 4) + rng.uniform(-0.15, 0.15, 4)
+    bottoms = vx + np.tan(np.radians(phi)) * (H - 1 - horizon)
+    widths = np.maximum(3, np.rint(rng.integers(12, 21, 4) * scale))
+    dashed = int(rng.integers(0, 4))
+    on, off = max(96, H // 7), max(16, H // 12)
+    ys, xs = np.mgrid[0:H + 2 * m, 0:W + 2 * m] - m     # frame 0's coordinates
+    edges = np.empty((4, 2, 2, 2))
+    for k, (xb, w) in enumerate(zip(bottoms, widths)):
+        c = vx + (xb - vx) * (ys - horizon) / (H - 1 - horizon)
+        cover = np.clip(w / 2 + 0.5 - np.abs(xs - c), 0, 1) * (ys >= far)
+        if k == dashed:
+            cover *= (ys - far) % (on + off) < on
+        paint(cover, (240, 240, 240) if rng.random() < 0.5 else (60, 220, 240))
+        for e, sgn in enumerate((-1, 1)):
+            for j, y in enumerate((far, H - 1)):
+                edges[k, e, j] = (vx + (xb - vx) * (y - horizon) / (H - 1 - horizon)
+                                  + sgn * w / 2, y)
+    # one circle per column of the frame, 3-5 columns as the width allows
+    r_hi = min(80, (horizon - 8) // 2)
+    k = min(int(rng.integers(3, 6)), W // 105)
+    if k < 3 or r_hi < 25:
+        raise ValueError(f"a {H}x{W} frame has no room for 3 circles")
+    cw = W / k
+    circles = []
+    for j in range(k):
+        r = int(rng.integers(25, r_hi + 1))
+        jit = max(0.0, (cw - max(100, 2 * r_hi + 20)) / 2)
+        cx = int(round((j + 0.5) * cw + rng.uniform(-jit, jit)))
+        cy = int(rng.integers(r + 4, horizon - r - 3))
+        d = np.hypot(xs - cx, ys - cy)
+        cover = np.clip(r + 0.5 - d, 0, 1)
+        t = 0 if r >= 40 and rng.random() < 0.5 else int(rng.integers(3, 5))
+        if t:
+            cover *= np.clip(d - (r - t) + 0.5, 0, 1)
+        paint(cover, ((240, 240, 240), (60, 220, 240), (250, 200, 150))[rng.integers(0, 3)])
+        circles.append((cx, cy, r - t / 2))
+    canvas = np.rint(canvas)
+    shifts = rng.integers(-m, m + 1, (N, 2))
+    shifts[0] = 0
+    frames = np.empty((N, H, W, C), np.uint8)
+    for i, (dx, dy) in enumerate(shifts):
+        frames[i] = canvas[m - dy:m - dy + H, m - dx:m - dx + W]
+    noise = rng.integers(-2, 3, (N, H, W, C), dtype=np.int8)
+    frames = np.clip(frames.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+    sh = shifts[:, None, None, None, :].astype(np.float64)
+    cs = np.asarray(circles, np.float64)
+    truth = {"edges": edges[None] + sh,
+             "circles": np.stack([cs + [dx, dy, 0] for dx, dy in shifts]),
+             "dashed": dashed}
+    return frames, truth
+
+
+def road_truth_misses(segments, circles, truth, pos_tol: float = 3.0, ang_tol: float = 2.0,
+                      centre_tol: float = 2.0, radius_tol: float = 3.0) -> list:
+    """What of the road video's truth the path did not find, per frame: a
+    marking edge with no segment within `ang_tol` degrees of it whose two
+    ends lie within `pos_tol` px of its line, or a circle with no detection
+    whose centre lies within `centre_tol` px on each axis and radius within
+    `radius_tol` px.  An edge shorter than 1.25 times the Hough threshold
+    is left out: it cannot gather the threshold's votes (one per pixel of
+    its length), which happens in frames of a few hundred rows, never at
+    1080p (a marking spans 53% of the height).  An empty list when all were
+    found."""
+    misses = []
+    min_len = 1.25 * LINES_HOUGH["threshold"]
+    for i, segs in enumerate(segments):
+        s = np.zeros((0, 4)) if segs is None else segs.reshape(-1, 4).astype(np.float64)
+        for k, marking in enumerate(truth["edges"][i]):
+            for e, ((x0, y0), (x1, y1)) in enumerate(marking):
+                if np.hypot(x1 - x0, y1 - y0) < min_len:
+                    continue
+                d = np.array([x1 - x0, y1 - y0]) / np.hypot(x1 - x0, y1 - y0)
+                dist = [np.abs((s[:, 2 * j] - x0) * d[1] - (s[:, 2 * j + 1] - y0) * d[0])
+                        for j in (0, 1)]
+                ang = np.degrees(np.arctan2(s[:, 3] - s[:, 1], s[:, 2] - s[:, 0]))
+                da = np.abs((ang - np.degrees(np.arctan2(d[1], d[0])) + 90) % 180 - 90)
+                if not ((dist[0] <= pos_tol) & (dist[1] <= pos_tol) & (da <= ang_tol)).any():
+                    misses.append(("edge", i, k, e))
+        c = np.zeros((0, 3)) if circles[i] is None else circles[i].reshape(-1, 3)
+        for x, y, r in truth["circles"][i]:
+            if not ((np.abs(c[:, 0] - x) <= centre_tol) & (np.abs(c[:, 1] - y) <= centre_tol)
+                    & (np.abs(c[:, 2] - r) <= radius_tol)).any():
+                misses.append(("circle", i, x, y, r))
+    return misses
+
+
+def _l_gray(st):
+    st["gray"] = cvtColor(st["x"], K.COLOR_BGR2GRAY)
+
+
+def _l_blur(st):
+    st["blur"] = GaussianBlur(st["gray"], (5, 5), 0)
+
+
+def _l_edges(st):
+    st["edges"] = Canny(st["blur"], 50, 150)
+
+
+def _l_segments(st):
+    """The Hough lines of every frame's edges from one accumulator, then
+    HoughLinesP's segments from them."""
+    hp = LINES_HOUGH
+    e = st["edges"][..., 0] != 0
+    stats = {}
+    lines = hough_lines_batch(e, hp["rho"], hp["theta"], hp["threshold"], stats=stats)
+    st.update(lines=lines, hough_stats=stats, segments=hough_lines_p_batch(
+        e, lines, hp["minLineLength"], hp["maxLineGap"]))
+
+
+def _l_circles(st):
+    stats = {}
+    st["circles"] = hough_circles_batch(st["blur"], stats=stats, **LINES_CIRCLES)
+    st["circle_stats"] = stats
+
+
+def _l_lanes(st):
+    """fitLine (DIST_HUBER) of the end points of each half's segments, left
+    then right, per frame (None where a half has none)."""
+    W = st["x"].shape[2]
+    lanes = []
+    for segs in st["segments"]:
+        s = np.zeros((0, 4), np.int32) if segs is None else segs.reshape(-1, 4)
+        mid = (s[:, 0] + s[:, 2]) / 2
+        lanes.append([fitLine(half.reshape(-1, 2).astype(np.float32), K.DIST_HUBER, 0, 0.01,
+                              0.01) if len(half) else None
+                      for half in (s[mid < W / 2], s[mid >= W / 2])])
+    st["lanes"] = lanes
+
+
+def _l_lsd(st):
+    st["lsd"] = createLineSegmentDetector().detect(st["gray"][0, ..., 0])
+
+
+def lane_ends(fit, H: int):
+    """The end points of a lane fit's line at the frame's bottom row and at
+    45% of its height, or None for a line within 1e-3 of level."""
+    vx, vy, x0, y0 = (float(v) for v in fit.reshape(-1))
+    if abs(vy) < 1e-3:
+        return None
+    return [(x0 + (y - y0) * vx / vy, float(y)) for y in (H - 1, int(0.45 * H))]
+
+
+def caption(n_segments: int, n_circles: int, H: int):
+    """putText's text, origin and scale for one frame's counts."""
+    s = max(0.4, 1.2 * H / 1080)
+    return f"lines {n_segments} circles {n_circles}", (10, int(40 * s)), s
+
+
+def _l_draw(st):
+    """Everything found, burnt into a copy of the frames on their device:
+    each segment red (3 px), each lane fit green (2 px, LINE_AA), each circle
+    blue (2 px), frame 0's LSD segments yellow (1 px) and a caption."""
+    x = st["x"]
+    H = x.shape[1]
+    cv = _Canvas(x.clone(), batch=True)
+    for i in range(x.shape[0]):
+        cv.frame = i
+        segs = st["segments"][i]
+        segs = np.zeros((0, 4), np.int32) if segs is None else segs.reshape(-1, 4)
+        for x1, y1, x2, y2 in segs:
+            _line(cv, (x1, y1), (x2, y2), SEGMENT_BGR, 3)
+        for fit in st["lanes"][i]:
+            ends = None if fit is None else lane_ends(fit, H)
+            if ends is not None:
+                _line(cv, *ends, LANE_BGR, 2, K.LINE_AA)
+        circ = st["circles"][i]
+        circ = np.zeros((0, 3)) if circ is None else circ.reshape(-1, 3)
+        for cx, cy, r in circ:
+            _circle(cv, (int(cx), int(cy)), int(round(float(r))), CIRCLE_BGR, 2)
+        if i == 0:
+            for ends in _segment_ends(st["lsd"][0]):
+                _line(cv, *ends, LSD_BGR, 1)
+        text, org, s = caption(len(segs), len(circ), H)
+        _put_text(cv, text, org, K.FONT_HERSHEY_SIMPLEX, s, TEXT_BGR, 2)
+    st["drawn"] = cv.done()
+    st["draw_writes"] = cv.writes
+
+
+# the per-frame sums of forward_lines' "sums" table, in its column order
+LINES_SUMS = ("gray", "blur", "edges", "drawn")
+
+
+def _l_sums(st):
+    st["sums"] = torch.stack([st[k].reshape(st[k].shape[0], -1).sum(dim=1, dtype=torch.int64)
+                              for k in LINES_SUMS], dim=1)
+
+
+# forward_lines' stages in order: (name, fn of the state dict, the keys it
+# writes); each reads only keys written before it
+LINES_STAGES = (
+    ("gray", _l_gray, ("gray",)),
+    ("blur", _l_blur, ("blur",)),
+    ("edges", _l_edges, ("edges",)),
+    ("segments", _l_segments, ("lines", "hough_stats", "segments")),
+    ("circles", _l_circles, ("circles", "circle_stats")),
+    ("lanes", _l_lanes, ("lanes",)),
+    ("lsd", _l_lsd, ("lsd",)),
+    ("draw", _l_draw, ("drawn", "draw_writes")),
+    ("sums", _l_sums, ("sums",)),
+)
+
+
+def forward_lines(x):
+    """Lanes and round signs in an (N, H, W, 3) u8 BGR road video
+    (:data:`LINES_STAGES`).
+
+    Returns a dict: ``gray`` and ``blur`` (N, H, W, 1) u8; ``edges`` (N, H,
+    W, 1) u8 (0 or 255); per frame, ``lines`` (HoughLines' (k, 1, 2) f32
+    or None), ``segments`` (HoughLinesP's (k, 1, 4) int32 or None),
+    ``circles`` (HoughCircles' (1, k, 3) f32 or None) and ``lanes`` (the
+    left and the right half's fitLine (4, 1) f32, or None); ``lsd``, the
+    line segment detector's (lines, widths, precs, nfa) of frame 0;
+    ``drawn``, the (N, H, W, 3) u8 frames with all of it drawn in;
+    ``draw_writes``, the device writes the drawing made; ``sums``, the
+    (N, 4) int64 per-frame sums of :data:`LINES_SUMS`; and ``hough_stats`` /
+    ``circle_stats``, the edge pixels and vote chunks of the two
+    accumulators."""
+    st = {"x": x}
+    for _, stage, _ in LINES_STAGES:
+        stage(st)
+    del st["x"]
+    return st
+
+
+def entry_lines(device="cuda", shape=SHAPE_LINES):
+    """``(forward_lines, (x,))`` with :func:`make_road_video`'s frames on
+    `device`."""
+    video, _ = make_road_video(shape)
+    return forward_lines, (torch.from_numpy(video).to(device),)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5|decode|enhance|motion] [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5|decode|enhance|motion|lines] [--iters 5] [--table PATH]
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
@@ -23,6 +23,10 @@ motion path (``entry.forward_motion``) on ``make_motion_video()``'s (8,
 1080, 1920, 3) frames in its stages (``entry.MOTION_STAGES``): gray,
 GaussianBlur, the phase correlation, warpAffine, the background, the mask,
 the components, the distance transform, the moments, the contours and the
+sums; ``--path lines`` the lane-and-sign path (``entry.forward_lines``) on
+``make_road_video()``'s (8, 1080, 1920, 3) frames in its stages
+(``entry.LINES_STAGES``): gray, GaussianBlur, Canny, the Hough lines and
+HoughLinesP, HoughCircles, fitLine, LSD on frame 0, the drawing and the
 sums. Each runs under ``torch.profiler`` with one ``record_function`` span
 per stage. Prints, per stage, the time between CUDA events around it (median
 of 20, unprofiled) beside the device time of its torch-op kernels
@@ -171,9 +175,24 @@ def motion_stages():
     return [(name, step(fn)) for name, fn, _ in E.MOTION_STAGES]
 
 
+def lines_stages():
+    """``entry.forward_lines`` stage by stage (``entry.LINES_STAGES``), each
+    adding its outputs to the state dict the previous stage passed on."""
+    _, (x,) = E.entry_lines("cuda")
+
+    def step(fn):
+        def run(st):
+            st = {"x": x} if st is None else st
+            fn(st)
+            return st
+        return run
+
+    return [(name, step(fn)) for name, fn, _ in E.LINES_STAGES]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
          "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages,
-         "enhance": enhance_stages, "motion": motion_stages}
+         "enhance": enhance_stages, "motion": motion_stages, "lines": lines_stages}
 
 
 def staged(stages, marks=None):

@@ -773,3 +773,129 @@ def test_accumulate_transform_rng_on_the_card_bit_equal(cuda):
     c = torch.zeros(5, 7)
     tcv.randu(c, 0, 1)
     assert torch.equal(t.cpu(), c)
+
+
+def _same(a, b):
+    """Per-frame results (arrays, tensors, None, nested lists, tuples or
+    dicts of them) equal exactly."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_lines_on_the_card_equals_cpu(cuda):
+    """The lane-and-sign path at (2, 360, 640, 3): sep_filter launches once
+    on route k5 and 6 times on route k3, through the registry; each stage on
+    the card, fed the card's own input to it, equals the CPU's on that input,
+    and so does the whole chain."""
+    x = torch.from_numpy(E.make_road_video((2, 360, 640, 3))[0])
+    before = dict(SEP_FILTER.routes)
+    reset_tier_stats()
+    got = E.forward_lines(x.to(cuda))
+    torch.cuda.synchronize()
+    assert tier_stats() == {"tier.sep_filter_u8.cuda": 1, "tier.sep_filter_int.cuda": 6}
+    assert SEP_FILTER.routes["k5"] == before["k5"] + 1
+    assert SEP_FILTER.routes["k3"] == before["k3"] + 6
+    assert got["drawn"].device.type == "cuda"
+    card = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in got.items()}
+    card["x"] = x
+    for name, stage, keys in E.LINES_STAGES:
+        st = dict(card)
+        stage(st)
+        for k in keys:
+            assert _same(card[k], st[k]), (name, k)
+    want = E.forward_lines(x)
+    for k, w in want.items():
+        assert _same(got[k], w), k
+
+
+def test_hough_on_the_card_equals_cpu(cuda):
+    """HoughLines (with votes), HoughLinesP, HoughCircles (dp 1 and 2),
+    HoughLinesPointSet and the generalized Hough of Ballard and Guil on the
+    card equal the CPU."""
+    import cv2
+    rng = np.random.default_rng(41)
+    img = np.zeros((120, 160), np.uint8)
+    cv2.line(img, (10, 20), (150, 90), 255, 1)
+    cv2.line(img, (50, 5), (60, 115), 255, 1)
+    img[rng.random(img.shape) < 0.02] = 255
+    t, g = torch.from_numpy(img), torch.from_numpy(img).to(cuda)
+    assert _same(tcv.HoughLinesWithAccumulator(g, 1, np.pi / 180, 20),
+                 tcv.HoughLinesWithAccumulator(t, 1, np.pi / 180, 20))
+    assert _same(tcv.HoughLinesP(g, 1, np.pi / 180, 20, 10, 3),
+                 tcv.HoughLinesP(t, 1, np.pi / 180, 20, 10, 3))
+    c = np.full((100, 120), 80, np.uint8)
+    cv2.circle(c, (50, 50), 20, 230, 3)
+    cv2.circle(c, (95, 30), 14, 200, -1)
+    c = torch.from_numpy(cv2.GaussianBlur(c, (5, 5), 1))
+    for dp in (1, 2):
+        assert _same(tcv.HoughCirclesWithAccumulator(c.to(cuda), 3, dp, 20, 100, 15, 8, 40),
+                     tcv.HoughCirclesWithAccumulator(c, 3, dp, 20, 100, 15, 8, 40))
+    pts = torch.from_numpy(rng.uniform(0, 100, (60, 2)).astype(np.float32))
+    args = (10, 3, -50, 150, 1.0, 0.0, np.pi, np.pi / 180)
+    assert _same(tcv.HoughLinesPointSet(pts.to(cuda), *args), tcv.HoughLinesPointSet(pts, *args))
+    templ = np.zeros((40, 40), np.uint8)
+    cv2.rectangle(templ, (10, 10), (30, 30), 255, 2)
+    scene = np.zeros((90, 100), np.uint8)
+    cv2.rectangle(scene, (40, 45), (60, 65), 255, 2)
+    for make in (tcv.createGeneralizedHoughBallard, tcv.createGeneralizedHoughGuil):
+        res = []
+        for d in (cuda, "cpu"):
+            h = make()
+            h.setVotesThreshold(20)
+            h.setMinDist(10)
+            if hasattr(h, "setPosThresh"):
+                h.setMinAngle(0)
+                h.setMaxAngle(20)
+                h.setAngleStep(10)
+                h.setMinScale(0.9)
+                h.setMaxScale(1.1)
+                h.setScaleStep(0.1)
+                h.setPosThresh(20)
+            h.setTemplate(torch.from_numpy(templ).to(d))
+            res.append(h.detect(torch.from_numpy(scene).to(d)))
+        assert res[0][0] is not None and _same(res[0], res[1])
+
+
+def test_drawing_on_the_card_equals_cpu(cuda):
+    """Each primitive draws a card tensor in place, equal to the numpy
+    drawing, LINE_AA's f64 blend included."""
+    from opencv_tpu_torch.features2d import KeyPoint
+    base = np.random.default_rng(42).integers(0, 256, (60, 80, 3), np.uint8)
+    kps = [KeyPoint(10, 12, 5), KeyPoint(30.7, 40.2, 5)]
+    for fn in (lambda im: tcv.line(im, (3, 5.5), (70.2, 50), (255, 0, 40), 2, tcv.LINE_AA),
+               lambda im: tcv.line(im, (3, 5), (70, 50), (255, 0, 40), 3),
+               lambda im: tcv.rectangle(im, (5, 5), (50, 40), (0, 255, 0), 2),
+               lambda im: tcv.circle(im, (30, 30), 20, (1, 2, 3), 2),
+               lambda im: tcv.ellipse(im, (40, 30), (20, 10), 30, 0, 360, (9, 8, 7), -1),
+               lambda im: tcv.fillPoly(im, [np.array([[5, 5], [50, 10], [30, 40]])], (5, 6, 7)),
+               lambda im: tcv.arrowedLine(im, (5, 5), (60, 40), (200, 100, 50), 2),
+               lambda im: tcv.putText(im, "Ab 12!", (3, 40), tcv.FONT_HERSHEY_SIMPLEX, 0.8,
+                                      (255, 255, 255), 2),
+               lambda im: tcv.drawKeypoints(im, kps, None)):
+        g = torch.from_numpy(base.copy()).to(cuda)
+        out = fn(g)
+        assert out.device.type == "cuda"
+        assert np.array_equal(out.cpu().numpy(), fn(base.copy()))
+
+
+def test_geometry_extra_on_the_card_equals_cpu(cuda):
+    rng = np.random.default_rng(43)
+    m = ((rng.random((50, 70)) < 0.45) * 255).astype(np.uint8)
+    assert _same(tcv.findContoursLinkRuns(torch.from_numpy(m).to(cuda)),
+                 tcv.findContoursLinkRuns(m))
+    f = torch.from_numpy(rng.random((30, 40)).astype(np.float32))
+    k = rng.random((3, 3)).astype(np.float32)
+    assert _same(tcv.filter2Dp(f.to(cuda), k, scale=0.5, shift=1.25),
+                 tcv.filter2Dp(f, k, scale=0.5, shift=1.25))
+    moved = torch.roll(f, (2, -3), (0, 1))
+    g = tcv.phaseCorrelateIterative(f.to(cuda), moved.to(cuda))
+    c = tcv.phaseCorrelateIterative(f, moved)
+    assert max(abs(a - b) for a, b in zip(g, c)) < 1e-6
