@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
 3. kernels: each kernel (sep_filter, gauss5_down2, pyr_down) equals its
    plain PyTorch version bit for bit (``torch.equal``) on the whole batch at
    the main paths' shapes, with the taps and borders those paths give it
-   (sep_filter's template at K = 7 at each of ORB's 8 level shapes too),
+   (sep_filter's template at K = 7 at each of ORB's 8 level shapes too, and
+   pyr_down with C = 3 at the segmentation path's two shapes),
    and on edge cases (borders, channel counts, odd and tiny sizes, rows of
    every width and offset views for the K = 7 template, k = 9 and 31 for
    the generic kernel);
@@ -113,6 +114,29 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       small inputs, card against CPU (HoughLinesPointSet, the generalized
       Hough of Ballard and Guil, findContoursLinkRuns, filter2Dp,
       phaseCorrelateIterative, fitLine, and drawing on a card tensor);
+   j. the cell-segmentation path: ``entry_segment("cuda")``'s forward (the
+      colour correction of the cast camera → gray → GaussianBlur 5x5 → Otsu
+      → a 3x3 opening x2 → the sure background (dilate x3) → the distance
+      transform and the sure foreground → the markers → the native watershed
+      of each frame in host threads → the cells' centroids and their
+      Delaunay triangles → frame 0's background flood → frame 0's pyrDown,
+      pyrMeanShiftFiltering (10, 10, 1) and grabCut of its largest cluster →
+      EMD of the cells' grey histograms → the painted boundaries) on
+      ``make_cells_video()``'s (8, 1080, 1920, 3) frames, which must launch
+      sep_filter through the registry once on route k5 and pyr_down twice
+      (C = 3), and no other kernel; every cell centre must lie in a
+      watershed region that holds no other, the region count within 10% of
+      the cells', frame 0's flood over 95% of the background and no cell's
+      interior, and grabCut's IoU with the cells in its rect at least 0.85;
+      then frames 0-1 on the card and on the CPU, each stage fed the card's
+      own input to it and then the whole chain, within ``segment_compare``
+      (exact but the corrected frames, held to the warp bound, the distances
+      within 1e-5, and grabCut's mask on at most 0.01% of its pixels); and a
+      sweep of the slice's other public functions, card against CPU
+      (IntelligentScissorsMB's features on frame 0 in both edge modes and
+      its paths on a crop, kmeans with each flag, floodFill on a float
+      image, Subdiv2D's facets and locate, the model's getters), after the
+      launch counts are read;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -139,8 +163,11 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    bounds, with busy share, host syncs, peak memory, the two Hough
    accumulations' own peaks, the line accumulation against the same number
    of votes on distinct addresses (its atomic contention), LSD's host tail
-   and the drawing's device writes.  A kernel's share of its bound is
-   bound_ms / ms.
+   and the drawing's device writes; the segmentation forward and its
+   sixteen stages beside their bytes bounds (median of 5), with busy share,
+   host syncs, peak memory, the mean shift's own peak, the min cuts' host
+   ms and the watershed floods pooled and one after another.  A kernel's
+   share of its bound is bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -196,6 +223,17 @@ MOTION_MOMENTS_RTOL = 1e-12
 # (lines path) card vs CPU: LSD's segment end points where its prefilter
 # differs (exact where it does not)
 LSD_ATOL = 1e-4
+# (segmentation path) card vs CPU: grabCut's mask may differ on this share
+# of its pixels (its likelihoods' exp and log are the device's), and then
+# its models by this relative amount (a pixel's component moves a GMM's
+# moments by about 1/count); the distances within MOTION_DIST_ATOL
+CUT_MAX_FRACTION = 1e-4
+CUT_MODEL_RTOL = 1e-4
+# (segmentation path) the truth: regions within this share of the cells,
+# the flood over this share of the background, grabCut's IoU at least this
+SEGMENT_COUNT_TOL = 0.1
+FLOOD_MIN_BG = 0.95
+CUT_MIN_IOU = 0.85
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -453,6 +491,50 @@ def lines_compare(what, got, want) -> list[str]:
     return report
 
 
+def segment_compare(what, got, want) -> list[str]:
+    """Hold the segmentation path's outputs `got` (the card's, on the host)
+    to `want` (the CPU's), key by key, for the keys they share: the
+    corrected frames to the warp bound (``^(1/γ)`` is the device's), the
+    distances within MOTION_DIST_ATOL, grabCut's mask to CUT_MAX_FRACTION
+    and its models to CUT_MODEL_RTOL where the mask differs (else exactly),
+    the min cuts' host times not at all, everything else (images, labels,
+    markers, masks, counts, centroids, triangles, histograms, EMD, the
+    mean shift's counts) exactly.  Raise with the size of a difference;
+    return one summary per key."""
+    report = []
+    cut_diff = 0
+    for key in want:
+        g, w = got[key], want[key]
+        if key == "gc_stats":
+            continue
+        if isinstance(w, torch.Tensor):
+            same = g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+        elif isinstance(w, (dict, tuple, int, float)):
+            same = g == w
+        else:
+            same = same_results(g, w)
+        if same:
+            report.append(f"{key} exact")
+            continue
+        if key in ("corrected", "distance", "cut_mask") and g.shape == w.shape:
+            d = (g.to(torch.float64) - w.to(torch.float64)).abs()
+            n_diff, d_max = int(d.count_nonzero()), float(d.max())
+            ok = {"corrected": d_max <= WARP_ATOL and n_diff <= WARP_MAX_FRACTION * d.numel(),
+                  "distance": d_max <= MOTION_DIST_ATOL,
+                  "cut_mask": n_diff <= CUT_MAX_FRACTION * d.numel()}[key]
+            if ok:
+                cut_diff += n_diff if key == "cut_mask" else 0
+                report.append(f"{key} {n_diff} of {d.numel()} differ (max |d| {d_max:.3g})")
+                continue
+        if key in ("bgd_model", "fgd_model") and cut_diff:
+            rel = float(np.abs(g - w).max() / np.abs(w).max())
+            if rel <= CUT_MODEL_RTOL:
+                report.append(f"{key} max rel |d| {rel:.3g}")
+                continue
+        raise AssertionError(f"segment {what} {key}: card and CPU differ")
+    return report
+
+
 def host_state(st) -> dict:
     """The motion path's state dict with its tensors on the host."""
     return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in st.items()}
@@ -610,6 +692,10 @@ OFFSET_SHAPES = (("offset aligned", (2, 40, 64, 1)), ("offset unaligned", (2, 41
                  ("offset unaligned C3", (2, 41, 67, 3)), ("offset main", (7, 1080, 1920, 1)))
 
 
+# pyr_down's inputs on the segmentation path (4j): frame 0, then its half
+PYR_SEGMENT_SHAPES = ((1, 1080, 1920, 3), (1, 540, 960, 3))
+
+
 # bound_ms: the card's memory rate and its float32 rate outside the tensor
 # cores (NVIDIA's data sheet, H100 SXM)
 HBM_BYTES_PER_S = 3.35e12
@@ -745,7 +831,14 @@ def main() -> int:
     for name, shape in OFFSET_SHAPES:
         x = offset_view(rng, shape, dev)
         check_equal(f"pyr_down {name} {shape}", pyr_down_u8(x), pyr_down_u8_plain(x))
-    log(f"pyr_down: {len(cases) + len(OFFSET_SHAPES)} cases equal to the plain version")
+    # the segmentation path's two launches, C = 3: frame 0 at 1080p, then its
+    # half inside pyrMeanShiftFiltering
+    for shape in PYR_SEGMENT_SHAPES:
+        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        err = check_equal(f"pyr_down segment {shape}", pyr_down_u8(x), pyr_down_u8_plain(x))
+        max_err["pyr_down"] = max(max_err["pyr_down"], err)
+    log(f"pyr_down: {len(cases) + len(OFFSET_SHAPES) + len(PYR_SEGMENT_SHAPES)} cases equal "
+        f"to the plain version")
 
     # -- 4a. the flagship path
     def run_counted(fn):
@@ -1227,6 +1320,128 @@ def main() -> int:
         same(name, g.cpu().numpy(), fn(base9.copy()))
     log(f"lines slice sweep, card equal to the CPU: {', '.join(sweep)}")
 
+    # -- 4j. the cell-segmentation path: colour correction -> gray ->
+    # GaussianBlur (sep_filter k5) -> Otsu -> opening -> sure background and
+    # foreground -> markers -> watershed (native, pooled) -> cells and
+    # triangles -> frame 0's flood -> pyrDown (pyr_down C = 3) -> mean shift
+    # (pyr_down C = 3) -> grabCut -> EMD -> painted boundaries
+    from opencv_tpu_torch.ops import segmentation as seg_mod
+    forward10, (x10, model10) = E.entry_segment("cuda")
+    _, truth10 = E.make_cells_video()
+    reset_tier_stats()
+    outs10, cfg10 = run_counted(lambda: forward10(x10, model10))
+    tiers10 = tier_stats()
+    log(f"segmentation path launches: {cfg10}; dispatch {tiers10}")
+    if (cfg10["opencv_sep_filter"] != 1 or cfg10["sep_filter routes"] != {
+            "k3": 0, "k5": 1, "k7": 0, "generic": 0}
+            or cfg10["opencv_pyr_down"] != 2 or cfg10["opencv_gauss5_down2"]
+            or tiers10 != {"tier.sep_filter_u8.cuda": 1, "tier.pyr_down_u8.cuda": 2}):
+        raise AssertionError(f"segmentation path: sep_filter must launch through the registry "
+                             f"once on route k5 and pyr_down twice, and no other kernel; got "
+                             f"{cfg10}, {tiers10}")
+    N10, H10, W10, _ = E.SHAPE_SEGMENT
+    for key, shape, dtype in (("corrected", (N10, H10, W10, 3), torch.uint8),
+                              ("opening", (N10, H10, W10, 1), torch.uint8),
+                              ("distance", (N10, H10, W10, 1), torch.float32),
+                              ("markers", (N10, H10, W10), torch.int32),
+                              ("regions", (N10, H10, W10), torch.int32),
+                              ("flood", (H10, W10), torch.uint8),
+                              ("cut_mask", (H10 // 2, W10 // 2), torch.uint8),
+                              ("painted", (N10, H10, W10, 3), torch.uint8),
+                              ("sums", (N10, len(E.SEGMENT_SUMS)), torch.int64)):
+        got = outs10[key]
+        if tuple(got.shape) != shape or got.dtype != dtype or got.device.type != "cuda":
+            raise AssertionError(f"segment {key}: {tuple(got.shape)} {got.dtype} {got.device}, "
+                                 f"expected {shape} {dtype} on the card")
+    rep10 = E.segment_truth_report(outs10, truth10)
+    bad = [n for n, k in rep10["counts"] if abs(n - k) > SEGMENT_COUNT_TOL * k]
+    if (rep10["missed"] or rep10["shared"] or bad or rep10["flood_bg"] < FLOOD_MIN_BG
+            or rep10["flood_cells"] or rep10["cut_iou"] < CUT_MIN_IOU):
+        raise AssertionError(f"segmentation path against the video's truth: {rep10}")
+    log(f"segmentation path: every cell centre of the {N10} frames in a region of its own; "
+        f"regions / cells per frame {rep10['counts']}; frame 0's flood covers "
+        f"{rep10['flood_bg']:.4f} of the background and {rep10['flood_cells']} cell-interior "
+        f"pixels; grabCut's IoU with the cells in its rect {outs10['cut_rect']} "
+        f"{rep10['cut_iou']:.4f}; Otsu {float(outs10['otsu'])}; triangles per frame "
+        f"{[len(t) for t in outs10['triangles']]}; EMD to frame 0 "
+        f"{np.round(outs10['emd'], 5).tolist()}; mean shift {outs10['ms_stats']}; min cuts "
+        f"{[round(v, 1) for v in outs10['gc_stats']['maxflow_ms']]} ms on the host")
+    # frames 0-1 on the card and the CPU: each stage on the card's own input
+    # to it, then the whole chain
+    got10 = host_state(E.forward_segment(x10[:2], model10))
+    got10.update(x=x10[:2].cpu(), model=model10)
+    stage_report10 = []
+    for name, stage, keys in E.SEGMENT_STAGES:
+        st = dict(got10)
+        stage(st)
+        stage_report10 += segment_compare(f"stage {name}", got10, {k: st[k] for k in keys})
+    t0 = time.perf_counter()
+    chain10 = E.forward_segment(got10["x"], model10)
+    t_chain = time.perf_counter() - t0
+    if torch.equal(chain10["corrected"], got10["corrected"]):
+        chain_report10 = segment_compare("chain", got10, chain10)
+    else:
+        # the warp bound let a corrected pixel move: what follows differs
+        # by its input, and is held stage by stage above
+        chain_report10 = segment_compare("chain", got10, {"corrected": chain10["corrected"]})
+    log(f"segmentation path, frames 0-1: each stage on the card's own input vs the CPU: "
+        f"{'; '.join(stage_report10)}; the whole chain vs the CPU ({t_chain:.1f} s on the "
+        f"host): {'; '.join(chain_report10)}")
+    del got10, chain10
+
+    # the slice's other public functions, card against CPU, on small inputs
+    sweep = []
+    frame0 = outs10["corrected"][0]
+    for mode in ("zero crossing", "canny"):
+        feats = []
+        for src in (frame0, frame0.cpu()):
+            sc = cv.segmentation.IntelligentScissorsMB()
+            if mode == "canny":
+                sc.setEdgeFeatureCannyParameters(50, 100)
+            sc.applyImage(src)
+            feats.append((sc._non_edge, sc._grad_dir, sc._grad_mag))
+        same(f"IntelligentScissorsMB.applyImage {mode} {tuple(frame0.shape)}", *feats)
+    crop = frame0[200:320, 300:460]
+    paths = []
+    for src in (crop, crop.cpu()):
+        sc = cv.segmentation.IntelligentScissorsMB()
+        sc.applyImage(src)
+        sc.buildMap((80, 60))
+        paths.append((sc._paths, sc.getContour((10, 110)), sc.getContour((150, 5))))
+    same("IntelligentScissorsMB.buildMap/getContour (120, 160)", *paths)
+    rng10 = np.random.default_rng(10)
+    # integer-valued points, as grabCut's colours: their f64 sums are exact
+    # in any order
+    pts10 = np.rint(rng10.normal(0, 8, (3000, 3)) + np.repeat(
+        rng10.uniform(-50, 50, (5, 3)), 600, axis=0)).astype(np.float32)
+    init10 = rng10.integers(0, 5, (3000, 1)).astype(np.int32)
+    for name, flags in (("RANDOM", cv.KMEANS_RANDOM_CENTERS), ("PP", cv.KMEANS_PP_CENTERS),
+                        ("USE_INITIAL_LABELS", cv.KMEANS_USE_INITIAL_LABELS)):
+        k_g = cv.kmeans(torch.from_numpy(pts10).to(dev), 5, init10, (3, 20, 0.0), 2, flags)
+        k_c = cv.kmeans(torch.from_numpy(pts10), 5, init10, (3, 20, 0.0), 2, flags)
+        same(f"kmeans {name} labels and centres", (k_g[1].cpu(), k_g[2].cpu()), k_c[1:])
+        if abs(k_g[0] - k_c[0]) > 1e-5 * abs(k_c[0]):
+            raise AssertionError(f"kmeans {name} compactness: card {k_g[0]}, CPU {k_c[0]}")
+    fimg = np.cumsum(rng10.random((60, 80)).astype(np.float32), 0)
+    ff_g = cv.floodFill(torch.from_numpy(fimg).to(dev), None, (20, 30), 99.0, 0.7, 0.5, 8)
+    ff_c = cv.floodFill(torch.from_numpy(fimg), None, (20, 30), 99.0, 0.7, 0.5, 8)
+    same("floodFill f32", (ff_g[0], ff_g[1].cpu(), ff_g[2].cpu(), ff_g[3]), ff_c)
+    sub_g, sub_c = cv.Subdiv2D((0, 0, W10, H10)), cv.Subdiv2D((0, 0, W10, H10))
+    cent = outs10["centroids"][0]
+    sub_g.insert(torch.from_numpy(cent).to(dev))
+    sub_c.insert(cent)
+    same("Subdiv2D.getVoronoiFacetList", sub_g.getVoronoiFacetList([]),
+         sub_c.getVoronoiFacetList([]))
+    same("Subdiv2D.locate", [sub_g.locate(torch.tensor(q, device=dev)) for q in
+                             ((500.0, 400.0), (17.0, 3.0))],
+         [sub_c.locate(q) for q in ((500.0, 400.0), (17.0, 3.0))])
+    same("ccm getters", [getattr(model10, g)() for g in
+                         ("getCCM", "getLoss", "getMask", "getWeights", "getSrcLinearRGB",
+                          "getRefLinearRGB")],
+         [getattr(E.fit_cells_model(), g)() for g in
+          ("getCCM", "getLoss", "getMask", "getWeights", "getSrcLinearRGB", "getRefLinearRGB")])
+    log(f"segmentation slice sweep, card equal to the CPU: {', '.join(sweep)}")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -1254,6 +1469,13 @@ def main() -> int:
          "(8,1080,1920,1) REFLECT_101", n1 + n_half, 2 * (5 * n1 // 2 + 5 * n_half),
          conv_yardstick(x3, k5, k5, 2, dev), None),
     ]
+    # pyr_down with C = 3 on the segmentation path's two inputs
+    for shape in PYR_SEGMENT_SHAPES:
+        a = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        n_in, n_out = a.numel(), a.numel() // 4
+        rows.append((f"pyr_down c3 {shape[1]}x{shape[2]}", lambda a=a: pyr_down_u8(a),
+                     lambda a=a: pyr_down_u8_plain(a), f"{shape} REFLECT_101", n_in + n_out,
+                     2 * (5 * n_in // 2 + 5 * n_out), conv_yardstick(a, k5, k5, 2, dev), None))
     # sep_filter at each of ORB's levels (the pyramid of the config-5 batch),
     # as the blur launches it; then the generic kernel, which no main path
     # launches, at k = 9 on the level-2 shape
@@ -1633,6 +1855,57 @@ def main() -> int:
         f"[{card}]")
     del e9
 
+    # the segmentation path, as the caller sees it (host reads and host
+    # tails included); bytes: each stage's inputs read once and outputs
+    # written once (n = N*H*W pixels, a = H*W of frame 0)
+    n10, a10 = N10 * H10 * W10, H10 * W10
+    stage_bytes10 = {"correct": 6 * n10, "gray": 4 * n10, "blur": 2 * n10, "threshold": 2 * n10,
+                     "opening": 2 * n10, "sure_bg": 2 * n10, "sure_fg": 6 * n10,
+                     "unknown": 3 * n10, "markers": 6 * n10, "watershed": 11 * n10,
+                     "cells": 4 * n10, "flood": 4 * a10, "cutout": 4 * a10, "emd": 5 * n10,
+                     "painted": 10 * n10, "sums": 21 * n10}
+    fwd_bytes10 = sum(stage_bytes10.values())
+    state10 = {"x": x10, "model": model10}
+    for _, stage, _ in E.SEGMENT_STAGES:
+        stage(state10)
+    t10 = timer(lambda: forward10(x10, model10), iters=5, warmup=1)
+    log(f"time forward_segment {tuple(x10.shape)}: {t10:.4f} ms, bytes bound "
+        f"{bound(fwd_bytes10, 0)[0]:.4f} ms ({fwd_bytes10 / 1e6:.1f} MB), share of bound "
+        f"{bound(fwd_bytes10, 0)[0] / t10:.6f}  [{card}]")
+    for name, stage, keys in E.SEGMENT_STAGES:
+        t = timer(lambda: stage(dict(state10)), iters=5, warmup=1)
+        b_ms = bound(stage_bytes10[name], 0)[0]
+        log(f"time segment {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({stage_bytes10[name] / 1e6:.1f} MB), share of bound {b_ms / t:.6f}  [{card}]")
+    n_sync10 = count_syncs(lambda: forward10(x10, model10))
+    busy10, k_ms10, f_ms10 = busy_share(lambda: forward10(x10, model10), iters=1)
+    maxflow10 = state10["gc_stats"]["maxflow_ms"]
+    frames10, markers10 = state10["corrected"].cpu().numpy(), state10["markers"].cpu().numpy()
+    t_pool = host_median(lambda: seg_mod.watershed_frames(frames10, markers10), iters=3,
+                         warmup=1)
+    t_alone = host_median(lambda: seg_mod.watershed_frames(frames10, markers10, threads=1),
+                          iters=3, warmup=1)
+    half10 = state10["half"]
+    del outs10, state10
+    peaks10 = {}
+    for name, fn in (("forward", lambda: forward10(x10, model10)),
+                     ("mean shift", lambda: cv.pyrMeanShiftFiltering(half10, 10, 10, 1))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base10 = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peaks10[name] = (torch.cuda.max_memory_allocated() - base10) / 2 ** 30
+    log(f"segment forward: device busy share {busy10:.4f} (kernels {k_ms10:.4f} ms of "
+        f"{f_ms10:.4f} ms, torch.profiler); {n_sync10} host syncs per batch; peak device memory "
+        f"over the inputs: forward {peaks10['forward']:.3f} GiB, the mean shift at "
+        f"{tuple(half10.shape)} {peaks10['mean shift']:.3f} GiB (chunks of at most "
+        f"{seg_mod.MS_CHUNK_BYTES / 2 ** 30:.2f} GiB); grabCut's min cuts "
+        f"{[round(v, 1) for v in maxflow10]} ms on the host; the {N10} watershed floods "
+        f"{t_pool:.1f} ms pooled, {t_alone:.1f} ms one after another (host clock, median of 3, "
+        f"{os.cpu_count()} CPUs)  [{card}]")
+    del frames10, markers10, half10
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -1641,14 +1914,16 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4i); the
+    # launches: the kernel's count over the main paths (4a to 4j); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
                              "sep_filter generic k9 level 2"),
-              "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"), "pyr_down": ("pyr_down",)}
-    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9)
+              "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"),
+              "pyr_down": ("pyr_down", *(f"pyr_down c3 {h}x{w}" for _, h, w, _ in
+                                         PYR_SEGMENT_SHAPES))}
+    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

@@ -29,7 +29,11 @@ convertMaps, blendLinear, matchShapes), moments, connectedComponents,
 distanceTransform and the contour geometry, and the lane-and-sign path:
 the Hough transforms (lines, circles, point sets, the generalized Hough),
 fitLine, the line segment detector, drawing and putText, and the small
-geometry of ``geometry_extra``.
+geometry of ``geometry_extra``, and the cell-segmentation path: floodFill,
+watershed and pyrMeanShiftFiltering, grabCut with kmeans, EMD,
+IntelligentScissorsMB, Subdiv2D and the colour correction model, with the
+port's own native host tails (``native/hosttails.cpp``, built with g++ at
+the first call).
 """
 
 from .constants import *  # noqa: F401,F403
@@ -154,6 +158,29 @@ from .ops.geometry_extra import (  # noqa: F401,E402
     rectangleIntersectionArea, getClosestEllipsePoints,
     phaseCorrelateIterative, filter2Dp, findContoursLinkRuns,
 )
+from .ops.segmentation import (  # noqa: F401,E402
+    floodFill, watershed, pyrMeanShiftFiltering, FLOODFILL_FIXED_RANGE, FLOODFILL_MASK_ONLY,
+)
+from .ops.emd import EMD  # noqa: F401,E402
+from .ops.grabcut import (  # noqa: F401,E402
+    grabCut, GC_BGD, GC_FGD, GC_PR_BGD, GC_PR_FGD,
+    GC_INIT_WITH_RECT, GC_INIT_WITH_MASK, GC_EVAL,
+)
+from .ops.subdiv2d import Subdiv2D  # noqa: F401,E402
+from .ops.cluster import (  # noqa: F401,E402
+    kmeans, KMEANS_RANDOM_CENTERS, KMEANS_PP_CENTERS, KMEANS_USE_INITIAL_LABELS,
+)
+from .ops.scissors import IntelligentScissorsMB  # noqa: F401,E402
+from .ops.ccm import ColorCorrectionModel as ccm_ColorCorrectionModel, ccm  # noqa: F401,E402
+
+segmentation_IntelligentScissorsMB = IntelligentScissorsMB
+
+
+class _SegmentationNS:
+    IntelligentScissorsMB = IntelligentScissorsMB
+
+
+segmentation = _SegmentationNS()
 
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
 from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401

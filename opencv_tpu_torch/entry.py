@@ -70,6 +70,20 @@ the line segment detector on frame 0 → drawing the segments, lane fits,
 circles, frame 0's LSD segments and a caption on a copy of the frames
 (:data:`LINES_STAGES`).  ``entry_lines`` gives it ``make_road_video()``'s
 (8, 1080, 1920, 3) u8 frames.
+
+``forward_segment`` splits touching cells, coins or parts and cuts one
+cluster out, as microscopy, inspection and counting pipelines do: the
+colour correction of a calibrated camera (a ColorCorrectionModel fitted
+once, on the host) → gray → GaussianBlur 5×5 (``sep_filter`` k5) → Otsu →
+a 3×3 opening → the sure background (dilate) and foreground (the distance
+transform above half its frame's largest) → the markers → the native
+watershed of each frame in host threads → each cell's centroid and their
+Delaunay triangles → frame 0's background flood, its pyrDown (``pyr_down``,
+C = 3), pyrMeanShiftFiltering (10, 10, 1; ``pyr_down`` again) and grabCut
+of its largest cluster → EMD between the frames' grey histograms of the
+cells → the boundaries painted red (:data:`SEGMENT_STAGES`).
+``entry_segment`` gives it ``make_cells_video()``'s (8, 1080, 1920, 3) u8
+frames and the camera's fitted model.
 """
 
 from __future__ import annotations
@@ -108,18 +122,30 @@ from .ops.drawing import _Canvas, _circle, _line, _put_text
 from .ops.hough import hough_circles_batch, hough_lines_batch, hough_lines_p_batch
 from .ops.linefit import fitLine
 from .ops.lsd import _segment_ends, createLineSegmentDetector
+from .ops.ccm import COLORCHECKER_MACBETH, ColorCorrectionModel
+from .ops.core_ops import subtract
+from .ops.emd import EMD
+from .ops.grabcut import GC_FGD, GC_INIT_WITH_RECT, GC_PR_FGD, grabCut
+from .ops.hist import hist_fixed
+from .ops.segmentation import (FLOODFILL_FIXED_RANGE, FLOODFILL_MASK_ONLY, floodFill,
+                               pyrMeanShiftFiltering, watershed_frames)
+from .ops.subdiv2d import Subdiv2D
 
 __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
-           "SHAPE_MOTION", "SHAPE_LINES", "PERSPECTIVE_CFG2", "DECODE_COLOR_OUTPUTS",
+           "SHAPE_MOTION", "SHAPE_LINES", "SHAPE_SEGMENT", "PERSPECTIVE_CFG2",
+           "DECODE_COLOR_OUTPUTS",
            "ENHANCE_STAGES", "ENHANCE_OUTPUTS", "GAMMA_LUT", "MOTION_STAGES", "MOTION_SUMS",
-           "LINES_STAGES", "LINES_SUMS", "LINES_HOUGH", "LINES_CIRCLES", "entry",
+           "LINES_STAGES", "LINES_SUMS", "LINES_HOUGH", "LINES_CIRCLES", "SEGMENT_STAGES",
+           "SEGMENT_SUMS", "entry",
            "entry_resize_warp_4k", "entry_pyr_corner_edge", "entry_match_morph", "entry_orb",
-           "entry_decode_color", "entry_enhance", "entry_motion", "entry_lines", "make_batch",
+           "entry_decode_color", "entry_enhance", "entry_motion", "entry_lines", "entry_segment",
+           "make_batch", "make_cells_video", "cells_patches", "fit_cells_model", "cutout_rect",
            "make_nv12", "make_motion_video", "make_road_video", "road_truth_misses",
+           "segment_truth_report",
            "lane_ends", "caption", "preprocess", "preprocess_fused", "warp", "forward",
            "forward_fused", "forward_resize_warp_4k", "forward_pyr_corner_edge",
            "forward_match_morph", "forward_orb", "forward_decode_color", "forward_enhance",
-           "forward_motion", "forward_lines"]
+           "forward_motion", "forward_lines", "forward_segment"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -853,3 +879,400 @@ def entry_lines(device="cuda", shape=SHAPE_LINES):
     `device`."""
     video, _ = make_road_video(shape)
     return forward_lines, (torch.from_numpy(video).to(device),)
+
+
+# ----------------------------------------------------- cell-segmentation path
+
+SHAPE_SEGMENT = (8, 1080, 1920, 3)
+SEGMENT_DRIFT = 3.0         # the slide's drift, px per frame per axis at most
+# the camera's colour cast: linear RGB is mixed by the inverse of CELLS_CAST
+# (row vectors) and encoded with CELLS_GAMMA, so the colour correction model
+# fitted on the ColorChecker's patches finds CELLS_CAST
+CELLS_CAST = np.array([[0.9, 0.1, 0.0], [0.05, 0.85, 0.05], [0.0, 0.1, 0.95]])
+CELLS_GAMMA = 2.2
+# floodFill of frame 0's background and grabCut's rect padding, px
+SEGMENT_FLOOD_DIFF = 20
+SEGMENT_RECT_PAD = 10
+SEGMENT_HIST_BINS = 16
+# the boundaries' colour in the painted frames (BGR)
+BOUNDARY_BGR = (0, 0, 255)
+
+
+def _cast(rgb: np.ndarray) -> np.ndarray:
+    """The camera's view, in [0, 1], of true RGB values in [0, 1]."""
+    lin = np.clip(rgb, 0, 1) ** CELLS_GAMMA
+    return np.clip(lin @ np.linalg.inv(CELLS_CAST), 0, 1) ** (1 / CELLS_GAMMA)
+
+
+def cells_patches() -> np.ndarray:
+    """The camera's view of the 24 ColorChecker patches (the model's
+    reference), (24, 1, 3) f64 RGB in [0, 1]: what a user measures once on
+    a chart to calibrate the camera."""
+    from .ops.ccm import _MACBETH_LAB, _lab_d50_to_linear_rgb
+    ref = np.clip(_lab_d50_to_linear_rgb(_MACBETH_LAB), 0, 1) ** (1 / CELLS_GAMMA)
+    return _cast(ref).reshape(-1, 1, 3)
+
+
+def _place_cells(rng, H: int, W: int, margin: float, scale: float):
+    """Discs of radius 35–55 px at 1080p (scaled), most in touching clusters
+    of 2–3: ``(centres (K, 2) f64, radii (K,) f64, cluster (K,) int64)``.  A
+    touching pair meets on a chord of half-length h of 20–32% of the smaller
+    radius, so each centre lies outside the other disc and the distance
+    transform keeps one peak per disc (the neck's distance, at most h, stays
+    below half the largest radius); clusters keep a gap apart."""
+    target = int(rng.integers(40, 61))
+    gap = max(3.0, 12.0 * scale)
+    cs, rs, cl = [], [], []
+
+    def free(c, r, partner=None):
+        for j, (cj, rj) in enumerate(zip(cs, rs)):
+            if j != partner and np.hypot(*(c - cj)) < r + rj + gap:
+                return False
+        lo = margin + r
+        return lo <= c[0] <= W - lo and lo <= c[1] <= H - lo
+
+    cluster = 0
+    for _ in range(20000):
+        if len(cs) >= target:
+            break
+        size = int(rng.choice((1, 2, 3), p=(0.2, 0.45, 0.35)))
+        r = rng.uniform(35, 55) * scale
+        c = rng.uniform((0, 0), (W, H))
+        if not free(c, r):
+            continue
+        members = [len(cs)]
+        cs.append(c)
+        rs.append(r)
+        cl.append(cluster)
+        for _ in range(size - 1):
+            for _ in range(50):
+                k = members[int(rng.integers(len(members)))]
+                r2 = rng.uniform(35, 55) * scale
+                h = rng.uniform(0.20, 0.32) * min(rs[k], r2)
+                d = np.sqrt(rs[k] ** 2 - h * h) + np.sqrt(r2 ** 2 - h * h)
+                ang = rng.uniform(0, 2 * np.pi)
+                c2 = cs[k] + d * np.array([np.cos(ang), np.sin(ang)])
+                if free(c2, r2, partner=k):
+                    members.append(len(cs))
+                    cs.append(c2)
+                    rs.append(r2)
+                    cl.append(cluster)
+                    break
+        cluster += 1
+    return np.array(cs), np.array(rs), np.array(cl, np.int64)
+
+
+def make_cells_video(shape=SHAPE_SEGMENT, seed: int = 0):
+    """A drifting microscope slide of touching cells through a colour-cast
+    camera, from one ``default_rng(seed)``: ``(frames, truth)``.
+
+    - the background: uniform noise smoothed by a 31×31 box mean, 30–50
+      grey, on a canvas larger than a frame by the drift;
+    - 40–60 bright, lightly textured discs ("cells") of radius 35–55 px at
+      1080p (scaled with the frame; :func:`_place_cells`), most touching in
+      clusters of 2–3, each disc's centre outside every other disc, drawn
+      with their pixels' coverage;
+    - frame i is the canvas moved by i times a drift of at most
+      :data:`SEGMENT_DRIFT` px per axis, rounded;
+    - the camera's colour cast (:data:`CELLS_CAST`, :data:`CELLS_GAMMA`) on
+      the whole scene, then sensor noise uniform in ±2 per channel.
+
+    ``truth`` is a dict of ``"centres"`` (N, K, 2) f64 (x, y) per frame,
+    ``"radii"`` (K,), ``"cluster"`` (K,) (the cluster of each disc) and
+    ``"patches"``, :func:`cells_patches`."""
+    N, H, W, C = shape
+    rng = np.random.default_rng(seed)
+    scale = min(H / 1080, W / 1920)
+    v = rng.uniform(-SEGMENT_DRIFT, SEGMENT_DRIFT, 2)
+    shifts = np.rint(np.arange(N)[:, None] * v).astype(np.int64)
+    m = int(np.abs(shifts).max()) + 1
+    bg = _box_mean(rng.random((H + 2 * m + 30, W + 2 * m + 30)), 31)
+    bg = 30.0 + 20.0 * (bg - bg.min()) / (bg.max() - bg.min())
+    canvas = np.repeat(bg[..., None], 3, axis=2)
+    centres, radii, cluster = _place_cells(rng, H, W, m + max(6.0, 12.0 * scale), scale)
+    texture = _box_mean(rng.random((H + 2 * m + 8, W + 2 * m + 8)), 9)
+    texture = (texture - texture.mean()) / texture.std()
+    ys, xs = np.mgrid[0:H + 2 * m, 0:W + 2 * m] - m     # frame 0's coordinates
+    for (cx, cy), r in zip(centres, radii):
+        y0, y1 = int(max(cy - r - 2 + m, 0)), int(min(cy + r + 3 + m, H + 2 * m))
+        x0, x1 = int(max(cx - r - 2 + m, 0)), int(min(cx + r + 3 + m, W + 2 * m))
+        d = np.hypot(xs[y0:y1, x0:x1] - cx, ys[y0:y1, x0:x1] - cy)
+        cover = np.clip(r + 0.5 - d, 0, 1)[..., None]
+        base = np.array([rng.uniform(190, 215), rng.uniform(150, 175), rng.uniform(200, 225)])
+        cell = base * (1 + 0.04 * texture[y0:y1, x0:x1, None])
+        canvas[y0:y1, x0:x1] = canvas[y0:y1, x0:x1] * (1 - cover) + cell * cover
+    seen = np.rint(255.0 * _cast(canvas[..., ::-1] / 255.0)[..., ::-1])
+    frames = np.empty((N, H, W, C), np.uint8)
+    for i, (dx, dy) in enumerate(shifts):
+        frames[i] = seen[m - dy:m - dy + H, m - dx:m - dx + W]
+    noise = rng.integers(-2, 3, (N, H, W, C), dtype=np.int8)
+    frames = np.clip(frames.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+    truth = {"centres": centres[None] + shifts[:, None, :], "radii": radii, "cluster": cluster,
+             "patches": cells_patches()}
+    return frames, truth
+
+
+def _s_correct(st):
+    """The colour correction of the batch on its device; the model's axis
+    is RGB, the frames' BGR."""
+    st["corrected"] = st["model"].correctImage(st["x"].flip(-1)).flip(-1)
+
+
+def _s_gray(st):
+    st["gray"] = cvtColor(st["corrected"], K.COLOR_BGR2GRAY)
+
+
+def _s_blur(st):
+    st["blur"] = GaussianBlur(st["gray"], (5, 5), 0)
+
+
+def _s_binary(st):
+    st["otsu"], st["binary"] = threshold(st["blur"], 0, 255, K.THRESH_BINARY | K.THRESH_OTSU)
+
+
+def _s_opening(st):
+    st["opening"] = morphologyEx(st["binary"], K.MORPH_OPEN, np.ones((3, 3), np.uint8),
+                                 iterations=2)
+
+
+def _s_sure_bg(st):
+    st["sure_bg"] = dilate(st["opening"], np.ones((3, 3), np.uint8), iterations=3)
+
+
+def _s_sure_fg(st):
+    """The distance transform, and the sure foreground: distances above half
+    of their own frame's largest."""
+    d = distanceTransform(st["opening"], K.DIST_L2, 5)
+    st["distance"] = d
+    top = d.amax(dim=(1, 2, 3), keepdim=True)
+    st["sure_fg"] = torch.where(d > 0.5 * top, 255, 0).to(torch.uint8)
+
+
+def _s_unknown(st):
+    st["unknown"] = subtract(st["sure_bg"], st["sure_fg"])
+
+
+def _s_markers(st):
+    """The sure foreground's components, + 1, and 0 where unknown; the
+    per-frame component counts are the one read."""
+    labels, counts = components_batch(st["sure_fg"][..., 0], 8)
+    st["n_labels"] = counts.cpu().numpy() + 1
+    st["markers"] = torch.where(st["unknown"][..., 0] == 255, 0, labels + 1)
+
+
+def _s_watershed(st):
+    """The native flood of each frame, in a pool of host threads."""
+    ws = watershed_frames(st["corrected"], st["markers"])
+    st["regions"] = torch.from_numpy(ws).to(st["x"].device)
+
+
+def _label_sums(labels: torch.Tensor, L: int, values: torch.Tensor) -> torch.Tensor:
+    """(N, L, V) f64 sums of the (N, H, W, V) `values` over each label 2..L-1
+    of each frame of the (N, H, W) int32 `labels` (rows 0 and 1 zero), from
+    one ``index_add_``: exact integer sums, so order-free.  A pixel of
+    another label adds into one of 256 spare rows by its position, so that
+    the pixels of the background do not all meet on one address."""
+    N, H, W = labels.shape
+    dev = labels.device
+    n = torch.arange(N, device=dev).view(N, 1, 1)
+    pos = torch.arange(H * W, device=dev).view(1, H, W) % 256
+    lab = labels.to(torch.int64)
+    idx = torch.where((lab >= 2) & (lab < L), n * L + lab, N * L + pos).reshape(-1)
+    V = values.shape[-1]
+    sums = torch.zeros((N * L + 256, V), dtype=torch.float64, device=dev)
+    sums.index_add_(0, idx, values.reshape(-1, V).to(torch.float64))
+    return sums[:N * L].view(N, L, V)
+
+
+def _s_cells(st):
+    """Per frame: the cells (the watershed's regions of label >= 2), their
+    centroids from one scatter of (x, y, 1) per label (read once), and the
+    Delaunay triangles of the centroids (host)."""
+    ws = st["regions"]
+    N, H, W = ws.shape
+    L = int(st["n_labels"].max()) + 1
+    yy, xx = torch.meshgrid(torch.arange(H, device=ws.device), torch.arange(W, device=ws.device),
+                            indexing="ij")
+    vals = torch.stack([xx, yy, torch.ones_like(xx)], -1).expand(N, H, W, 3)
+    sums = _label_sums(ws, L, vals).cpu().numpy()
+    cells, triangles = [], []
+    for i in range(N):
+        have = np.nonzero(sums[i, :, 2] > 0)[0]
+        cent = sums[i, have, :2] / sums[i, have, 2:3]
+        cells.append(cent)
+        sub = Subdiv2D((0, 0, W, H))
+        sub.insert(cent)
+        triangles.append(sub.getTriangleList())
+    st["centroids"], st["n_cells"], st["triangles"] = cells, [len(c) for c in cells], triangles
+
+
+def _s_flood(st):
+    """Frame 0's background, flooded from (0, 0) into a mask only."""
+    d = (SEGMENT_FLOOD_DIFF,) * 3
+    _, _, mask, _ = floodFill(st["corrected"][0], None, (0, 0), (0, 0, 0), d, d,
+                              8 | FLOODFILL_FIXED_RANGE | FLOODFILL_MASK_ONLY | (255 << 8))
+    st["flood"] = mask[1:-1, 1:-1]
+
+
+def cutout_rect(stats: np.ndarray, shape) -> tuple:
+    """grabCut's rect at half size: the box of the largest foreground blob
+    of connectedComponentsWithStats' `stats` (background row 0), halved,
+    padded by :data:`SEGMENT_RECT_PAD` and clipped to the half-size frame
+    (H, W)."""
+    H, W = shape
+    x, y, w, h, _ = stats[1 + int(np.argmax(stats[1:, 4]))]
+    x0, y0 = max(x // 2 - SEGMENT_RECT_PAD, 0), max(y // 2 - SEGMENT_RECT_PAD, 0)
+    x1 = min((x + w + 1) // 2 + SEGMENT_RECT_PAD, W)
+    y1 = min((y + h + 1) // 2 + SEGMENT_RECT_PAD, H)
+    return int(x0), int(y0), int(x1 - x0), int(y1 - y0)
+
+
+def _s_cutout(st):
+    """Frame 0 at half size, mean-shift smoothed, and grabCut's cut of the
+    largest cluster of touching cells (the largest blob of the opening)."""
+    half = pyrDown(st["corrected"][0])
+    ms_stats, gc_stats = {}, {}
+    smoothed = pyrMeanShiftFiltering(half, 10, 10, 1, stats=ms_stats)
+    labels, counts = components_batch(st["opening"][:1, ..., 0], 8)
+    stats, _ = component_stats(labels, int(counts[0]) + 1)
+    rect = cutout_rect(stats[0].cpu().numpy(), half.shape[:2])
+    mask, bgd, fgd = grabCut(smoothed, None, rect, None, None, 3, GC_INIT_WITH_RECT,
+                             stats=gc_stats)
+    st.update(half=half, smoothed=smoothed, cut_rect=rect, cut_mask=mask, bgd_model=bgd,
+              fgd_model=fgd, ms_stats=ms_stats, gc_stats=gc_stats)
+
+
+def _s_emd(st):
+    """The grey histogram of the cells of each frame (16 bins, under the
+    regions of label >= 2, from one scatter), normalised, and EMD (DIST_L1)
+    of frame 0's against each other frame's."""
+    g = st["gray"][..., 0].to(torch.int64)
+    N = g.shape[0]
+    n = torch.arange(N, device=g.device).view(N, 1, 1)
+    b = SEGMENT_HIST_BINS
+    idx = torch.where(st["regions"] >= 2, n * b + g * b // 256, N * b)
+    hist = hist_fixed(idx, N * b).view(N, b).cpu().numpy().astype(np.float32)
+    st["cell_hist"] = hist
+    sig = [np.stack([h / max(h.sum(), 1.0), np.arange(b, dtype=np.float32)], 1) for h in hist]
+    st["emd"] = np.array([EMD(sig[0], s, K.DIST_L1)[0] for s in sig[1:]])
+
+
+def _s_painted(st):
+    red = torch.tensor(BOUNDARY_BGR, dtype=torch.uint8, device=st["corrected"].device)
+    st["painted"] = torch.where((st["regions"] == -1)[..., None], red, st["corrected"])
+
+
+# the per-frame sums of forward_segment's "sums" table, in its column order
+SEGMENT_SUMS = ("corrected", "gray", "blur", "binary", "opening", "sure_bg", "sure_fg",
+                "unknown", "markers", "regions", "painted")
+
+
+def _s_sums(st):
+    st["sums"] = torch.stack([st[k].reshape(st[k].shape[0], -1).sum(dim=1, dtype=torch.int64)
+                              for k in SEGMENT_SUMS], dim=1)
+
+
+# forward_segment's stages in order: (name, fn of the state dict, the keys it
+# writes); each reads only keys written before it
+SEGMENT_STAGES = (
+    ("correct", _s_correct, ("corrected",)),
+    ("gray", _s_gray, ("gray",)),
+    ("blur", _s_blur, ("blur",)),
+    ("threshold", _s_binary, ("otsu", "binary")),
+    ("opening", _s_opening, ("opening",)),
+    ("sure_bg", _s_sure_bg, ("sure_bg",)),
+    ("sure_fg", _s_sure_fg, ("distance", "sure_fg")),
+    ("unknown", _s_unknown, ("unknown",)),
+    ("markers", _s_markers, ("n_labels", "markers")),
+    ("watershed", _s_watershed, ("regions",)),
+    ("cells", _s_cells, ("centroids", "n_cells", "triangles")),
+    ("flood", _s_flood, ("flood",)),
+    ("cutout", _s_cutout, ("half", "smoothed", "cut_rect", "cut_mask", "bgd_model",
+                           "fgd_model", "ms_stats", "gc_stats")),
+    ("emd", _s_emd, ("cell_hist", "emd")),
+    ("painted", _s_painted, ("painted",)),
+    ("sums", _s_sums, ("sums",)),
+)
+
+
+def forward_segment(x, model):
+    """Cell segmentation of an (N, H, W, 3) u8 BGR video through a
+    colour-cast camera, with `model` the camera's fitted
+    ColorCorrectionModel (:data:`SEGMENT_STAGES`).
+
+    Returns a dict: ``corrected`` (N, H, W, 3) u8; ``gray``, ``blur``,
+    ``binary``, ``opening``, ``sure_bg``, ``sure_fg`` and ``unknown`` (N, H,
+    W, 1) u8, with ``otsu`` the batch's threshold (0-dim f64) and
+    ``distance`` (N, H, W, 1) f32; ``n_labels`` (N,) numpy and ``markers``
+    (N, H, W) int32; ``regions``, the watershed's (N, H, W) int32; per frame
+    ``centroids`` (f64 numpy), ``n_cells`` and ``triangles`` (Subdiv2D's
+    (k, 6) f32); ``flood``, frame 0's (H, W) u8 background mask; for frame
+    0 at half size ``half``, ``smoothed`` (pyrMeanShiftFiltering),
+    ``cut_rect``, ``cut_mask`` (grabCut's (H/2, W/2) u8 mask) and the two
+    models, with ``ms_stats`` / ``gc_stats`` (the mean shift's moving pixels
+    and chunks, the min cuts' host ms); ``cell_hist`` (N, 16) f32 and
+    ``emd`` (N-1,) f64; ``painted``, the corrected frames with the
+    boundaries in :data:`BOUNDARY_BGR`; and ``sums``, the (N, 11) int64
+    per-frame sums of :data:`SEGMENT_SUMS`."""
+    st = {"x": x, "model": model}
+    for _, stage, _ in SEGMENT_STAGES:
+        stage(st)
+    del st["x"], st["model"]
+    return st
+
+
+def fit_cells_model(patches=None):
+    """The ColorCorrectionModel of the cells camera, fitted on the host on
+    :func:`cells_patches` (set-up: a camera is calibrated once)."""
+    model = ColorCorrectionModel(cells_patches() if patches is None else patches,
+                                 COLORCHECKER_MACBETH)
+    return model.compute()
+
+
+def entry_segment(device="cuda", shape=SHAPE_SEGMENT):
+    """``(forward_segment, (x, model))`` with :func:`make_cells_video`'s
+    frames on `device` and the camera's fitted model."""
+    video, truth = make_cells_video(shape)
+    return forward_segment, (torch.from_numpy(video).to(device), fit_cells_model(truth["patches"]))
+
+
+def segment_truth_report(out, truth) -> dict:
+    """How forward_segment's outputs `out` meet the cells video's `truth`:
+
+    - ``missed``: (frame, cell) of each truth centre not inside a region of
+      label >= 2; ``shared``: (frame, label) of each region holding two or
+      more centres;
+    - ``counts``: per frame (regions, cells);
+    - ``flood_bg``: the share of frame 0's background (pixels 2 px or more
+      outside every disc) that the flood mask covers, and
+      ``flood_cells``: the pixels of the discs' interiors (2 px or more
+      inside) that it covers;
+    - ``cut_iou``: the IoU of grabCut's foreground with the discs at half
+      size, inside its rect."""
+    regions = out["regions"].cpu().numpy()
+    N, H, W = regions.shape
+    centres, radii = truth["centres"], truth["radii"]
+    missed, shared, counts = [], [], []
+    for i in range(N):
+        pts = np.rint(centres[i]).astype(np.int64)
+        lab = regions[i, pts[:, 1], pts[:, 0]]
+        missed += [(i, k) for k in np.nonzero(lab < 2)[0]]
+        vals, n = np.unique(lab[lab >= 2], return_counts=True)
+        shared += [(i, int(v)) for v in vals[n > 1]]
+        counts.append((int(out["n_cells"][i]), len(radii)))
+    ys, xs = np.mgrid[0:H, 0:W]
+    gap = np.full((H, W), np.inf)
+    for (cx, cy), r in zip(centres[0], radii):
+        gap = np.minimum(gap, np.hypot(xs - cx, ys - cy) - r)
+    flood = out["flood"].cpu().numpy() != 0
+    bg, inner = gap >= 2, gap <= -2
+    x0, y0, w, h = out["cut_rect"]
+    hy, hx = np.mgrid[y0:y0 + h, x0:x0 + w]
+    disc = np.zeros((h, w), bool)
+    for (cx, cy), r in zip(centres[0] / 2, radii / 2):
+        disc |= np.hypot(hx - cx + 0.25, hy - cy + 0.25) <= r
+    cut = out["cut_mask"].cpu().numpy()[y0:y0 + h, x0:x0 + w]
+    fg = (cut == GC_FGD) | (cut == GC_PR_FGD)
+    return {"missed": missed, "shared": shared, "counts": counts,
+            "flood_bg": float(flood[bg].mean()), "flood_cells": int(flood[inner].sum()),
+            "cut_iou": float((fg & disc).sum() / max((fg | disc).sum(), 1))}

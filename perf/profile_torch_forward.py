@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's forwards spend their device time, on one GPU.
 
-    python3 perf/profile_torch_forward.py [--path flagship|cfg2|cfg3|cfg4|cfg5|decode|enhance|motion|lines] [--iters 5] [--table PATH]
+    python3 perf/profile_torch_forward.py [--path PATH] [--iters 5] [--repeats 20] [--table FILE]
+
+PATH is one of flagship, cfg2, cfg3, cfg4, cfg5, decode, enhance, motion,
+lines and segment.
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
@@ -27,9 +30,17 @@ sums; ``--path lines`` the lane-and-sign path (``entry.forward_lines``) on
 ``make_road_video()``'s (8, 1080, 1920, 3) frames in its stages
 (``entry.LINES_STAGES``): gray, GaussianBlur, Canny, the Hough lines and
 HoughLinesP, HoughCircles, fitLine, LSD on frame 0, the drawing and the
-sums. Each runs under ``torch.profiler`` with one ``record_function`` span
-per stage. Prints, per stage, the time between CUDA events around it (median
-of 20, unprofiled) beside the device time of its torch-op kernels
+sums; ``--path segment`` the cell-segmentation path
+(``entry.forward_segment``) on ``make_cells_video()``'s (8, 1080, 1920, 3)
+frames in its stages (``entry.SEGMENT_STAGES``): the colour correction,
+gray, GaussianBlur, Otsu, the opening, the sure background, the distance
+transform and sure foreground, the unknown band, the markers, the
+watershed, the cells and their triangles, frame 0's flood, its cut-out
+(pyrDown, mean shift, grabCut), EMD, the painted boundaries and the sums (a
+forward of seconds: run it with ``--repeats 3 --iters 1``). Each runs under
+``torch.profiler`` with one ``record_function`` span per stage. Prints, per
+stage, the time between CUDA events around it (median of ``--repeats``,
+unprofiled) beside the device time of its torch-op kernels
 (profiled); the device busy share (all kernel time over the stage spans,
 where a low share means the device waits on the host); and the top kernels.
 ``--table`` writes the profiler's full table to a file. Needs a CUDA device.
@@ -190,9 +201,26 @@ def lines_stages():
     return [(name, step(fn)) for name, fn, _ in E.LINES_STAGES]
 
 
+def segment_stages():
+    """``entry.forward_segment`` stage by stage (``entry.SEGMENT_STAGES``),
+    each adding its outputs to the state dict the previous stage passed
+    on."""
+    _, (x, model) = E.entry_segment("cuda")
+
+    def step(fn):
+        def run(st):
+            st = {"x": x, "model": model} if st is None else st
+            fn(st)
+            return st
+        return run
+
+    return [(name, step(fn)) for name, fn, _ in E.SEGMENT_STAGES]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
          "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages,
-         "enhance": enhance_stages, "motion": motion_stages, "lines": lines_stages}
+         "enhance": enhance_stages, "motion": motion_stages, "lines": lines_stages,
+         "segment": segment_stages}
 
 
 def staged(stages, marks=None):
@@ -211,6 +239,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=sorted(PATHS), default="flagship")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--repeats", type=int, default=20,
+                    help="unprofiled runs whose median time each stage")
     ap.add_argument("--table", help="write the profiler's key_averages table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -222,7 +252,7 @@ def main() -> int:
         staged(stages)
     torch.cuda.synchronize()
     per_stage = {s: [] for s in names}
-    for _ in range(20):
+    for _ in range(args.repeats):
         start = torch.cuda.Event(enable_timing=True)
         start.record()
         marks = [start]

@@ -899,3 +899,106 @@ def test_geometry_extra_on_the_card_equals_cpu(cuda):
     g = tcv.phaseCorrelateIterative(f.to(cuda), moved.to(cuda))
     c = tcv.phaseCorrelateIterative(f, moved)
     assert max(abs(a - b) for a, b in zip(g, c)) < 1e-6
+
+
+@pytest.mark.parametrize("shape", [(1, 1080, 1920, 3), (1, 540, 960, 3)])
+def test_pyr_down_c3_at_the_segmentation_shapes(cuda, shape):
+    """pyr_down with C = 3 on the segmentation path's two inputs (frame 0
+    at 1080p, and its half inside pyrMeanShiftFiltering) equals its plain
+    version, one launch each."""
+    x = _rand(shape, shape[1]).to(cuda)
+    before = PYR_DOWN.launches
+    got = pyr_down_u8(x)
+    torch.cuda.synchronize()
+    assert PYR_DOWN.launches == before + 1
+    assert tuple(got.shape) == (1, shape[1] // 2, shape[2] // 2, 3)
+    assert torch.equal(got, pyr_down_u8_plain(x))
+
+
+def _segment_same(key, g, w):
+    """Card against CPU for forward_segment's `key`: the corrected frames
+    within the warp bound (``^(1/γ)`` is the device's), grabCut's mask on at
+    most 0.01% of its pixels and then its models within rel 1e-4, the
+    distances within 1e-5, the min cuts' host times not at all, the rest
+    exactly."""
+    if key == "gc_stats":
+        return True
+    if key in ("corrected", "cut_mask", "distance"):
+        d = (g.cpu().double() - w.double()).abs()
+        bound = {"corrected": int(d.max()) <= 1 and int(d.count_nonzero()) <= 1e-3 * d.numel(),
+                 "cut_mask": int(d.count_nonzero()) <= 1e-4 * d.numel(),
+                 "distance": float(d.max()) <= 1e-5}
+        return g.shape == w.shape and bound[key]
+    if key in ("bgd_model", "fgd_model"):
+        return np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+    return _same(g, w)
+
+
+def test_segment_on_the_card_equals_cpu(cuda):
+    """The cell-segmentation path at (2, 270, 480, 3): sep_filter launches
+    once on route k5 and pyr_down twice (C = 3), through the registry; each
+    stage on the card, fed the card's own input to it, equals the CPU's on
+    that input, and so does the whole chain."""
+    fwd, (x, model) = E.entry_segment("cpu", (2, 270, 480, 3))
+    before, pyr_before = dict(SEP_FILTER.routes), PYR_DOWN.launches
+    reset_tier_stats()
+    got = fwd(x.to(cuda), model)
+    torch.cuda.synchronize()
+    assert tier_stats() == {"tier.sep_filter_u8.cuda": 1, "tier.pyr_down_u8.cuda": 2}
+    assert SEP_FILTER.routes["k5"] == before["k5"] + 1
+    assert PYR_DOWN.launches == pyr_before + 2
+    assert got["painted"].device.type == "cuda" and got["cut_mask"].device.type == "cuda"
+    card = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in got.items()}
+    card.update(x=x, model=model)
+    for name, stage, keys in E.SEGMENT_STAGES:
+        st = dict(card)
+        stage(st)
+        for k in keys:
+            assert _segment_same(k, card[k], st[k]), (name, k)
+    want = E.forward_segment(x, model)
+    if torch.equal(got["corrected"].cpu(), want["corrected"]):
+        for k, w in want.items():
+            assert _segment_same(k, got[k], w), k
+
+
+def test_segmentation_ops_on_the_card_equal_cpu(cuda):
+    """pyrMeanShiftFiltering, kmeans (integer points), watershed and
+    floodFill on card tensors, IntelligentScissorsMB's features, and the
+    colour correction (within the warp bound) equal the CPU; grabCut's mask
+    within 0.01% of its pixels."""
+    import cv2
+    rng = np.random.default_rng(15)
+    img = cv2.GaussianBlur(rng.integers(0, 256, (90, 120, 3), np.uint8), (5, 5), 2)
+    t, g = torch.from_numpy(img), torch.from_numpy(img).to(cuda)
+    ms = tcv.pyrMeanShiftFiltering(g, 8, 12, 1)
+    assert ms.device.type == "cuda"
+    assert torch.equal(ms.cpu(), tcv.pyrMeanShiftFiltering(t, 8, 12, 1))
+    pts = np.rint(rng.normal(0, 20, (4000, 3))).astype(np.float32)
+    for flags in (tcv.KMEANS_RANDOM_CENTERS, tcv.KMEANS_PP_CENTERS):
+        kg = tcv.kmeans(torch.from_numpy(pts).to(cuda), 4, None, (3, 15, 0.0), 2, flags)
+        kc = tcv.kmeans(torch.from_numpy(pts), 4, None, (3, 15, 0.0), 2, flags)
+        assert torch.equal(kg[1].cpu(), kc[1]) and torch.equal(kg[2].cpu(), kc[2])
+        assert abs(kg[0] - kc[0]) <= 1e-5 * abs(kc[0])
+    mk = np.zeros((90, 120), np.int32)
+    mk[20, 30], mk[60, 90], mk[45, 10] = 1, 2, 3
+    mg = torch.from_numpy(mk).to(cuda)
+    tcv.watershed(g, mg)
+    assert _same(mg.cpu(), tcv.watershed(t, torch.from_numpy(mk)))
+    ff = tcv.floodFill(g, None, (60, 45), (9, 9, 9), (6, 6, 6), (6, 6, 6), 8)
+    assert ff[1].device.type == "cuda"
+    assert _same(ff, tcv.floodFill(t, None, (60, 45), (9, 9, 9), (6, 6, 6), (6, 6, 6), 8))
+    for canny in (False, True):
+        feats = []
+        for src in (g, t):
+            s = tcv.segmentation.IntelligentScissorsMB()
+            if canny:
+                s.setEdgeFeatureCannyParameters(40, 90)
+            s.applyImage(src)
+            feats.append((s._non_edge, s._grad_dir, s._grad_mag))
+        assert _same(*feats), canny
+    gm = tcv.grabCut(g, None, (20, 15, 70, 60), None, None, 2, tcv.GC_INIT_WITH_RECT)[0]
+    cm = tcv.grabCut(t, None, (20, 15, 70, 60), None, None, 2, tcv.GC_INIT_WITH_RECT)[0]
+    assert gm.device.type == "cuda" and int((gm.cpu() != cm).sum()) <= 1e-4 * cm.numel()
+    model = E.fit_cells_model()
+    d = (model.correctImage(g).cpu().int() - model.correctImage(t).int()).abs()
+    assert int(d.max()) <= 1 and int(d.count_nonzero()) <= 1e-3 * d.numel()

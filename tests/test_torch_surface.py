@@ -1,0 +1,227 @@
+"""The port's EMD, Subdiv2D, IntelligentScissorsMB and colour correction
+model on the CPU, against opencv_tpu (exactly) and cv2 (under the
+reference tests' bounds: tests/test_misc_ops.py, test_surface_classes.py,
+test_hough_seg.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+from common import cv2
+
+import opencv_tpu as jcv
+import opencv_tpu_torch as tcv
+from opencv_tpu_torch.ops import ccm as C
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_emd_equals_opencv_tpu_and_matches_cv2(seed):
+    rng = np.random.default_rng(seed)
+    s1 = np.hstack([rng.random((4 + seed, 1)) + 0.2,
+                    rng.random((4 + seed, 3)) * 10]).astype(np.float32)
+    s2 = np.hstack([rng.random((6, 1)) + 0.2, rng.random((6, 3)) * 10]).astype(np.float32)
+    for dt in (cv2.DIST_L1, cv2.DIST_L2, cv2.DIST_C):
+        o, lb, fo = tcv.EMD(torch.from_numpy(s1), s2, dt)
+        j, jlb, fj = jcv.EMD(s1, s2, dt)
+        assert o == j and lb == jlb
+        np.testing.assert_array_equal(fo, fj)
+        r, _, fl = cv2.EMD(s1, s2, dt)
+        assert abs(r - o) < 1e-5, (seed, dt, r, o)
+        np.testing.assert_allclose(fo.sum(1), fl.sum(1), atol=1e-4)
+        np.testing.assert_allclose(fo.sum(0), fl.sum(0), atol=1e-4)
+    cost = rng.random((len(s1), len(s2))).astype(np.float32)
+    got = tcv.EMD(s1, s2, cv2.DIST_USER, torch.from_numpy(cost))
+    assert got[0] == jcv.EMD(s1, s2, cv2.DIST_USER, cost)[0]
+
+
+def _subdivs(pts, rect=(0, 0, 100, 100)):
+    ours, ref = tcv.Subdiv2D(rect), jcv.Subdiv2D(rect)
+    ours.insert(torch.from_numpy(pts))
+    ref.insert(pts)
+    return ours, ref
+
+
+def test_subdiv2d_equals_opencv_tpu():
+    """Every query of the triangulation, with the points given as a tensor
+    to the port, equals opencv_tpu's exactly."""
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(10, 90, (15, 2)).astype(np.float32)
+    ours, ref = _subdivs(pts)
+    for name in ("getTriangleList", "getEdgeList", "getLeadingEdgeList"):
+        got, want = getattr(ours, name)(), getattr(ref, name)()
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    for q in ((50, 50), (pts[3][0], pts[3][1]), (5, 95), (150, 3), torch.tensor([33.0, 61.0])):
+        assert ours.locate(q) == ref.locate(np.asarray(q)), q
+        assert ours.findNearest(q) == ref.findNearest(np.asarray(q)), q
+    for v in (3, 4, 10, 18, 19, 40):
+        assert ours.getVertex(v) == ref.getVertex(v)
+    for idx in ([], [4, 7, 11]):
+        (gf, gc), (wf, wc) = ours.getVoronoiFacetList(idx), ref.getVoronoiFacetList(idx)
+        assert len(gf) == len(wf) and all(np.array_equal(a, b) for a, b in zip(gf, wf))
+        np.testing.assert_array_equal(gc, wc)
+    assert ours.insert((20.5, 30.25)) == ref.insert((20.5, 30.25))
+    with pytest.raises(ValueError):
+        ours.insert((120.0, 3.0))
+    assert tcv.Subdiv2D.PTLOC_VERTEX == jcv.Subdiv2D.PTLOC_VERTEX == 1
+
+
+def test_subdiv2d_delaunay_matches_cv2():
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(10, 90, (12, 2)).astype(np.float32)
+    ours = tcv.Subdiv2D((0, 0, 100, 100))
+    ref = cv2.Subdiv2D((0, 0, 100, 100))
+    for p in pts:
+        ours.insert((float(p[0]), float(p[1])))
+        ref.insert((float(p[0]), float(p[1])))
+
+    def norm(tl):
+        keep = []
+        for t in np.asarray(tl).reshape(-1, 6):
+            xs, ys = t[0::2], t[1::2]
+            if (xs >= 0).all() and (xs <= 100).all() and (ys >= 0).all() and (ys <= 100).all():
+                keep.append(tuple(sorted(zip(np.round(xs, 3), np.round(ys, 3)))))
+        return sorted(keep)
+
+    assert norm(ours.getTriangleList()) == norm(ref.getTriangleList())
+    assert ours.findNearest((50, 50))[0] == ref.findNearest((50, 50))[0]
+    f, c = ours.getVoronoiFacetList([])
+    assert len(f) == 12 and c.shape == (12, 2)
+
+
+def test_hypot_of_f32_sobel_pairs():
+    """numpy's f32 hypot of every signed pair of 3×3 Sobel values (|v| <=
+    1020: 4.2 M pairs) is the correctly rounded root (what the card's f64
+    sqrt rounded to f32 gives), and the port's table gives it for each."""
+    from opencv_tpu_torch.ops.scissors import _hypot
+    v = np.arange(-1020, 1021, dtype=np.float32)
+    a, b = np.meshgrid(v, v, indexing="ij")
+    want = np.hypot(a, b)
+    root = np.sqrt(a.astype(np.float64) ** 2 + b.astype(np.float64) ** 2).astype(np.float32)
+    assert want.dtype == np.float32 and a.size == 2041 ** 2
+    np.testing.assert_array_equal(root, want)
+    got = _hypot(torch.from_numpy(a), torch.from_numpy(b), True)
+    np.testing.assert_array_equal(got.numpy(), want)
+    f = np.random.default_rng(0).normal(0, 50, (2, 30, 40)).astype(np.float32)
+    np.testing.assert_array_equal(_hypot(*torch.from_numpy(f), False).numpy(), np.hypot(*f))
+
+
+def _wave():
+    rng = np.random.default_rng(0)
+    img = np.zeros((60, 80), np.uint8)
+    for y in range(60):
+        img[y, int(35 + 10 * np.sin(y / 8)):] = 180
+    return (img.astype(int) + rng.integers(0, 12, img.shape)).astype(np.uint8)
+
+
+def _configure(s, mode):
+    if mode == "canny":
+        s.setEdgeFeatureCannyParameters(50, 100)
+    elif mode == "zero crossing, min magnitude":
+        s.setEdgeFeatureZeroCrossingParameters(20.0)
+    elif mode == "magnitude limit, weights":
+        s.setGradientMagnitudeMaxLimit(150.3).setWeights(0.3, 0.5, 0.2)
+    return s
+
+
+@pytest.mark.parametrize("mode", ["zero crossing", "canny", "zero crossing, min magnitude",
+                                  "magnitude limit, weights"])
+@pytest.mark.parametrize("colour", [False, True], ids=["gray", "bgr"])
+def test_intelligent_scissors_equals_opencv_tpu(mode, colour):
+    """The features, the paths map and the contours equal opencv_tpu's."""
+    img = _wave()
+    if colour:
+        img = np.stack([img, img // 2, 255 - img], -1)
+    res = []
+    for m, src in ((jcv, img), (tcv, torch.from_numpy(img))):
+        s = _configure(m.segmentation.IntelligentScissorsMB(), mode)
+        s.applyImage(src)
+        s.buildMap((38, 5))
+        res.append([s._non_edge, s._grad_dir, s._grad_mag, s._paths, s.getContour((40, 55)),
+                    s.getContour((70, 30), backward=True)])
+    for name, g, w in zip(("non_edge", "grad_dir", "grad_mag", "paths", "contour", "backward"),
+                          *res):
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+
+
+def test_intelligent_scissors_matches_cv2():
+    img = _wave()
+    for mode in ("zero crossing", "canny"):
+        ours = _configure(tcv.segmentation_IntelligentScissorsMB(), mode)
+        ref = _configure(cv2.segmentation.IntelligentScissorsMB(), mode)
+        for s in (ours, ref):
+            s.applyImage(img)
+            s.buildMap((38, 5))
+        np.testing.assert_array_equal(ours.getContour((40, 55)).reshape(-1, 2),
+                                      np.asarray(ref.getContour((40, 55))).reshape(-1, 2))
+    img2 = np.zeros((40, 50), np.uint8)
+    img2[:, 25:] = 200
+    ours = tcv.segmentation.IntelligentScissorsMB()
+    ref = cv2.segmentation.IntelligentScissorsMB()
+    for s in (ours, ref):
+        s.setEdgeFeatureCannyParameters(50, 100)
+        s.applyImage(img2)
+        s.buildMap((25, 5))
+    np.testing.assert_array_equal(ours.getContour((25, 35)).reshape(-1, 2),
+                                  np.asarray(ref.getContour((25, 35))).reshape(-1, 2))
+
+
+def test_intelligent_scissors_apply_image_features():
+    rng = np.random.default_rng(2)
+    ne = (rng.random((30, 40)) < 0.8).astype(np.uint8)
+    gd = rng.normal(size=(30, 40, 2)).astype(np.float32)
+    gm = rng.random((30, 40)).astype(np.float32)
+    res = []
+    for m, conv in ((jcv, np.asarray), (tcv, torch.from_numpy)):
+        s = m.segmentation.IntelligentScissorsMB()
+        s.applyImageFeatures(conv(ne), conv(gd), conv(gm))
+        s.buildMap(torch.tensor([3, 4]) if m is tcv else (3, 4))
+        res.append((s._paths, s.getContour((35, 25))))
+    for g, w in zip(*res):
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(RuntimeError):
+        tcv.segmentation.IntelligentScissorsMB().buildMap((0, 0))
+
+
+def _cast_patches():
+    ref_lin = np.clip(C._lab_d50_to_linear_rgb(C._MACBETH_LAB), 0, 1)
+    M = np.array([[0.9, 0.1, 0.0], [0.05, 0.85, 0.05], [0.0, 0.1, 0.95]])
+    return (np.clip(ref_lin @ np.linalg.inv(M), 0, 1) ** (1 / 2.2)).reshape(-1, 1, 3)
+
+
+@pytest.mark.parametrize("ccm_type", [tcv.ccm.CCM_LINEAR, tcv.ccm.CCM_AFFINE])
+def test_color_correction_model_equals_opencv_tpu(ccm_type):
+    """The fit and every getter equal opencv_tpu's bit for bit; correctImage
+    on u8 is exact, on floats within 1e-15 (torch's pow against numpy's)."""
+    src = _cast_patches()
+    ours = tcv.ccm_ColorCorrectionModel(torch.from_numpy(src), 0).setCcmType(ccm_type)
+    ref = jcv.ccm_ColorCorrectionModel(src, 0).setCcmType(ccm_type)
+    ours.setWeightsList(np.linspace(1, 2, 24))
+    ref.setWeightsList(np.linspace(1, 2, 24))
+    ours.compute()
+    ref.compute()
+    for name in ("getCCM", "getLoss", "getMask", "getWeights", "getSrcLinearRGB",
+                 "getRefLinearRGB"):
+        np.testing.assert_array_equal(getattr(ours, name)(), getattr(ref, name)(), err_msg=name)
+    rng = np.random.default_rng(4)
+    u8 = rng.integers(0, 256, (3, 64, 80, 3), np.uint8)
+    got = ours.correctImage(torch.from_numpy(u8))
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), ref.correctImage(u8))
+    f = rng.random((40, 50, 3)) * 1.2 - 0.1
+    np.testing.assert_allclose(ours.correctImage(f).numpy(), ref.correctImage(f), rtol=0,
+                               atol=1e-15)
+
+
+def test_color_correction_model_matches_cv2():
+    src = _cast_patches()
+    ours = tcv.ccm_ColorCorrectionModel(src, 0)
+    ours.compute()
+    ref = cv2.ccm.ColorCorrectionModel(src.astype(np.float64), cv2.ccm.COLORCHECKER_MACBETH)
+    ref.compute()
+    assert np.allclose(ours.getColorCorrectionMatrix(), np.asarray(ref.getColorCorrectionMatrix()),
+                       atol=5e-3)
+    assert abs(ours.getLoss() - ref.getLoss()) < 0.1
+    sat = tcv.ccm_ColorCorrectionModel(src, 0).setSaturatedThreshold(0.02, 0.98)
+    want = jcv.ccm_ColorCorrectionModel(src, 0).setSaturatedThreshold(0.02, 0.98)
+    np.testing.assert_array_equal(sat.getMask(), want.getMask())
+    assert sat.getLoss() == want.getLoss()
