@@ -95,7 +95,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       the bounds of ``motion_compare`` (shifts within 1e-6 px, u8 images,
       labels and stats exact, the background exact in f32, distances within
       1e-5, moments within rel 1e-12), printing the count and size of any
-      difference;
+      difference; the contour stage runs the native scan
+      (``native/hosttails.cpp``), which must equal its Python twin on the
+      last frame's mask, and prints its host ms;
    i. the lane-and-sign path: ``entry_lines("cuda")``'s forward (gray →
       GaussianBlur 5x5 → Canny 50/150 → the Hough accumulator of every
       frame and HoughLinesP → HoughCircles of the blurred frames → fitLine
@@ -137,6 +139,27 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       its paths on a crop, kmeans with each flag, floodFill on a float
       image, Subdiv2D's facets and locate, the model's getters), after the
       launch counts are read;
+   k. the registration path: ``forward_register`` (gray → resize to the
+      0.6 Mpx registration size, 1033x581, with INTER_LINEAR_EXACT → SIFT:
+      the f32 Gaussian and DoG pyramids and the extremum masks on the card,
+      one read-back through pinned memory, the host tails → FLANN kd-tree
+      kNN (k = 2) of each consecutive pair → the ratio test d0 < 0.7 d1) on
+      ``make_pan_video()``'s (8, 1080, 1920, 3) frames, which must launch no
+      kernel; at least REGISTER_MIN_SHARE of the good pairs within
+      REGISTER_TOL_PX of where the pan's true matrix sends them, and at
+      least REGISTER_MIN_GOOD good pairs in every frame pair; then frames
+      0-1 on the CPU: gray, the resize, every pyramid level and mask, the
+      keypoints (pt, size, angle, response, octave), the descriptors and
+      pair 0's kNN rows and good pairs equal the card's exactly;
+   l. the mesh at world size 1: one NCCL rank on a ``FileStore`` in a
+      temporary directory and a 1x1 ("data", "sp") mesh;
+      ``spatial_gaussian_blur`` (zero border) and ``spatial_sep_filter``
+      (REFLECT_101) on the flagship's gray (8, 1080, 1920, 1) batch must each
+      launch sep_filter once, on route k5, and equal GaussianBlur 5x5 under
+      the same border exactly; ``sharded_otsu`` must equal threshold's Otsu
+      value and ``sharded_min_max`` / ``sharded_hist`` the single-card
+      results; each function's wall (CUDA events) beside the single-card
+      GaussianBlur; then the group is destroyed;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -166,8 +189,13 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    and the drawing's device writes; the segmentation forward and its
    sixteen stages beside their bytes bounds (median of 5), with busy share,
    host syncs, peak memory, the mean shift's own peak, the min cuts' host
-   ms and the watershed floods pooled and one after another.  A kernel's
-   share of its bound is bound_ms / ms.
+   ms and the watershed floods pooled and one after another; the
+   registration forward's nine stages beside their bytes bounds (the
+   device stages by CUDA events, median of 5; the host tails, FLANN's build
+   and search and the ratio test once on the host clock), the bound's
+   terms, and one profiled forward's wall, busy share and peak memory, with
+   the 4k run's wall and host syncs.  A kernel's share of its bound is
+   bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -234,6 +262,12 @@ CUT_MODEL_RTOL = 1e-4
 SEGMENT_COUNT_TOL = 0.1
 FLOOD_MIN_BG = 0.95
 CUT_MIN_IOU = 0.85
+# (registration path) the truth: this share of all good pairs within
+# REGISTER_TOL_PX of where the pan's matrix sends them, and at least
+# REGISTER_MIN_GOOD good pairs in every frame pair
+REGISTER_TOL_PX = 1.5
+REGISTER_MIN_SHARE = 0.90
+REGISTER_MIN_GOOD = 100
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -388,12 +422,13 @@ def host_median(fn, iters: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def busy_share(fn, iters: int = 3) -> tuple[float, float, float]:
+def busy_share(fn, iters: int = 3, warmup: bool = True) -> tuple[float, float, float]:
     """(kernel time / wall time, kernel ms, wall ms) per call of fn, from
-    torch.profiler over `iters` calls after one warm-up; the wall time ends
-    in a synchronize."""
+    torch.profiler over `iters` calls after one warm-up (none for a path that
+    has just run); the wall time ends in a synchronize."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1187,6 +1222,22 @@ def main() -> int:
     chain_report8 = motion_compare("chain", got3, E.forward_motion(got3["x"]))
     log(f"motion path, frames 0-2: each stage on the card's own input vs the CPU: "
         f"{'; '.join(stage_report8)}; the whole chain vs the CPU: {'; '.join(chain_report8)}")
+    # the contour stage takes the native scan (native/hosttails.cpp); it
+    # equals its Python twin on the last frame's mask
+    from opencv_tpu_torch.ops import contours as contours_mod
+    contours8 = dict((n, f) for n, f, _ in E.MOTION_STAGES)["contours"]
+    last8 = outs8["mask"][-1, ..., 0].cpu().numpy()
+    twin8 = contours_mod._find_contours_simple((last8 != 0).astype(np.int32),
+                                               cv.RETR_EXTERNAL, cv.CHAIN_APPROX_SIMPLE)[0]
+    if not same_results(outs8["contours"], twin8):
+        raise AssertionError("motion contours: the native scan differs from its Python twin")
+    t_ctr8 = host_median(lambda: contours8({"mask": outs8["mask"]}), iters=5, warmup=1)
+    t_twin8 = host_median(lambda: contours_mod._find_contours_simple(
+        (last8 != 0).astype(np.int32), cv.RETR_EXTERNAL, cv.CHAIN_APPROX_SIMPLE), iters=3,
+        warmup=0)
+    log(f"motion contour stage (native scan, {len(twin8)} contours, equal to the Python "
+        f"trace): {t_ctr8:.4f} ms on the host clock with the frame's read-back (median of 5); "
+        f"the Python trace alone {t_twin8:.4f} ms (median of 3)  [{card}]")
 
     # -- 4i. the lane-and-sign path: gray -> GaussianBlur (sep_filter k5) ->
     # Canny (k3) -> Hough lines -> HoughLinesP -> HoughCircles (k3) -> fitLine
@@ -1441,6 +1492,148 @@ def main() -> int:
          [getattr(E.fit_cells_model(), g)() for g in
           ("getCCM", "getLoss", "getMask", "getWeights", "getSrcLinearRGB", "getRefLinearRGB")])
     log(f"segmentation slice sweep, card equal to the CPU: {', '.join(sweep)}")
+
+    # -- 4k. the registration path: gray -> resize to 0.6 Mpx (LINEAR_EXACT)
+    # -> SIFT (pyramids and masks on the card, one read-back, host tails) ->
+    # FLANN kNN of each consecutive pair -> the ratio test
+    video11, truth11 = E.make_pan_video()
+    x11 = torch.from_numpy(video11).to(dev)
+    reset_tier_stats()
+    held11 = []
+    t11 = time.perf_counter()
+    n_sync11, cfg11 = run_counted(
+        lambda: count_syncs(lambda: held11.append(E.forward_register(x11))))
+    wall11 = (time.perf_counter() - t11) * 1e3
+    outs11 = held11[0]
+    tiers11 = tier_stats()
+    log(f"registration path launches: {cfg11}; dispatch {tiers11}")
+    if (cfg11["opencv_sep_filter"] or cfg11["opencv_pyr_down"] or cfg11["opencv_gauss5_down2"]
+            or any(k.endswith(".cuda") for k in tiers11)):
+        raise AssertionError(f"registration path: no kernel may launch (its float ops have "
+                             f"none); got {cfg11}, {tiers11}")
+    N11, H11, W11, _ = E.SHAPE_REGISTER
+    w11, h11 = E.register_size(H11, W11)
+    for key, shape, dtype in (("gray", (N11, H11, W11, 1), torch.uint8),
+                              ("small", (N11, h11, w11, 1), torch.uint8)):
+        got = outs11[key]
+        if tuple(got.shape) != shape or got.dtype != dtype:
+            raise AssertionError(f"register {key}: {tuple(got.shape)} {got.dtype}")
+    for o, levels in enumerate(outs11["gpyr"] + outs11["dog"]):
+        for a in levels:
+            if a.dtype != torch.float32 or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"register pyramid octave {o}: {a.dtype}, finite")
+    rep11 = E.register_truth_report(outs11, truth11, E.SHAPE_REGISTER, REGISTER_TOL_PX)
+    n_kp11 = [len(k) for k in outs11["keypoints"]]
+    if rep11["share"] < REGISTER_MIN_SHARE or min(n for n, _, _ in rep11["per_pair"]) < \
+            REGISTER_MIN_GOOD:
+        raise AssertionError(f"registration truth: {rep11}")
+    log(f"registration path: {w11}x{h11} registration frames, {len(outs11['gpyr'])} octaves, "
+        f"keypoints per frame {n_kp11}; good pairs per frame pair "
+        f"{[c[0] for c in outs11['counts']]} of {[c[1] for c in outs11['counts']]} queried; "
+        f"{rep11['share']:.4f} of good pairs within {REGISTER_TOL_PX} px of the pan's truth "
+        f"(per pair: share {[round(r[1], 4) for r in rep11['per_pair']]}, median error "
+        f"{[round(r[2], 4) for r in rep11['per_pair']]} px); {n_sync11} host syncs; the "
+        f"forward {wall11:.1f} ms on the host clock  [{card}]")
+    # frames 0-1 on the CPU: every level and mask, the keypoints, the
+    # descriptors and pair 0's matches equal the card's exactly
+    cpu11 = E.forward_register(x11[:2].cpu())
+    n_lv = 0
+    for key in ("gray", "small"):
+        check_equal(f"register {key} frames 0-1", outs11[key][:2].cpu(), cpu11[key])
+    for key in ("gpyr", "dog", "masks"):
+        for o, (g_oct, c_oct) in enumerate(zip(outs11[key], cpu11[key])):
+            if len(g_oct) != len(c_oct):
+                raise AssertionError(f"register {key} octave {o}: {len(g_oct)} levels on the "
+                                     f"card, {len(c_oct)} on the CPU")
+            for i, (g_lv, c_lv) in enumerate(zip(g_oct, c_oct)):
+                check_equal(f"register {key} octave {o} level {i}", g_lv[:2].cpu(), c_lv)
+                n_lv += 1
+    for b in range(2):
+        kg = [(k.pt, k.size, k.angle, k.response, k.octave) for k in outs11["keypoints"][b]]
+        kc = [(k.pt, k.size, k.angle, k.response, k.octave) for k in cpu11["keypoints"][b]]
+        if kg != kc or not np.array_equal(outs11["descriptors"][b], cpu11["descriptors"][b]):
+            raise AssertionError(f"register frame {b}: {len(kg)} keypoints on the card, "
+                                 f"{len(kc)} on the CPU, or their descriptors differ")
+    knn_g = [[(m.queryIdx, m.trainIdx, m.distance) for m in r] for r in outs11["knn"][0]]
+    knn_c = [[(m.queryIdx, m.trainIdx, m.distance) for m in r] for r in cpu11["knn"][0]]
+    if knn_g != knn_c or not np.array_equal(outs11["good"][0], cpu11["good"][0]):
+        raise AssertionError("register pair 0: the card's matches differ from the CPU's")
+    log(f"registration path, frames 0-1: gray, the resize, all {n_lv} pyramid levels and "
+        f"masks, the {n_kp11[:2]} keypoints (pt, size, angle, response, octave), their "
+        f"descriptors and pair 0's {len(knn_g)} kNN rows and {len(outs11['good'][0])} good "
+        f"pairs equal the CPU plain forward exactly")
+    del cpu11
+
+    # -- 4l. the mesh at world size 1: one NCCL rank on a FileStore, the
+    # spatial filters through sep_filter (k5) and the all-reduced statistics
+    import tempfile
+
+    import torch.distributed as dist
+
+    from opencv_tpu_torch import parallel as par
+    from opencv_tpu_torch.ops.hist import hist_fixed
+    gray12 = cv.cvtColor(imgs, cv.COLOR_BGR2GRAY)
+    timer12 = Timer(dev)
+    walls12 = {}
+    with tempfile.TemporaryDirectory() as d12:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{d12}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh12 = par.make_mesh(1, 1)
+            local12 = par.shard_batch(gray12, mesh12)
+            blur12, cfg12a = run_counted(
+                lambda: par.spatial_gaussian_blur(local12, (5, 5), 1.1, mesh12))
+            sep12, cfg12b = run_counted(
+                lambda: par.spatial_sep_filter(local12, (5, 5), 1.1, mesh12,
+                                               border=cv.BORDER_REFLECT_101))
+            for what, c in (("spatial_gaussian_blur", cfg12a), ("spatial_sep_filter", cfg12b)):
+                if (c["opencv_sep_filter"] != 1 or c["sep_filter routes"]["k5"] != 1
+                        or c["opencv_pyr_down"] or c["opencv_gauss5_down2"]):
+                    raise AssertionError(f"mesh {what}: sep_filter must launch once, on route "
+                                         f"k5, and no other kernel; got {c}")
+            check_equal("mesh spatial_gaussian_blur vs GaussianBlur 5x5 BORDER_CONSTANT",
+                        blur12, cv.GaussianBlur(gray12, (5, 5), 1.1,
+                                                borderType=cv.BORDER_CONSTANT))
+            check_equal("mesh spatial_sep_filter REFLECT_101 vs GaussianBlur 5x5", sep12,
+                        cv.GaussianBlur(gray12, (5, 5), 1.1))
+            otsu12 = par.sharded_otsu(local12, mesh12)
+            want_otsu12 = cv.threshold(gray12, 0, 255, cv.THRESH_BINARY | cv.THRESH_OTSU)[0]
+            mn12, mx12 = par.sharded_min_max(local12, mesh12)
+            want_mm12 = cv.minMaxLoc(gray12.reshape(-1, gray12.shape[2]))[:2]
+            hist12 = par.sharded_hist(local12, mesh12)
+            want_hist12 = hist_fixed(gray12.to(torch.int32), 256)
+            if (float(otsu12) != float(want_otsu12) or (int(mn12), int(mx12)) != want_mm12
+                    or not torch.equal(hist12.to(torch.int64), want_hist12)):
+                raise AssertionError(f"mesh reductions: Otsu {float(otsu12)} / "
+                                     f"{float(want_otsu12)}, min/max {(int(mn12), int(mx12))} / "
+                                     f"{want_mm12}, histograms equal "
+                                     f"{torch.equal(hist12.to(torch.int64), want_hist12)}")
+            # walls, as the caller sees them (CUDA events, median of 20)
+            for what, fn in (
+                    ("spatial_gaussian_blur", lambda: par.spatial_gaussian_blur(
+                        local12, (5, 5), 1.1, mesh12)),
+                    ("spatial_sep_filter REFLECT_101", lambda: par.spatial_sep_filter(
+                        local12, (5, 5), 1.1, mesh12, border=cv.BORDER_REFLECT_101)),
+                    ("GaussianBlur 5x5 (single card)", lambda: cv.GaussianBlur(gray12, (5, 5),
+                                                                               1.1)),
+                    ("sharded_hist", lambda: par.sharded_hist(local12, mesh12)),
+                    ("sharded_otsu", lambda: par.sharded_otsu(local12, mesh12)),
+                    ("sharded_min_max", lambda: par.sharded_min_max(local12, mesh12))):
+                walls12[what] = timer12(fn)
+        finally:
+            dist.destroy_process_group()
+    cfg12 = {k: cfg12a[k] + cfg12b[k] for k in cfg12a if k != "sep_filter routes"}
+    cfg12["sep_filter routes"] = {r: cfg12a["sep_filter routes"][r] + cfg12b["sep_filter routes"][r]
+                                  for r in cfg12a["sep_filter routes"]}
+    log(f"mesh at world size 1 (NCCL, 1x1 mesh) on {tuple(gray12.shape)}: "
+        f"spatial_gaussian_blur and spatial_sep_filter (REFLECT_101) equal GaussianBlur 5x5 "
+        f"under the same border exactly, each through one sep_filter launch on route k5 "
+        f"(launches {cfg12}); sharded_otsu {float(otsu12)} equals threshold's Otsu, "
+        f"sharded_min_max {(int(mn12), int(mx12))} and sharded_hist equal the single-card "
+        f"results; the group is destroyed")
+    for what, t in walls12.items():
+        log(f"time mesh {what} {tuple(gray12.shape)}: {t:.4f} ms  [{card}]")
+    del blur12, sep12, local12, gray12
 
     # -- 5. timing
     timer = Timer(dev)
@@ -1906,6 +2099,61 @@ def main() -> int:
         f"{os.cpu_count()} CPUs)  [{card}]")
     del frames10, markers10, half10
 
+    # the registration path, as the caller sees it (host tails included):
+    # its stages one after another on one state, the device stages by CUDA
+    # events (median of 5), the host stages once on the host clock; then one
+    # forward under torch.profiler (busy share, wall) with the peak memory.
+    # Bytes: each stage's inputs read once and outputs written once (the
+    # pyramid's input is the small frames, its outputs every Gaussian and DoG
+    # level; the masks read the DoG levels; the read-back moves every level
+    # and mask once); the host stages move no device bytes
+    n11, m11 = N11 * H11 * W11, N11 * h11 * w11
+    st11 = {"x": x11, "mpx": E.REGISTER_MPX, "sift": cv.SIFT_create()}
+    stage_ms11, stage_bytes11 = {}, {}
+    for name, stage, keys in E.REGISTER_STAGES:
+        if name in ("gray", "resize", "pyramid", "masks"):
+            stage_ms11[name] = timer(lambda: stage(dict(st11)), iters=5, warmup=1)
+            stage(st11)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage(st11)
+            torch.cuda.synchronize()
+            stage_ms11[name] = (time.perf_counter() - t0) * 1e3
+    lv_bytes = sum(a.numel() * a.element_size() for o in st11["gpyr"] + st11["dog"] for a in o)
+    dog_bytes = sum(a.numel() * a.element_size() for o in st11["dog"] for a in o)
+    mask_bytes = sum(a.numel() for o in st11["masks"] for a in o)
+    stage_bytes11 = {"gray": 4 * n11, "resize": n11 + m11, "pyramid": m11 + lv_bytes,
+                     "masks": dog_bytes + mask_bytes, "readback": lv_bytes + mask_bytes,
+                     "features": 0, "flann_build": 0, "flann_search": 0, "ratio": 0}
+    fwd_bytes11 = sum(stage_bytes11.values())
+    for name, t in stage_ms11.items():
+        b_ms = bound(stage_bytes11[name], 0)[0]
+        log(f"time register {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({stage_bytes11[name] / 1e6:.1f} MB), share of bound {b_ms / t:.6f}  [{card}]")
+    log(f"register bytes bound terms (MB): gray {4 * n11 / 1e6:.1f} (BGR in, gray out), resize "
+        f"{(n11 + m11) / 1e6:.1f}, pyramid {m11 / 1e6:.1f} in + {lv_bytes / 1e6:.1f} out "
+        f"({sum(len(o) for o in st11['gpyr'])} Gaussian and {sum(len(o) for o in st11['dog'])} "
+        f"DoG f32 levels; one octave-0 level {st11['gpyr'][0][0].numel() * 4 / 1e6:.1f}), masks "
+        f"{dog_bytes / 1e6:.1f} in + {mask_bytes / 1e6:.1f} out, read-back "
+        f"{(lv_bytes + mask_bytes) / 1e6:.1f}; total {fwd_bytes11 / 1e6:.1f} MB = "
+        f"{bound(fwd_bytes11, 0)[0]:.4f} ms")
+    del st11
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base11 = torch.cuda.memory_allocated()
+    busy11, k_ms11, f_ms11 = busy_share(lambda: E.forward_register(x11), iters=1, warmup=False)
+    peak11 = torch.cuda.max_memory_allocated() - base11
+    log(f"time forward_register {tuple(x11.shape)}: {f_ms11:.4f} ms (profiled run; the 4k run "
+        f"{wall11:.4f} ms; stages summed {sum(stage_ms11.values()):.4f} ms) on the host clock, "
+        f"bytes bound {bound(fwd_bytes11, 0)[0]:.4f} ms ({fwd_bytes11 / 1e6:.1f} MB), share of "
+        f"bound {bound(fwd_bytes11, 0)[0] / f_ms11:.6f}  [{card}]")
+    log(f"register forward: device busy share {busy11:.4f} (kernels {k_ms11:.4f} ms of "
+        f"{f_ms11:.4f} ms, torch.profiler, one forward after the path's earlier runs); "
+        f"{n_sync11} host syncs per batch; peak device memory over the input "
+        f"{peak11 / 2 ** 30:.3f} GiB  [{card}]")
+    del outs11
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -1914,7 +2162,7 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4j); the
+    # launches: the kernel's count over the main paths (4a to 4l); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
@@ -1923,7 +2171,7 @@ def main() -> int:
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"),
               "pyr_down": ("pyr_down", *(f"pyr_down c3 {h}x{w}" for _, h, w, _ in
                                          PYR_SEGMENT_SHAPES))}
-    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10)
+    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

@@ -33,7 +33,11 @@ geometry of ``geometry_extra``, and the cell-segmentation path: floodFill,
 watershed and pyrMeanShiftFiltering, grabCut with kmeans, EMD,
 IntelligentScissorsMB, Subdiv2D and the colour correction model, with the
 port's own native host tails (``native/hosttails.cpp``, built with g++ at
-the first call).
+the first call; findContours' border following among them), and the
+registration path: SIFT, the FLANN indexes (``flann``) and
+FlannBasedMatcher; ``parallel``, batch and spatial sharding over
+``torch.distributed``; and the top-level names ``opencv_tpu/__init__.py``
+defines itself (RotatedRect, TickMeter, CV_MAKETYPE, FontFace, ...).
 """
 
 from .constants import *  # noqa: F401,F403
@@ -99,9 +103,13 @@ sqrt = _core_ops.sqrt
 pow = _core_ops.pow  # noqa: A001
 from .ops.colormap import applyColorMap  # noqa: F401,E402
 from .features2d import (  # noqa: F401
-    BFMatcher, DMatch, FastFeatureDetector, FastFeatureDetector_create, GFTTDetector,
-    GFTTDetector_create, KeyPoint, KeyPoint_convert, KeyPoint_overlap, ORB, ORB_create,
+    BFMatcher, DMatch, DescriptorMatcher_create, FastFeatureDetector, FastFeatureDetector_create,
+    FlannBasedMatcher, FlannBasedMatcher_create, GFTTDetector, GFTTDetector_create, KeyPoint,
+    KeyPoint_convert, KeyPoint_overlap, ORB, ORB_create, SIFT, SIFT_create,
 )
+from . import flann  # noqa: F401,E402
+from . import parallel  # noqa: F401,E402
+from .flann import Index as flann_Index  # noqa: F401,E402
 from .features2d.fast import FAST as FastFeatureDetector_detect  # noqa: F401
 
 from .ops.contours import (  # noqa: F401,E402
@@ -184,3 +192,178 @@ segmentation = _SegmentationNS()
 
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
 from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401
+
+# ---------------------------------------------------------------------------
+# Top-level names that ``opencv_tpu/__init__.py`` defines itself
+# ---------------------------------------------------------------------------
+
+import time as _time  # noqa: E402
+
+DescriptorMatcher = BFMatcher
+
+_TICK_FREQ = 1_000_000_000
+
+
+def getTickCount() -> int:
+    return _time.perf_counter_ns()
+
+
+def getTickFrequency() -> float:
+    return float(_TICK_FREQ)
+
+
+class Algorithm:
+    """cv::Algorithm base — state save/load surface."""
+
+    def clear(self):
+        pass
+
+    def empty(self):
+        return False
+
+    def save(self, filename):
+        pass
+
+    def getDefaultName(self):
+        return type(self).__name__
+
+
+class TickMeter:
+    """cv::TickMeter (core/utility.hpp)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._t0 = None
+        self._total = 0
+        self._count = 0
+
+    def start(self):
+        self._t0 = getTickCount()
+
+    def stop(self):
+        if self._t0 is not None:
+            self._total += getTickCount() - self._t0
+            self._count += 1
+            self._t0 = None
+
+    def getTimeTicks(self):
+        return self._total
+
+    def getTimeSec(self):
+        return self._total / getTickFrequency()
+
+    def getTimeMilli(self):
+        return self.getTimeSec() * 1e3
+
+    def getTimeMicro(self):
+        return self.getTimeSec() * 1e6
+
+    def getCounter(self):
+        return self._count
+
+    def getAvgTimeSec(self):
+        return self.getTimeSec() / self._count if self._count else 0.0
+
+    def getAvgTimeMilli(self):
+        return self.getAvgTimeSec() * 1e3
+
+    def getFPS(self):
+        s = self.getTimeSec()
+        return self._count / s if s > 0 else 0.0
+
+
+class RotatedRect:
+    """cv::RotatedRect — (center, size, angle) with points() and
+    boundingRect() like the binding."""
+
+    def __init__(self, center=(0.0, 0.0), size=(0.0, 0.0), angle=0.0):
+        self.center = tuple(map(float, center))
+        self.size = tuple(map(float, size))
+        self.angle = float(angle)
+
+    def points(self):
+        return boxPoints((self.center, self.size, self.angle))
+
+    def boundingRect(self):
+        import numpy as _np
+        p = _np.asarray(self.points())
+        x0, y0 = _np.floor(p.min(0)).astype(int)
+        x1, y1 = _np.ceil(p.max(0)).astype(int)
+        return (int(x0), int(y0), int(x1 - x0 + 1), int(y1 - y0 + 1))
+
+
+class MSTEdge:
+    """cv::MSTEdge (source, target, weight)."""
+
+    def __init__(self, source=0, target=0, weight=0.0):
+        self.source, self.target, self.weight = source, target, weight
+
+
+class GeneralizedHough(GeneralizedHoughBallard):
+    """Base alias — the reference's abstract GHT interface."""
+
+
+Feature2D = type("Feature2D", (), {
+    "detect": lambda self, *a, **k: [],
+    "compute": lambda self, *a, **k: ([], None),
+    "detectAndCompute": lambda self, *a, **k: ([], None),
+    "empty": lambda self: True,
+    "__doc__": "cv::Feature2D abstract base (features2d.hpp)",
+})
+
+
+class FontFace:
+    """cv::FontFace — named font handle; text rendering (putText) uses the
+    built-in Hershey engine regardless of the requested face."""
+
+    def __init__(self, name: str = "sans"):
+        self._name = name
+
+    def getName(self):
+        return self._name
+
+    def setInstance(self, params):
+        return False
+
+    def getInstance(self):
+        return None
+
+
+# CV_MAKETYPE family (5.x type system: depth in the low 5 bits, channels-1
+# shifted by 5 — core/include/opencv2/core/hal/interface.h)
+_CV_CN_SHIFT = 5
+_CV_DEPTH_MAX = 1 << _CV_CN_SHIFT
+
+
+def CV_MAKETYPE(depth, cn):
+    return (depth & (_CV_DEPTH_MAX - 1)) + ((cn - 1) << _CV_CN_SHIFT)
+
+
+CV_MAKE_TYPE = CV_MAKETYPE
+
+
+def _make_typec(depth):
+    def typec(cn):
+        return CV_MAKETYPE(depth, cn)
+    return typec
+
+
+CV_8UC = _make_typec(0)
+CV_8SC = _make_typec(1)
+CV_16UC = _make_typec(2)
+CV_16SC = _make_typec(3)
+CV_32SC = _make_typec(4)
+CV_32FC = _make_typec(5)
+CV_64FC = _make_typec(6)
+CV_16FC = _make_typec(7)
+CV_16BFC = _make_typec(8)
+CV_BoolC = _make_typec(9)
+CV_64UC = _make_typec(10)
+CV_64SC = _make_typec(11)
+CV_32UC = _make_typec(12)
+
+
+def BFMatcher_create(normType=4, crossCheck=False):
+    return BFMatcher.create(normType, crossCheck)

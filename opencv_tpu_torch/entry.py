@@ -84,6 +84,22 @@ of its largest cluster → EMD between the frames' grey histograms of the
 cells → the boundaries painted red (:data:`SEGMENT_STAGES`).
 ``entry_segment`` gives it ``make_cells_video()``'s (8, 1080, 1920, 3) u8
 frames and the camera's fitted model.
+
+``forward_register`` registers consecutive frames as cv::Stitcher does
+before it stitches: gray → ``resize`` to the 0.6 Mpx registration size
+(INTER_LINEAR_EXACT) → SIFT (its pyramids and extremum masks on the
+device, one read-back, the host tails) → FlannBasedMatcher's kNN of each
+frame in the next → the ratio test d0 < 0.7·d1
+(:data:`REGISTER_STAGES`).  ``entry_register`` gives it
+``make_pan_video()``'s (8, 1080, 1920, 3) u8 frames of a panning camera,
+whose true frame-to-frame matrices ``register_truth_report`` checks the
+matches against.
+
+``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
+on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
+CUDA devices) run the batch-DP step and the spatial filters of
+``opencv_tpu_torch.parallel``; ``run_mesh_scenarios`` runs every mesh
+function on a given mesh and gathers the outputs.
 """
 
 from __future__ import annotations
@@ -130,6 +146,8 @@ from .ops.hist import hist_fixed
 from .ops.segmentation import (FLOODFILL_FIXED_RANGE, FLOODFILL_MASK_ONLY, floodFill,
                                pyrMeanShiftFiltering, watershed_frames)
 from .ops.subdiv2d import Subdiv2D
+from .features2d.matchers import FlannBasedMatcher
+from .features2d.sift import SIFT_create
 
 __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
            "SHAPE_MOTION", "SHAPE_LINES", "SHAPE_SEGMENT", "PERSPECTIVE_CFG2",
@@ -145,7 +163,11 @@ __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHA
            "lane_ends", "caption", "preprocess", "preprocess_fused", "warp", "forward",
            "forward_fused", "forward_resize_warp_4k", "forward_pyr_corner_edge",
            "forward_match_morph", "forward_orb", "forward_decode_color", "forward_enhance",
-           "forward_motion", "forward_lines", "forward_segment"]
+           "forward_motion", "forward_lines", "forward_segment",
+           "SHAPE_REGISTER", "REGISTER_STAGES", "REGISTER_RATIO", "register_size",
+           "make_pan_video", "forward_register", "entry_register", "register_truth_report",
+           "MESH_BORDERS", "MESH_TIMEOUT_S", "dryrun_multichip", "make_mesh_batch",
+           "run_mesh_scenarios"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -1276,3 +1298,422 @@ def segment_truth_report(out, truth) -> dict:
     return {"missed": missed, "shared": shared, "counts": counts,
             "flood_bg": float(flood[bg].mean()), "flood_cells": int(flood[inner].sum()),
             "cut_iou": float((fg & disc).sum() / max((fg | disc).sum(), 1))}
+
+
+# ------------------------------------------------------ registration path
+
+SHAPE_REGISTER = (8, 1080, 1920, 3)
+# cv::Stitcher's registration resolution, in megapixels
+REGISTER_MPX = 0.6
+# BestOf2NearestMatcher keeps a pair when d0 < (1 - match_conf) * d1; the
+# JAX package's stitcher takes match_conf = 0.3
+REGISTER_RATIO = 0.7
+PAN_STEP = 160.0            # the camera's pan between frames, px at 1080p
+PAN_JITTER = 8.0            # px per axis around the pan
+PAN_ANGLE = 0.75            # each frame's roll, degrees either way
+PAN_SCALE = 0.01            # each frame's zoom, either way
+
+
+def register_size(H: int, W: int, mpx: float = REGISTER_MPX) -> tuple:
+    """(width, height) of cv::Stitcher's registration resolution of `mpx`
+    megapixels for an H × W frame: both scaled by sqrt(mpx · 1e6 / (H · W))
+    (never up), rounded as ``resize`` rounds fx and fy."""
+    s = min(1.0, float(np.sqrt(mpx * 1e6 / (H * W))))
+    return int(np.rint(W * s)), int(np.rint(H * s))
+
+
+def _smooth_noise(rng, h: int, w: int, sigma: float) -> np.ndarray:
+    """Zero-mean, unit-deviation Gaussian noise smoothed by a Gaussian of
+    `sigma` px (one FFT, the canvas wrapping)."""
+    f = np.fft.rfft2(rng.standard_normal((h, w)))
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.rfftfreq(w)[None, :]
+    a = np.fft.irfft2(f * np.exp(-2.0 * np.pi ** 2 * sigma ** 2 * (fx ** 2 + fy ** 2)), s=(h, w))
+    return (a - a.mean()) / a.std()
+
+
+def _pan_pose(rng, i: int, scale: float) -> np.ndarray:
+    """Frame i's camera: the 2×3 map from its pixels to the canvas about
+    the frame's centre, (angle, zoom, shift)."""
+    ang = np.deg2rad(rng.uniform(-PAN_ANGLE, PAN_ANGLE))
+    z = 1.0 + rng.uniform(-PAN_SCALE, PAN_SCALE)
+    t = np.array([i * PAN_STEP, 0.0]) * scale + rng.uniform(-PAN_JITTER, PAN_JITTER, 2) * scale
+    return np.array([[z * np.cos(ang), -z * np.sin(ang), t[0]],
+                     [z * np.sin(ang), z * np.cos(ang), t[1]]])
+
+
+def make_pan_video(shape=SHAPE_REGISTER, seed: int = 0):
+    """A camera panning over one textured scene, all from one
+    ``default_rng(seed)``: ``(frames, truth)``.
+
+    - the scene: Gaussian-smoothed noise at two scales (σ 24 px with a
+      deviation of 45 grey levels, σ 3 px with 10, at 1080p) with 90 filled
+      discs, rectangles and triangles per frame's area in random greys,
+      tinted per channel, on a canvas wide enough for the whole pan (SIFT
+      finds about 1.7 k keypoints in a frame at the registration size);
+    - frame i samples the canvas (bilinear) through its camera: a pan of
+      :data:`PAN_STEP` px a frame with ±:data:`PAN_JITTER` px per axis, a
+      roll of ±:data:`PAN_ANGLE`° and a zoom of ±:data:`PAN_SCALE`, each
+      drawn per frame, so that consecutive frames differ by a shift of about
+      160 px, a rotation of at most 1.5° and a scale in 0.98–1.02;
+    - sensor noise, uniform in ±2 per channel.
+
+    ``truth`` is the (N-1, 2, 3) f64 matrix that maps a pixel of frame i to
+    the same scene point in frame i+1.  Returns the (N, H, W, 3) u8 BGR
+    frames."""
+    N, H, W, C = shape
+    rng = np.random.default_rng(seed)
+    s = min(H / 1080, W / 1920)
+    mg = int(np.ceil(48 * s)) + 8
+    Hc, Wc = H + 2 * mg, W + int(np.ceil((N - 1) * PAN_STEP * s)) + 2 * mg
+    tex = 128.0 + 45.0 * _smooth_noise(rng, Hc, Wc, 24.0 * s) \
+        + 10.0 * _smooth_noise(rng, Hc, Wc, 3.0 * s)
+    ys, xs = np.mgrid[0:Hc, 0:Wc]
+    for _ in range(int(90 * Hc * Wc / (H * W))):
+        kind = rng.integers(0, 3)
+        cx, cy = rng.uniform(0, Wc), rng.uniform(0, Hc)
+        r = rng.uniform(12, 60) * s
+        x0, x1 = int(max(cx - 2 * r, 0)), int(min(cx + 2 * r + 1, Wc))
+        y0, y1 = int(max(cy - 2 * r, 0)), int(min(cy + 2 * r + 1, Hc))
+        X, Y = xs[y0:y1, x0:x1] - cx, ys[y0:y1, x0:x1] - cy
+        if kind == 0:
+            inside = X ** 2 + Y ** 2 <= r * r
+        elif kind == 1:
+            inside = (np.abs(X) <= r) & (np.abs(Y) <= rng.uniform(0.4, 1.0) * r)
+        else:
+            a = rng.uniform(0, 2 * np.pi) + np.arange(3) * 2 * np.pi / 3
+            vx, vy = r * np.cos(a), r * np.sin(a)
+            inside = np.ones(X.shape, bool)
+            for k in range(3):
+                ex, ey = vx[(k + 1) % 3] - vx[k], vy[(k + 1) % 3] - vy[k]
+                inside &= ex * (Y - vy[k]) - ey * (X - vx[k]) >= 0
+        tex[y0:y1, x0:x1][inside] = rng.uniform(0, 255)
+    tint = rng.uniform(0.85, 1.15, C)
+    canvas = np.clip(tex[..., None] * tint, 0, 255)
+    poses = [_pan_pose(rng, i, s) for i in range(N)]
+    c = np.array([(W - 1) / 2.0, (H - 1) / 2.0])
+    py, px = np.mgrid[0:H, 0:W].astype(np.float64)
+    frames = np.empty((N, H, W, C), np.float64)
+    for i, P in enumerate(poses):
+        u = P[0, 0] * (px - c[0]) + P[0, 1] * (py - c[1]) + c[0] + mg + P[0, 2]
+        v = P[1, 0] * (px - c[0]) + P[1, 1] * (py - c[1]) + c[1] + mg + P[1, 2]
+        u0, v0 = np.floor(u).astype(np.int64), np.floor(v).astype(np.int64)
+        fu, fv = (u - u0)[..., None], (v - v0)[..., None]
+        frames[i] = ((canvas[v0, u0] * (1 - fu) + canvas[v0, u0 + 1] * fu) * (1 - fv)
+                     + (canvas[v0 + 1, u0] * (1 - fu) + canvas[v0 + 1, u0 + 1] * fu) * fv)
+    noise = rng.integers(-2, 3, (N, H, W, C))
+    video = np.clip(np.rint(frames) + noise, 0, 255).astype(np.uint8)
+    # frame pixel p -> canvas A_i (p - c) + c + t_i; frame i -> frame i+1
+    truth = np.empty((N - 1, 2, 3))
+    for i in range(N - 1):
+        A0, A1 = poses[i][:, :2], poses[i + 1][:, :2]
+        inv = np.linalg.inv(A1)
+        L = inv @ A0
+        truth[i, :, :2] = L
+        truth[i, :, 2] = inv @ (poses[i][:, 2] - poses[i + 1][:, 2]) + c - L @ c
+    return video, truth
+
+
+def _r_gray(st):
+    st["gray"] = cvtColor(st["x"], K.COLOR_BGR2GRAY)
+
+
+def _r_small(st):
+    g = st["gray"]
+    st["small"] = resize(g, register_size(g.shape[1], g.shape[2], st["mpx"]),
+                         interpolation=K.INTER_LINEAR_EXACT)
+
+
+def _r_pyramid(st):
+    st["gpyr"], st["dog"] = st["sift"].build_pyramids(st["small"][..., 0])
+
+
+def _r_masks(st):
+    st["masks"] = st["sift"].extrema_masks(st["dog"])
+
+
+def _r_readback(st):
+    st["gpyr_np"], st["dog_np"], st["masks_np"] = st["sift"].read_back(
+        st["gpyr"], st["dog"], st["masks"])
+
+
+def _r_features(st):
+    feats = [st["sift"].host_tails(st["gpyr_np"], st["dog_np"], st["masks_np"], b)
+             for b in range(st["small"].shape[0])]
+    st["keypoints"] = [k for k, _ in feats]
+    st["descriptors"] = [d for _, d in feats]
+
+
+def _r_index(st):
+    """One FLANN kd-tree forest per frame pair, over frame i+1's
+    descriptors (FlannBasedMatcher's defaults: 4 trees)."""
+    matchers = []
+    for d in st["descriptors"][1:]:
+        m = FlannBasedMatcher()
+        m.add(d)
+        m.train()
+        matchers.append(m)
+    st["matchers"] = matchers
+
+
+def _r_search(st):
+    st["knn"] = [m.knnMatch(d, None, 2) for m, d in zip(st["matchers"], st["descriptors"])]
+
+
+def _r_ratio(st):
+    """The ratio test of each pair, the good pairs' points, and per pair
+    (good, queried)."""
+    good, points, counts = [], [], []
+    for i, knn in enumerate(st["knn"]):
+        pairs = np.array([(p[0].queryIdx, p[0].trainIdx) for p in knn
+                          if len(p) == 2 and p[0].distance < REGISTER_RATIO * p[1].distance],
+                         np.int64).reshape(-1, 2)
+        k0, k1 = st["keypoints"][i], st["keypoints"][i + 1]
+        p0 = np.array([k0[q].pt for q in pairs[:, 0]], np.float64).reshape(-1, 2)
+        p1 = np.array([k1[t].pt for t in pairs[:, 1]], np.float64).reshape(-1, 2)
+        good.append(pairs)
+        points.append((p0, p1))
+        counts.append((len(pairs), len(knn)))
+    st.update(good=good, points=points, counts=counts)
+
+
+# forward_register's stages in order: (name, fn of the state dict, the keys
+# it writes); each reads only keys written before it
+REGISTER_STAGES = (
+    ("gray", _r_gray, ("gray",)),
+    ("resize", _r_small, ("small",)),
+    ("pyramid", _r_pyramid, ("gpyr", "dog")),
+    ("masks", _r_masks, ("masks",)),
+    ("readback", _r_readback, ("gpyr_np", "dog_np", "masks_np")),
+    ("features", _r_features, ("keypoints", "descriptors")),
+    ("flann_build", _r_index, ("matchers",)),
+    ("flann_search", _r_search, ("knn",)),
+    ("ratio", _r_ratio, ("good", "points", "counts")),
+)
+
+
+def forward_register(x, mpx: float = REGISTER_MPX):
+    """Feature registration of consecutive frames of an (N, H, W, 3) u8 BGR
+    video, as cv::Stitcher registers its images (:data:`REGISTER_STAGES`):
+    gray → ``resize`` to the `mpx` (0.6) Mpx registration size with
+    INTER_LINEAR_EXACT → SIFT's ``detect_and_compute_batch`` (the pyramids
+    and extremum masks on the device, one read-back, the host tails) → for
+    each pair (i, i+1), FlannBasedMatcher's kNN (k = 2) of frame i's
+    descriptors in frame i+1's → the ratio test d0 < 0.7 d1.
+
+    Returns a dict: ``gray`` (N, H, W, 1) and ``small`` (N, h, w, 1) u8;
+    ``gpyr``, ``dog`` and ``masks``, SIFT's levels per octave on the device
+    ((N, h_o, w_o) f32 and bool); ``keypoints`` and ``descriptors`` per frame
+    (cv2 KeyPoints at the registration size, (k, 128) f32); ``knn``, the
+    DMatch lists of each pair; ``good``, each pair's (g, 2) int64 (query,
+    train) indices; ``points``, each pair's (p_i, p_{i+1}) (g, 2) f64 points;
+    ``counts``, each pair's (good pairs, descriptors queried)."""
+    st = {"x": x, "mpx": mpx, "sift": SIFT_create()}
+    for _, stage, _ in REGISTER_STAGES:
+        stage(st)
+    for k in ("x", "mpx", "sift", "matchers", "gpyr_np", "dog_np", "masks_np"):
+        del st[k]
+    return st
+
+
+def entry_register(device="cuda", shape=SHAPE_REGISTER):
+    """``(forward_register, (x,))`` with :func:`make_pan_video`'s frames on
+    `device`."""
+    video, _ = make_pan_video(shape)
+    return forward_register, (torch.from_numpy(video).to(device),)
+
+
+def register_truth_report(out, truth, shape, tol: float = 1.5,
+                          mpx: float = REGISTER_MPX) -> dict:
+    """How forward_register's good pairs meet the pan's `truth` matrices
+    (full-size pixels of frame i to frame i+1): each point of frame i is
+    taken to full size (``resize``'s pixel centres), moved by the truth,
+    taken back to the registration size and compared with its match in
+    frame i+1.  ``share``: the share of all good pairs within `tol` px;
+    ``per_pair``: each pair's (good pairs, share within `tol`, median
+    error px)."""
+    H, W = shape[1], shape[2]
+    w, h = register_size(H, W, mpx)
+    sx, sy = W / w, H / h
+    inside, total, per = 0, 0, []
+    for (p0, p1), M in zip(out["points"], truth):
+        full = np.stack([(p0[:, 0] + 0.5) * sx - 0.5, (p0[:, 1] + 0.5) * sy - 0.5], 1)
+        moved = full @ M[:, :2].T + M[:, 2]
+        pred = np.stack([(moved[:, 0] + 0.5) / sx - 0.5, (moved[:, 1] + 0.5) / sy - 0.5], 1)
+        err = np.hypot(*(pred - p1).T)
+        ok = int((err <= tol).sum())
+        inside, total = inside + ok, total + len(err)
+        per.append((len(err), ok / max(len(err), 1),
+                    float(np.median(err)) if len(err) else float("nan")))
+    return {"share": inside / max(total, 1), "per_pair": per}
+
+
+# ------------------------------------------------------------ the mesh
+
+# how long spawned ranks may run before they are killed (a hung collective
+# fails its caller instead of hanging it)
+MESH_TIMEOUT_S = 300.0
+
+
+def _spawn(fn, nprocs: int, args: tuple) -> None:
+    """Run fn(rank, *args) in `nprocs` spawned processes and wait at most
+    MESH_TIMEOUT_S for all of them; a rank that fails raises here, and
+    ranks still running at the timeout are killed and raise."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise TimeoutError(f"{nprocs} ranks did not finish in {MESH_TIMEOUT_S} s")
+
+
+def _init_rank(rank: int, world: int, store_path: str, backend: str) -> None:
+    import torch.distributed as dist
+
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+
+
+def _gather_blocks(local: torch.Tensor, mesh, sp: bool = True) -> torch.Tensor:
+    """The global tensor from every rank's block (blocks of N over "data",
+    of H over "sp" when `sp`), on every rank, on the CPU."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, local.contiguous())
+    grid = mesh.mesh.tolist()
+    rows = [torch.cat([parts[r] for r in row], dim=1) if sp else parts[row[0]] for row in grid]
+    return torch.cat(rows, dim=0).cpu()
+
+
+def _dp_step(n_sp: int):
+    def step(x):
+        g = cvtColor(x, K.COLOR_BGR2GRAY)
+        b = GaussianBlur(g, (3, 3), 0)
+        return resize(b, (32, 16 * n_sp))
+    return step
+
+
+def _dryrun_rank(rank: int, world: int, store_path: str, backend: str) -> None:
+    """One rank of :func:`dryrun_multichip`."""
+    import torch.distributed as dist
+
+    from .parallel import (make_mesh, shard_batch, sharded_otsu, sharded_pipeline,
+                           spatial_gaussian_blur, spatial_sep_filter)
+
+    _init_rank(rank, world, store_path, backend)
+    try:
+        n_sp = 2 if world % 2 == 0 and world >= 4 else 1
+        n_data = world // n_sp
+        mesh = make_mesh(n_data, n_sp)
+        rng = np.random.default_rng(0)
+        imgs = rng.integers(0, 256, size=(2 * n_data, 32 * n_sp, 64, 3), dtype=np.uint8)
+        # batch-DP step over the mesh: each rank its block of images
+        out = _gather_blocks(sharded_pipeline(_dp_step(n_sp), mesh)(imgs), mesh, sp=False)
+        assert out.shape == (2 * n_data, 16 * n_sp, 32, 1), out.shape
+        # spatial sharding with the halo exchange over the sp axis
+        if n_sp > 1:
+            gray = rng.integers(0, 256, size=(2 * n_data, 32 * n_sp, 64, 1), dtype=np.uint8)
+            g = shard_batch(gray, mesh)
+            out2 = spatial_gaussian_blur(g, (5, 5), 1.1, mesh)
+            assert out2.shape == g.shape
+            # the generalised halo filter under the REFLECT_101 default border
+            out3 = spatial_sep_filter(g, (5, 5), 1.1, mesh, border=K.BORDER_REFLECT_101)
+            assert out3.shape == g.shape
+            # the all-reduced histogram's Otsu threshold
+            thr = sharded_otsu(g, mesh)
+            assert thr.shape == () and 0 <= float(thr) <= 255
+    finally:
+        dist.destroy_process_group()
+
+
+def _backend(n: int) -> str:
+    return "nccl" if torch.cuda.is_available() and torch.cuda.device_count() >= n else "gloo"
+
+
+def dryrun_multichip(n_devices: int) -> None:
+    """Twin of ``__graft_entry__.py::dryrun_multichip``: `n_devices` ranks,
+    spawned, on NCCL where there are that many CUDA devices and else on gloo
+    over the CPU, each in a group on a ``FileStore`` in a temporary
+    directory.  A ("data", "sp") mesh with sp = 2 when n is even and at
+    least 4: the batch-DP step (gray → GaussianBlur 3×3 → resize) and, with
+    sp > 1, the zero-border spatial blur, the REFLECT_101 spatial filter and
+    the sharded Otsu; each rank asserts the reference's shapes."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        _spawn(_dryrun_rank, n_devices, (n_devices, f"{d}/store", _backend(n_devices)))
+
+
+# the borders the mesh scenarios run spatial_sep_filter under
+MESH_BORDERS = (K.BORDER_REFLECT_101, K.BORDER_REPLICATE, K.BORDER_REFLECT, K.BORDER_WRAP,
+                K.BORDER_CONSTANT)
+
+
+def make_mesh_batch(n_data: int, n_sp: int, seed: int = 0):
+    """The global inputs of :func:`run_mesh_scenarios`: an (4·n_data,
+    24·n_sp, 40, 3) u8 BGR batch and an (4·n_data, 24·n_sp, 40, 1) u8 gray
+    batch with a smooth ramp under the noise (so Otsu has classes to
+    split)."""
+    rng = np.random.default_rng(seed)
+    N, H, W = 4 * n_data, 24 * n_sp, 40
+    bgr = rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)
+    ramp = np.linspace(0, 160, W)[None, None, :, None]
+    gray = np.clip(rng.integers(0, 96, (N, H, W, 1)) + ramp, 0, 255).astype(np.uint8)
+    return bgr, gray
+
+
+def _mesh_rank(rank: int, world: int, store_path: str, backend: str, n_data: int, n_sp: int,
+               out_path: str) -> None:
+    """One rank of :func:`run_mesh_scenarios`: every scenario on this
+    rank's blocks, the outputs gathered; rank 0 writes them to `out_path`."""
+    import torch.distributed as dist
+
+    from .parallel import (make_mesh, shard_batch, sharded_hist, sharded_min_max,
+                           sharded_otsu, sharded_pipeline, spatial_gaussian_blur,
+                           spatial_sep_filter)
+
+    _init_rank(rank, world, store_path, backend)
+    try:
+        mesh = make_mesh(n_data, n_sp)
+        bgr, gray = make_mesh_batch(n_data, n_sp)
+        g = shard_batch(gray, mesh)
+        res = {"dp_step": _gather_blocks(sharded_pipeline(_dp_step(n_sp), mesh)(bgr), mesh,
+                                         sp=False)}
+        for k in (3, 5):
+            res[f"blur{k}"] = _gather_blocks(spatial_gaussian_blur(g, (k, k), 1.1, mesh), mesh)
+            for b in MESH_BORDERS:
+                res[f"sep{k}_{b}"] = _gather_blocks(
+                    spatial_sep_filter(g, (k, k), 1.1, mesh, border=b), mesh)
+        mn, mx = sharded_min_max(g, mesh)
+        res["min_max"] = torch.stack([mn, mx]).cpu()
+        res["hist"] = sharded_hist(g, mesh).cpu()
+        res["otsu"] = sharded_otsu(g, mesh).reshape(1).cpu()
+        if rank == 0:
+            np.savez(out_path, **{k: v.numpy() for k, v in res.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_scenarios(n_data: int, n_sp: int, out_path: str) -> dict:
+    """Every mesh scenario on an n_data × n_sp mesh of spawned ranks (gloo
+    on the CPU, or NCCL with that many CUDA devices) over
+    :func:`make_mesh_batch`'s inputs: the batch-DP step, the zero-border
+    spatial blur and the spatial filter under each of :data:`MESH_BORDERS`
+    at 3×3 and 5×5, and the sharded min/max, histogram and Otsu.  Returns
+    the gathered outputs, by name, as numpy."""
+    import tempfile
+
+    world = n_data * n_sp
+    with tempfile.TemporaryDirectory() as d:
+        _spawn(_mesh_rank, world, (world, f"{d}/store", _backend(world), n_data, n_sp, out_path))
+    with np.load(out_path) as z:
+        return {k: z[k] for k in z.files}

@@ -1,6 +1,6 @@
-"""Brute-force descriptor matching (features2d/src/matchers.cpp), twin of
-``opencv_tpu/features2d/matchers.py`` (its BFMatcher half; FLANN and
-LightGlue wait for the flann and dnn modules).
+"""Descriptor matchers (features2d/src/matchers.cpp), twin of
+``opencv_tpu/features2d/matchers.py``: BFMatcher, FlannBasedMatcher and
+the factories (LightGlue waits for the dnn module).
 
 The distance matrix is computed on the descriptors' device: Hamming and
 Hamming2 by XOR and a bit-trick popcount on u8 (exact), L1 by broadcasting
@@ -9,6 +9,10 @@ cross term in float64 (exact for integer descriptors, and never TF32, which
 a caller's ``allow_tf32`` would give a float32 matmul on the card), cast to
 float32 like the reference's float32 dot; the L2 root is numpy's.  ``argmin``/``argsort`` and the
 DMatch lists run in numpy on the host, as in the reference.
+
+FlannBasedMatcher is the JAX package's host code over the port's copy of
+its FLANN indexes (``opencv_tpu_torch/flann``); descriptors given as
+tensors are read back once.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ import torch
 
 from .. import constants as K
 from ..core.arrays import as_tensor
+from ..flann.index import FLANN_INDEX_KDTREE, FLANN_INDEX_LSH, Index, _host
 
-__all__ = ["DMatch", "BFMatcher", "hamming_distance_matrix", "hamming2_distance_matrix"]
+__all__ = ["DMatch", "BFMatcher", "FlannBasedMatcher", "DescriptorMatcher_create",
+           "FlannBasedMatcher_create", "hamming_distance_matrix", "hamming2_distance_matrix"]
 
 
 class DMatch:
@@ -129,3 +135,103 @@ class BFMatcher:
             js = js[np.argsort(d[i, js], kind="stable")]
             out.append([DMatch(i, int(j), float(d[i, j])) for j in js])
         return out
+
+
+class FlannBasedMatcher:
+    """`cv::FlannBasedMatcher` (matchers.cpp) backed by the ANN indexes of
+    ``opencv_tpu_torch.flann`` (randomized kd-trees by default, like the
+    reference's KDTreeIndexParams(4) + SearchParams(32); pass
+    {"algorithm": 6, ...} for LSH over binary descriptors)."""
+
+    def __init__(self, indexParams=None, searchParams=None):
+        self.index_params = dict(indexParams or
+                                 {"algorithm": FLANN_INDEX_KDTREE,
+                                  "trees": 4})
+        self.search_params = dict(searchParams or {"checks": 32})
+        self._index = None
+        self._train = None
+
+    @staticmethod
+    def create():
+        return FlannBasedMatcher()
+
+    # -- index management (miniflann train/add semantics) ------------------
+    def add(self, descriptors):
+        d = _host(descriptors[0] if isinstance(descriptors, (list, tuple))
+                  else descriptors)
+        self._train = (d if self._train is None
+                       else np.vstack([self._train, d]))
+        self._index = None
+
+    def clear(self):
+        self._train = None
+        self._index = None
+
+    def train(self):
+        if self._index is None and self._train is not None:
+            data = self._train
+            algo = int(self.index_params.get("algorithm", 1))
+            if data.dtype == np.uint8 and algo != FLANN_INDEX_LSH:
+                data = data.astype(np.float32)
+            self._index = Index(data, dict(self.index_params))
+        return self._index
+
+    def _search(self, query, train, k):
+        if train is not None:
+            self.clear()
+            self.add(train)
+        idx_obj = self.train()
+        q = _host(query)
+        algo = int(self.index_params.get("algorithm", 1))
+        if q.dtype == np.uint8 and algo != FLANN_INDEX_LSH:
+            q = q.astype(np.float32)
+        idx, dst = idx_obj.knnSearch(q, k, self.search_params)
+        # FLANN reports squared L2; cv::FlannBasedMatcher exposes L2
+        if q.dtype != np.uint8:
+            dst = np.sqrt(np.maximum(dst, 0.0))
+        return idx, dst
+
+    def match(self, queryDescriptors, trainDescriptors=None, mask=None):
+        idx, dst = self._search(queryDescriptors, trainDescriptors, 1)
+        return [DMatch(i, int(idx[i, 0]), float(dst[i, 0]))
+                for i in range(len(idx)) if idx[i, 0] >= 0]
+
+    def knnMatch(self, queryDescriptors, trainDescriptors=None, k=2,
+                 mask=None, compactResult=False):
+        idx, dst = self._search(queryDescriptors, trainDescriptors, k)
+        return [[DMatch(i, int(j), float(d)) for j, d in zip(row, drow)
+                 if j >= 0]
+                for i, (row, drow) in enumerate(zip(idx, dst))]
+
+    def radiusMatch(self, queryDescriptors, trainDescriptors=None,
+                    maxDistance=0.0, mask=None):
+        k = min(64, len(self._train) if self._train is not None
+                else len(trainDescriptors))
+        idx, dst = self._search(queryDescriptors, trainDescriptors, k)
+        out = []
+        for i in range(len(idx)):
+            out.append([DMatch(i, int(j), float(d))
+                        for j, d in zip(idx[i], dst[i])
+                        if j >= 0 and d <= maxDistance])
+        return out
+
+
+def DescriptorMatcher_create(matcherType):
+    """cv::DescriptorMatcher::create — string/enum factory mapping to
+    BFMatcher or FlannBasedMatcher like the reference registry."""
+    name = matcherType if isinstance(matcherType, str) else {
+        0: "FlannBased", 1: "BruteForce", 2: "BruteForce-L1",
+        3: "BruteForce-Hamming", 5: "BruteForce-SL2",
+    }.get(int(matcherType), "BruteForce")
+    if name == "FlannBased":
+        return FlannBasedMatcher()
+    norm = {"BruteForce": K.NORM_L2, "BruteForce-SL2": K.NORM_L2SQR,
+            "BruteForce-L1": K.NORM_L1,
+            "BruteForce-Hamming": K.NORM_HAMMING,
+            "BruteForce-Hamming(2)": K.NORM_HAMMING2}.get(
+                name, K.NORM_L2)
+    return BFMatcher(norm)
+
+
+def FlannBasedMatcher_create():
+    return FlannBasedMatcher()

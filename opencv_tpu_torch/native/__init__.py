@@ -14,6 +14,7 @@ length of a call, so floods of several frames run in parallel threads.
 
 The functions take and return host numpy arrays:
 
+- :func:`suzuki_contours` — findContours' border following;
 - :func:`flood_fill` — the u8 flood fill, in place;
 - :func:`maxflow_grid` — GrabCut's min cut on the 8-neighbour grid;
 - :func:`watershed` — the marker-controlled flood, in place.
@@ -31,7 +32,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["CXX_FLAGS", "library", "flood_fill", "maxflow_grid", "watershed"]
+__all__ = ["CXX_FLAGS", "library", "suzuki_contours", "flood_fill", "maxflow_grid",
+           "watershed"]
 
 _DIR = Path(__file__).resolve().parent
 SOURCE = _DIR / "hosttails.cpp"
@@ -42,6 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (restype, argtypes) of each entry point
 _SIGNATURES = {
+    "suzuki_contours": (_I, [_P, _I, _I, _P, ctypes.c_int64, _P, _P, _P, ctypes.c_int32]),
     "flood_fill_u8": (ctypes.c_int64, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                                        ctypes.c_uint8, _P]),
     "maxflow_grid": (ctypes.c_double, [_I, _I, _P, _P, _P, _P, _P, _P, _P]),
@@ -96,6 +99,40 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
             _lib = lib
         return _lib
+
+
+def suzuki_contours(binary: np.ndarray):
+    """Suzuki-Abe border following of the (H, W) image (nonzero is
+    foreground): ``(points, parents, is_outer)``, one (k, 2) int32 array of
+    (x, y) per border in the order the raster scan finds them.
+
+    The buffers start at the JAX package's sizes; a scan that overruns them
+    returns n < 0 and runs again with both doubled, up to H*W + 1 borders
+    and 16 times the first point buffer, past which it raises."""
+    f = np.ascontiguousarray(binary != 0, np.uint8)
+    H, W = f.shape
+    max_pts = max(4 * H * W, 1024)
+    max_ctrs = max(H * W // 2, 64)
+    # every border starts at a pixel of its own
+    ctr_cap = H * W + 1
+    pts_cap = 16 * max_pts
+    while True:
+        pts = np.empty((max_pts, 2), np.int32)
+        starts = np.empty(max_ctrs + 1, np.int32)
+        parents = np.empty(max_ctrs, np.int32)
+        is_outer = np.empty(max_ctrs, np.uint8)
+        n = library().suzuki_contours(f.ctypes.data, H, W, pts.ctypes.data, max_pts,
+                                      starts.ctypes.data, parents.ctypes.data,
+                                      is_outer.ctypes.data, max_ctrs)
+        if n >= 0:
+            break
+        if max_pts >= pts_cap and max_ctrs >= ctr_cap:
+            raise RuntimeError(f"suzuki_contours: {H}x{W} overran {max_pts} points and "
+                               f"{max_ctrs} contours")
+        max_pts = min(2 * max_pts, pts_cap)
+        max_ctrs = min(2 * max_ctrs, ctr_cap)
+    out = np.split(pts[:starts[n]].copy(), starts[1:n]) if n else []
+    return out, parents[:n].copy(), is_outer[:n].astype(bool)
 
 
 def flood_fill(img: np.ndarray, mask: np.ndarray, seed, new_val, lo, up, conn: int,

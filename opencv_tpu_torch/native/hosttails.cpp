@@ -2,6 +2,7 @@
 // chasing algorithms around the device work, with data-dependent frontiers
 // that do not map to batched tensor ops.
 //
+//   suzuki_contours  Suzuki-Abe border following (imgproc/src/contours.cpp)
 //   flood_fill_u8    4/8-connected flood fill (imgproc/src/floodfill.cpp)
 //   maxflow_grid     Dinic's max-flow on GrabCut's 8-neighbour grid graph
 //                    (the role of GCGraph<double>, imgproc/src/gcgraph.hpp)
@@ -9,8 +10,8 @@
 //
 // Built by opencv_tpu_torch/native/__init__.py (g++ -O3 -shared -fPIC
 // -std=c++17) at the first call and loaded with ctypes.  The Python twins in
-// opencv_tpu_torch/ops/segmentation.py and ops/grabcut.py are their plain
-// versions, which the tests hold them to.
+// opencv_tpu_torch/ops/contours.py, ops/segmentation.py and ops/grabcut.py
+// are their plain versions, which the tests hold them to.
 
 #include <cstdint>
 #include <cstring>
@@ -19,6 +20,133 @@
 #include <vector>
 
 extern "C" {
+
+// Moore neighborhood, clockwise from East (matches contours.py _NB)
+static const int NBY[8] = {0, -1, -1, -1, 0, 1, 1, 1};
+static const int NBX[8] = {1, 1, 0, -1, -1, -1, 0, 1};
+
+// Suzuki-Abe border following on a binary image.
+//   img:    H*W uint8 (nonzero = foreground)
+//   pts:    output buffer for (x, y) pairs, capacity max_pts
+//   starts: output contour start indices into pts (capacity max_ctrs+1);
+//           starts[i]..starts[i+1] are contour i's points
+//   parents,is_outer: per-contour metadata (capacity max_ctrs)
+// Returns the number of contours, or -1 if a buffer was too small.
+int suzuki_contours(const uint8_t* img, int H, int W,
+                    int32_t* pts, int64_t max_pts,
+                    int32_t* starts, int32_t* parents, uint8_t* is_outer,
+                    int32_t max_ctrs) {
+  const int PW = W + 2;
+  const int PH = H + 2;
+  std::vector<int32_t> F((size_t)PW * PH, 0);
+  for (int y = 0; y < H; y++)
+    for (int x = 0; x < W; x++)
+      F[(size_t)(y + 1) * PW + (x + 1)] = img[(size_t)y * W + x] ? 1 : 0;
+
+  // border_of: NBD -> (contour index, type); NBD 1 = frame (hole type)
+  std::vector<int32_t> border_ctr(2, -1);
+  std::vector<uint8_t> border_hole(2, 1);
+
+  int64_t npts = 0;
+  int32_t nctr = 0;
+  int nbd = 1;
+
+  for (int y = 1; y <= H; y++) {
+    int lnbd = 1;
+    for (int x = 1; x <= W; x++) {
+      int32_t v = F[(size_t)y * PW + x];
+      if (v == 0) continue;
+      bool outer = (v == 1 && F[(size_t)y * PW + x - 1] == 0);
+      bool hole = (v >= 1 && F[(size_t)y * PW + x + 1] == 0);
+      if (!(outer || hole)) {
+        if (v != 1) lnbd = v < 0 ? -v : v;
+        continue;
+      }
+      nbd++;
+      if (nctr >= max_ctrs) return -1;
+      uint8_t btype_outer = outer ? 1 : 0;
+      // Suzuki decision table
+      int pl = border_ctr[lnbd];
+      uint8_t ptype_outer = border_hole[lnbd] ? 0 : 1;
+      int parent;
+      if (btype_outer != ptype_outer)
+        parent = pl;
+      else
+        parent = (pl >= 0) ? parents[pl] : -1;
+
+      starts[nctr] = (int32_t)npts;
+      parents[nctr] = parent;
+      is_outer[nctr] = btype_outer;
+
+      // trace border starting at (y, x)
+      int start_dir = outer ? 4 : 0;
+      int d1 = -1;
+      for (int i = 0; i < 8; i++) {
+        int dd = ((start_dir - i) % 8 + 8) % 8;
+        if (F[(size_t)(y + NBY[dd]) * PW + (x + NBX[dd])] != 0) {
+          d1 = dd;
+          break;
+        }
+      }
+      if (d1 < 0) {
+        // isolated pixel
+        F[(size_t)y * PW + x] = -nbd;
+        if (npts + 1 > max_pts) return -1;
+        pts[2 * npts] = x - 1;
+        pts[2 * npts + 1] = y - 1;
+        npts++;
+      } else {
+        int cy = y, cx = x, d = d1;
+        int f2y = y + NBY[d1], f2x = x + NBX[d1];
+        while (true) {
+          bool east_zero = false;
+          int nd = -1;
+          for (int i = 1; i <= 8; i++) {
+            int dd = (d + i) % 8;
+            int yy = cy + NBY[dd], xx = cx + NBX[dd];
+            if (F[(size_t)yy * PW + xx] != 0) {
+              nd = dd;
+              break;
+            }
+            if (dd == 0) east_zero = true;
+          }
+          if (npts + 1 > max_pts) return -1;
+          pts[2 * npts] = cx - 1;
+          pts[2 * npts + 1] = cy - 1;
+          npts++;
+          int32_t& cell = F[(size_t)cy * PW + cx];
+          if (east_zero)
+            cell = -nbd;
+          else if (cell == 1)
+            cell = nbd;
+          int ny = cy + NBY[nd], nx = cx + NBX[nd];
+          if (ny == y && nx == x && cy == f2y && cx == f2x) break;
+          cy = ny;
+          cx = nx;
+          d = (nd + 4) % 8;
+          if (npts > (int64_t)4 * PW * PH) break;  // safety
+        }
+      }
+
+      if ((int)border_ctr.size() <= nbd) {
+        border_ctr.resize(nbd + 1, -1);
+        border_hole.resize(nbd + 1, 1);
+      }
+      border_ctr[nbd] = nctr;
+      border_hole[nbd] = btype_outer ? 0 : 1;
+      nctr++;
+
+      int32_t after = F[(size_t)y * PW + x];
+      if (after != 1) lnbd = after < 0 ? -after : after;
+    }
+  }
+  starts[nctr] = (int32_t)npts;
+  return nctr;
+}
+
+// 4/8-connected flood fill with per-channel lo/up tolerances.
+// img: H*W*C uint8 (modified in place unless mask_only), mask: (H+2)*(W+2).
+// Returns the filled pixel count and writes rect[4] = x, y, w, h.
 
 // 4/8-connected flood fill with per-channel lo/up tolerances.
 // img: H*W*C uint8 (modified in place unless mask_only), mask: (H+2)*(W+2).

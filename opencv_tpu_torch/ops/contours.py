@@ -15,6 +15,8 @@ RETR_EXTERNAL/LIST/CCOMP/TREE and CHAIN_APPROX_NONE/SIMPLE.  The raster
 scan visits only the pixels where a border can start or a mark was left
 (a vectorised search per row), so its cost follows the borders, not the
 image; the border following is the JAX package's Python trace.
+``findContours`` runs the JAX package's native scan, copied into the port's
+``native/hosttails.cpp``; the Python trace stays as its plain twin.
 """
 
 from __future__ import annotations
@@ -48,11 +50,18 @@ _NB = [(0, 1), (-1, 1), (-1, 0), (-1, -1), (0, -1), (1, -1), (1, 0), (1, 1)]
 
 def findContours(image, mode: int, method: int):
     """Suzuki-Abe border following; returns (contours, hierarchy) with
-    cv2 conventions (contours as (N,1,2) int32 arrays of (x,y))."""
+    cv2 conventions (contours as (N,1,2) int32 arrays of (x,y)).
+
+    Runs the native C++ scan (``native/hosttails.cpp``) for every input;
+    :func:`_find_contours_simple` is its plain Python twin.  Without a
+    compiler it raises, where the JAX package falls back to Python."""
+    from ..native import suzuki_contours
+
     img = _np(image)
     if img.ndim == 3:
         img = img[:, :, 0]
-    return _find_contours_simple((img != 0).astype(np.int32), mode, method)
+    pts, parents, _ = suzuki_contours(img)
+    return _package_contours(pts, parents, mode, method)
 
 
 def _trace_border(F, Wp: int, p0: int, outer: bool, nbd: int, marks: list):
@@ -182,62 +191,55 @@ def _find_contours_simple(f, mode, method):
 
 
 def _package_contours(contours, parent_list, mode, method):
-    # hierarchy arrays
+    """cv2's (contours, hierarchy) from the borders (each a sequence of
+    (x, y)) and their parents, in scan order."""
     n = len(contours)
+    parent = np.asarray(parent_list, np.int32).reshape(n)
     hier = np.full((n, 4), -1, np.int32)
-    for i, p in enumerate(parent_list):
-        hier[i, 3] = p
-    # next/prev among siblings; first child
-    for i in range(n):
-        for j in range(i + 1, n):
-            if hier[j, 3] == hier[i, 3]:
-                hier[i, 0] = j
-                hier[j, 1] = i
-                break
-    for i in range(n):
-        p = hier[i, 3]
-        if p >= 0 and hier[p, 2] == -1:
-            hier[p, 2] = i
+    if mode in (K.RETR_EXTERNAL, K.RETR_LIST):
+        if mode == K.RETR_EXTERNAL:
+            contours = [contours[i] for i in np.flatnonzero(parent == -1)]
+            n = len(contours)
+            hier = np.full((n, 4), -1, np.int32)
+        hier[:-1, 0] = np.arange(1, n)
+        hier[1:, 1] = np.arange(n - 1)
+    elif n:
+        hier[:, 3] = parent
+        # next / previous among the contours of one parent, in scan order
+        order = np.lexsort((np.arange(n), parent))
+        same = parent[order[1:]] == parent[order[:-1]]
+        hier[order[:-1][same], 0] = order[1:][same]
+        hier[order[1:][same], 1] = order[:-1][same]
+        # first child: the first contour in scan order under each parent
+        first = order[np.r_[True, ~same]]
+        first = first[parent[first] >= 0]
+        hier[parent[first], 2] = first
 
-    if mode == K.RETR_EXTERNAL:
-        keep = [i for i in range(n) if hier[i, 3] == -1]
-        contours = [contours[i] for i in keep]
-        n = len(contours)
-        hier = np.full((n, 4), -1, np.int32)
-        for i in range(n - 1):
-            hier[i, 0] = i + 1
-            hier[i + 1, 1] = i
-    elif mode == K.RETR_LIST:
-        hier2 = np.full((n, 4), -1, np.int32)
-        for i in range(n - 1):
-            hier2[i, 0] = i + 1
-            hier2[i + 1, 1] = i
-        hier = hier2
-
-    out = []
-    for pts in contours:
-        if method == K.CHAIN_APPROX_SIMPLE:
-            pts = _compress_chain(pts)
-        out.append(_np(pts, np.int32).reshape(-1, 1, 2))
-    return out, (hier.reshape(1, -1, 4) if n else None)
+    arrs = [np.asarray(pts, np.int32).reshape(-1, 2) for pts in contours]
+    if method == K.CHAIN_APPROX_SIMPLE:
+        arrs = _compress_chains(arrs)
+    return [a.reshape(-1, 1, 2) for a in arrs], (hier.reshape(1, -1, 4) if n else None)
 
 
-def _compress_chain(pts):
-    """CHAIN_APPROX_SIMPLE: drop collinear midpoints along h/v/diagonal
-    runs."""
-    if len(pts) <= 2:
-        return pts
-    out = []
-    n = len(pts)
-    for i in range(n):
-        p_prev = pts[(i - 1) % n]
-        p = pts[i]
-        p_next = pts[(i + 1) % n]
-        d1 = (p[0] - p_prev[0], p[1] - p_prev[1])
-        d2 = (p_next[0] - p[0], p_next[1] - p[1])
-        if d1 != d2:
-            out.append(p)
-    return out if out else [pts[0]]
+def _compress_chains(arrs):
+    """CHAIN_APPROX_SIMPLE on each (k, 2) border, all at once: drop the
+    points whose step in equals their step out (collinear midpoints along
+    h/v/diagonal runs); a border of 2 points or fewer stays whole, and one
+    that would lose every point keeps its first."""
+    if not arrs:
+        return arrs
+    lens = np.array([len(a) for a in arrs])
+    first = np.cumsum(lens) - lens
+    pts = np.concatenate(arrs)
+    start = np.repeat(first, lens)
+    size = np.repeat(lens, lens)
+    j = np.arange(len(pts)) - start
+    prev = pts[start + (j - 1) % size]
+    nxt = pts[start + (j + 1) % size]
+    keep = ((pts - prev) != (nxt - pts)).any(axis=1) | (size <= 2)
+    kept = np.add.reduceat(keep.astype(np.int64), first)
+    keep[first[kept == 0]] = True
+    return np.split(pts[keep], np.cumsum(np.maximum(kept, 1))[:-1])
 
 
 # --------------------------------------------------------------- geometry

@@ -4,7 +4,11 @@ scan that visits only the pixels where a border can start): every function
 equals opencv_tpu exactly (``array_equal``, ``==``) on the reference
 tests' own inputs and more, for numpy and tensor arguments; findContours is
 also held to cv2's point sets per contour where the reference test holds
-opencv_tpu to them."""
+opencv_tpu to them.  findContours runs the port's native scan
+(``native/hosttails.cpp``), held equal to its Python twin
+``_find_contours_simple`` and to opencv_tpu; without a compiler it raises."""
+
+import shutil
 
 import numpy as np
 import pytest
@@ -14,6 +18,8 @@ from common import cv2
 
 import opencv_tpu as jcv
 import opencv_tpu_torch as tcv
+from opencv_tpu_torch import native
+from opencv_tpu_torch.ops import contours as C
 
 
 def _t(a):
@@ -38,9 +44,22 @@ def _images():
     edge[0:5, :] = 255
     edge[10:, 25:] = 1
     edge[15, 3] = 255
+    lines = np.zeros((40, 50), np.uint8)
+    cv2.line(lines, (2, 3), (45, 30), 255, 1)
+    cv2.line(lines, (5, 35), (40, 5), 255, 1)
+    lines[20, :] = 255
+    lines[:, 10] = 255
+    lines[30:38, 44] = 255
+    lines[12, 30] = 255
+    framed = np.zeros((30, 40), np.uint8)
+    framed[:, :3] = 255
+    framed[-4:, :] = 255
+    framed[5:12, 30:] = 255
+    framed[14:20, 15:25] = 255
+    framed[16:18, 18:22] = 0
     return {"shapes": _shapes_img(), "noise": (rng.random((50, 70)) > 0.6).astype(np.uint8) * 255,
             "dense": (rng.random((31, 33)) > 0.3).astype(np.uint8), "nested": nested,
-            "edge": edge}
+            "edge": edge, "lines": lines, "framed": framed}
 
 
 IMAGES = _images()
@@ -77,6 +96,56 @@ def test_find_contours_equals_opencv_tpu(name, mode, method):
     rsets = sorted([frozenset(map(tuple, c.reshape(-1, 2).tolist())) for c in rc], key=key)
     osets = sorted([frozenset(map(tuple, c.reshape(-1, 2).tolist())) for c in got[0]], key=key)
     assert rsets == osets
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("method", [1, 2])
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_native_scan_equals_python_trace(name, mode, method):
+    """findContours (the native scan) equals its plain Python twin, in the
+    points, their order and the hierarchy."""
+    img = IMAGES[name]
+    _same(tcv.findContours(img, mode, method),
+          C._find_contours_simple((img != 0).astype(np.int32), mode, method))
+
+
+def test_native_scan_raw_output_and_growth(monkeypatch):
+    """The raw scan: one (k, 2) int32 array per border, the parents and
+    types the trace finds; a scan that overruns its buffers runs again
+    with larger ones and gives the same borders."""
+    img = IMAGES["noise"]
+    pts, parents, is_outer = native.suzuki_contours(img)
+    want, _ = C._find_contours_simple((img != 0).astype(np.int32), 1, 1)
+    assert len(pts) == len(want) == len(parents) == len(is_outer)
+    for a, b in zip(pts, want):
+        assert a.dtype == np.int32 and a.shape == (len(b), 2)
+        np.testing.assert_array_equal(a, b.reshape(-1, 2))
+    assert is_outer[0] and parents[0] == -1
+    lib = native.library()
+    calls = []
+
+    class Small:
+        """The library with the first call's buffers cut to 4 contours."""
+        def suzuki_contours(self, *args):
+            calls.append(args[-1])
+            args = list(args)
+            if len(calls) == 1:
+                args[-1] = 4
+            return lib.suzuki_contours(*args)
+
+    monkeypatch.setattr(native, "library", lambda: Small())
+    again = native.suzuki_contours(img)
+    assert len(calls) == 2 and calls[1] == 2 * calls[0]
+    assert all(np.array_equal(a, b) for a, b in zip(again[0], pts))
+    np.testing.assert_array_equal(again[1], parents)
+
+
+def test_native_scan_raises_without_a_compiler(monkeypatch):
+    """findContours raises where the JAX package falls back to Python."""
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        tcv.findContours(IMAGES["shapes"], 0, 1)
 
 
 def test_find_contours_empty_and_3d():

@@ -1,7 +1,10 @@
 """The port's EMD, Subdiv2D, IntelligentScissorsMB and colour correction
 model on the CPU, against opencv_tpu (exactly) and cv2 (under the
 reference tests' bounds: tests/test_misc_ops.py, test_surface_classes.py,
-test_hough_seg.py)."""
+test_hough_seg.py); and the top-level names that ``opencv_tpu/__init__.py``
+defines itself (CV_MAKETYPE and the CV_*C makers, RotatedRect, TickMeter,
+Algorithm, MSTEdge, Feature2D, FontFace, GeneralizedHough,
+DescriptorMatcher, BFMatcher_create) against opencv_tpu's, exactly."""
 
 import numpy as np
 import pytest
@@ -225,3 +228,150 @@ def test_color_correction_model_matches_cv2():
     want = jcv.ccm_ColorCorrectionModel(src, 0).setSaturatedThreshold(0.02, 0.98)
     np.testing.assert_array_equal(sat.getMask(), want.getMask())
     assert sat.getLoss() == want.getLoss()
+
+
+# ---------------------------------------------------------------------------
+# the top-level names of opencv_tpu/__init__.py
+
+C1_NAMES = ("DescriptorMatcher", "Algorithm", "TickMeter", "RotatedRect", "MSTEdge",
+            "GeneralizedHough", "Feature2D", "FontFace", "CV_MAKETYPE", "CV_MAKE_TYPE",
+            "CV_8UC", "CV_8SC", "CV_16UC", "CV_16SC", "CV_32SC", "CV_32FC", "CV_64FC",
+            "CV_16FC", "CV_16BFC", "CV_BoolC", "CV_64UC", "CV_64SC", "CV_32UC",
+            "BFMatcher_create", "getTickCount", "getTickFrequency")
+
+
+@pytest.mark.parametrize("name", C1_NAMES)
+def test_top_level_name_is_exported(name):
+    assert hasattr(tcv, name), name
+    assert type(getattr(tcv, name)) is type(getattr(jcv, name)), name
+
+
+MAKERS = ("CV_8UC", "CV_8SC", "CV_16UC", "CV_16SC", "CV_32SC", "CV_32FC", "CV_64FC",
+          "CV_16FC", "CV_16BFC", "CV_BoolC", "CV_64UC", "CV_64SC", "CV_32UC")
+
+
+@pytest.mark.parametrize("maker", MAKERS)
+def test_cv_type_makers_equal_opencv_tpu(maker):
+    for cn in (1, 2, 3, 4, 8, 128):
+        assert getattr(tcv, maker)(cn) == getattr(jcv, maker)(cn)
+    assert tcv.CV_8UC(3) == tcv.CV_8UC3 == cv2.CV_8UC3
+    assert tcv.CV_32FC(2) == cv2.CV_32FC2
+
+
+def test_cv_maketype_equals_opencv_tpu_and_cv2():
+    for depth in range(13):
+        for cn in (1, 2, 3, 4, 16):
+            want = jcv.CV_MAKETYPE(depth, cn)
+            assert tcv.CV_MAKETYPE(depth, cn) == tcv.CV_MAKE_TYPE(depth, cn) == want
+    assert tcv.CV_MAKETYPE(tcv.CV_16S, 2) == jcv.CV_MAKETYPE(jcv.CV_16S, 2) == cv2.CV_16SC2
+    assert tcv.CV_MAKE_TYPE is tcv.CV_MAKETYPE
+
+
+def test_rotated_rect_equals_opencv_tpu():
+    for args in (((50.5, 40.0), (30.0, 12.0), 30.0), ((0.0, 0.0), (4.0, 4.0), -45.0),
+                 ((10.0, 20.0), (7.5, 3.25), 90.0), ((100, 80), (0, 5), 12.5)):
+        ours, ref = tcv.RotatedRect(*args), jcv.RotatedRect(*args)
+        assert (ours.center, ours.size, ours.angle) == (ref.center, ref.size, ref.angle)
+        np.testing.assert_array_equal(ours.points(), ref.points())
+        assert ours.points().dtype == np.float32
+        assert ours.boundingRect() == ref.boundingRect()
+    r = tcv.RotatedRect((50, 40), (30, 12), 30)
+    np.testing.assert_allclose(r.points(), cv2.boxPoints(((50, 40), (30, 12), 30)), atol=1e-4)
+    rect = tcv.minAreaRect(np.array([[1, 1], [9, 3], [7, 11], [0, 8]], np.int32))
+    np.testing.assert_array_equal(tcv.RotatedRect(*rect).points(), tcv.boxPoints(rect))
+    assert tcv.RotatedRect().points().shape == (4, 2)
+
+
+def test_tick_meter_equals_opencv_tpu():
+    ours, ref = tcv.TickMeter(), jcv.TickMeter()
+    assert tcv.getTickFrequency() == jcv.getTickFrequency() == 1e9
+    for m in (ours, ref):
+        assert (m.getCounter(), m.getTimeTicks(), m.getFPS(), m.getAvgTimeSec()) == (0, 0, 0.0,
+                                                                                      0.0)
+        for _ in range(3):
+            m.start()
+            sum(range(1000))
+            m.stop()
+        m.stop()                       # a stop without a start counts nothing
+    assert ours.getCounter() == ref.getCounter() == 3
+    t = ours.getTimeTicks()
+    assert t > 0 and ours.getTimeSec() == t / 1e9
+    assert ours.getTimeMilli() == ours.getTimeSec() * 1e3
+    assert ours.getTimeMicro() == ours.getTimeSec() * 1e6
+    assert ours.getAvgTimeSec() == ours.getTimeSec() / 3
+    assert ours.getAvgTimeMilli() == ours.getAvgTimeSec() * 1e3
+    assert ours.getFPS() == 3 / ours.getTimeSec()
+    ours.reset()
+    assert (ours.getCounter(), ours.getTimeTicks()) == (0, 0)
+    a = tcv.getTickCount()
+    assert isinstance(a, int) and tcv.getTickCount() >= a
+
+
+def test_algorithm_mstedge_feature2d_equal_opencv_tpu():
+    for cls in (tcv.Algorithm, jcv.Algorithm):
+        a = cls()
+        assert (a.clear(), a.empty(), a.save("x"), a.getDefaultName()) == (None, False, None,
+                                                                          "Algorithm")
+    e, r = tcv.MSTEdge(2, 5, 1.5), jcv.MSTEdge(2, 5, 1.5)
+    assert (e.source, e.target, e.weight) == (r.source, r.target, r.weight) == (2, 5, 1.5)
+    assert vars(tcv.MSTEdge()) == vars(jcv.MSTEdge())
+    f, g = tcv.Feature2D(), jcv.Feature2D()
+    assert tcv.Feature2D.__name__ == "Feature2D"
+    for name in ("detect", "compute", "detectAndCompute"):
+        assert getattr(f, name)(np.zeros((4, 4), np.uint8)) == getattr(g, name)(
+            np.zeros((4, 4), np.uint8))
+    assert f.empty() is g.empty() is True
+
+
+def test_font_face_equals_opencv_tpu():
+    """FontFace is the reference's named handle: putText draws with the
+    Hershey engine whatever the face, so the raster of a FontFace's text is
+    putText's, equal between the packages."""
+    ours, ref = tcv.FontFace("sans"), jcv.FontFace("sans")
+    assert ours.getName() == ref.getName() == "sans"
+    assert tcv.FontFace().getName() == jcv.FontFace().getName()
+    assert ours.setInstance({}) is ref.setInstance({}) is False
+    assert ours.getInstance() is ref.getInstance() is None
+    img = np.zeros((60, 240, 3), np.uint8)
+    got = tcv.putText(torch.from_numpy(img.copy()), "FontFace 16", (5, 40),
+                      tcv.FONT_HERSHEY_SIMPLEX, 1.0, (0, 255, 0), 2)
+    want = jcv.putText(img.copy(), "FontFace 16", (5, 40), jcv.FONT_HERSHEY_SIMPLEX, 1.0,
+                       (0, 255, 0), 2)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert np.asarray(got).any()
+
+
+def test_generalized_hough_equals_opencv_tpu():
+    """GeneralizedHough is the Ballard transform under its base name."""
+    assert issubclass(tcv.GeneralizedHough, tcv.GeneralizedHoughBallard)
+    tmpl = np.zeros((40, 40), np.uint8)
+    cv2.rectangle(tmpl, (8, 10), (30, 28), 255, 2)
+    img = np.zeros((120, 160), np.uint8)
+    img[50:90, 70:110] = tmpl
+    ours, ref = tcv.GeneralizedHough(), jcv.GeneralizedHough()
+    for g in (ours, ref):
+        g.setMinDist(10)
+        g.setLevels(180)
+        g.setVotesThreshold(20)
+        g.setTemplate(tmpl)
+    got, want = ours.detect(torch.from_numpy(img)), ref.detect(img)
+    assert want[0] is not None and got[0] is not None
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
+
+
+def test_descriptor_matcher_and_bfmatcher_create_equal_opencv_tpu():
+    assert tcv.DescriptorMatcher is tcv.BFMatcher
+    rng = np.random.default_rng(9)
+    q = rng.integers(0, 256, (20, 32), np.uint8)
+    t = rng.integers(0, 256, (30, 32), np.uint8)
+    for args in ((), (tcv.NORM_HAMMING, True), (tcv.NORM_L1, False)):
+        ours, ref = tcv.BFMatcher_create(*args), jcv.BFMatcher_create(*args)
+        assert type(ours) is tcv.BFMatcher
+        assert (ours.norm_type, ours.cross_check) == (ref.norm_type, ref.cross_check)
+        got = [(m.queryIdx, m.trainIdx, m.distance) for m in ours.match(q, t)]
+        want = [(m.queryIdx, m.trainIdx, m.distance) for m in ref.match(q, t)]
+        assert got == want
+    d = tcv.DescriptorMatcher(tcv.NORM_HAMMING)
+    assert [m.trainIdx for m in d.match(torch.from_numpy(q), t)] == \
+        [m.trainIdx for m in jcv.DescriptorMatcher(jcv.NORM_HAMMING).match(q, t)]
