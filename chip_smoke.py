@@ -160,6 +160,21 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       value and ``sharded_min_max`` / ``sharded_hist`` the single-card
       results; each function's wall (CUDA events) beside the single-card
       GaussianBlur; then the group is destroyed;
+   m. the feature-tracking path: ``entry_track("cuda")``'s forward
+      (``fusedPreprocessGrayBlurDown2`` to (8, 540, 960) → AKAZE's scale
+      space, maxima masks, one read-back and host tails → BRISK's pyramid
+      and AGAST on the card, NMS on the host, its reads and bits on the card
+      → KAZE on frames 0-1 → per detector and frame pair kNN (k = 2) and the
+      ratio test d0 < 0.8 d1) on the registration path's pan video, which
+      must launch gauss5_down2 once (BGR route, through the registry) and
+      no other kernel; for AKAZE and BRISK at least TRACK_MIN_SHARE of all
+      good pairs within TRACK_TOL_PX of the pan's truth and at least
+      TRACK_MIN_GOOD good pairs in every frame pair; then frames 0-1 on the
+      CPU: the small frames, every AKAZE and KAZE level (Lt, Lx, Ly, Ldet)
+      and AKAZE's masks, every BRISK layer with its score and keep maps,
+      each detector's keypoints (pt, size, angle, response, octave,
+      class_id) and descriptors, and pair 0's kNN rows and good pairs of
+      each detector equal the card's exactly; the phase prints its wall;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -194,7 +209,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    device stages by CUDA events, median of 5; the host tails, FLANN's build
    and search and the ratio test once on the host clock), the bound's
    terms, and one profiled forward's wall, busy share and peak memory, with
-   the 4k run's wall and host syncs.  A kernel's share of its bound is
+   the 4k run's wall and host syncs; the tracking forward's seven stages
+   the same way, with its busy share, host syncs and peak memory over the
+   input, and 4m's wall with this timing.  A kernel's share of its bound is
    bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
@@ -268,6 +285,17 @@ CUT_MIN_IOU = 0.85
 REGISTER_TOL_PX = 1.5
 REGISTER_MIN_SHARE = 0.90
 REGISTER_MIN_GOOD = 100
+# (tracking path) the truth, for AKAZE and BRISK: TRACK_MIN_SHARE[det] of
+# all good pairs within TRACK_TOL_PX (half-size px, OpenCV's AKAZE
+# tutorial's inlier distance) of where the pan's matrix sends them, and at
+# least TRACK_MIN_GOOD[det] good pairs in every frame pair
+# (measured on the H100, PR 17 c2: AKAZE 0.9842 of all good pairs, 0.9772
+# to 0.9892 a pair, 832 to 965 good pairs a pair; BRISK 0.7362, 0.7054 to
+# 0.7969, 243 to 270: BRISK has no subpixel refinement in the JAX package,
+# so its octave 1 and 2 keypoints sit on 2 and 4 px grids)
+TRACK_TOL_PX = 2.5
+TRACK_MIN_SHARE = {"akaze": 0.95, "brisk": 0.65}
+TRACK_MIN_GOOD = {"akaze": 700, "brisk": 200}
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -324,11 +352,12 @@ def check_equal(name, got, want) -> int:
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
                              f"{tuple(want.shape)} {want.dtype}")
-    d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    wide = torch.float64 if got.is_floating_point() else torch.int64
+    d = (got.to(wide) - want.to(wide)).abs()
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain ({int(d.count_nonzero())} differ, "
-                             f"max |d| = {int(d.max())})")
-    return int(d.max())
+                             f"max |d| = {d.max().item()})")
+    return d.max().item() if got.is_floating_point() else int(d.max())
 
 
 def check_close(name, got, want, rtol, atol) -> float:
@@ -1522,7 +1551,8 @@ def main() -> int:
         for a in levels:
             if a.dtype != torch.float32 or not bool(torch.isfinite(a).all()):
                 raise AssertionError(f"register pyramid octave {o}: {a.dtype}, finite")
-    rep11 = E.register_truth_report(outs11, truth11, E.SHAPE_REGISTER, REGISTER_TOL_PX)
+    rep11 = E.register_truth_report(outs11, truth11, E.SHAPE_REGISTER, (w11, h11),
+                                    REGISTER_TOL_PX)
     n_kp11 = [len(k) for k in outs11["keypoints"]]
     if rep11["share"] < REGISTER_MIN_SHARE or min(n for n, _, _ in rep11["per_pair"]) < \
             REGISTER_MIN_GOOD:
@@ -1634,6 +1664,108 @@ def main() -> int:
     for what, t in walls12.items():
         log(f"time mesh {what} {tuple(gray12.shape)}: {t:.4f} ms  [{card}]")
     del blur12, sep12, local12, gray12
+
+    # -- 4m. the feature-tracking path: fusedPreprocessGrayBlurDown2
+    # (gauss5_down2) -> AKAZE, BRISK and (frames 0-1) KAZE -> kNN of each
+    # consecutive pair -> the ratio test
+    t13_start = time.perf_counter()
+    if E.SHAPE_TRACK != E.SHAPE_REGISTER:
+        raise AssertionError("the tracking path runs on the registration path's pan video")
+    x13, truth13 = x11, truth11
+    reset_tier_stats()
+    held13 = []
+    t13 = time.perf_counter()
+    n_sync13, cfg13 = run_counted(
+        lambda: count_syncs(lambda: held13.append(E.forward_track(x13))))
+    wall13 = (time.perf_counter() - t13) * 1e3
+    outs13 = held13[0]
+    tiers13 = tier_stats()
+    log(f"tracking path launches: {cfg13}; dispatch {tiers13}")
+    if (cfg13["opencv_gauss5_down2"] != 1 or cfg13["opencv_sep_filter"]
+            or cfg13["opencv_pyr_down"]
+            or {k: v for k, v in tiers13.items() if k.endswith(".cuda")}
+            != {"tier.gauss5_down2_u8.cuda": 1}):
+        raise AssertionError(f"tracking path: gauss5_down2 must launch once (BGR route, through "
+                             f"the registry) and no other kernel; got {cfg13}, {tiers13}")
+    N13, H13, W13, _ = E.SHAPE_TRACK
+    small13 = outs13["small"]
+    if tuple(small13.shape) != (N13, H13 // 2, W13 // 2) or small13.dtype != torch.uint8:
+        raise AssertionError(f"track small: {tuple(small13.shape)} {small13.dtype}")
+    for det in ("akaze", "kaze"):
+        for i, lv in enumerate(outs13[f"{det}_levels"]):
+            for key in ("Lt", "Lx", "Ly", "Ldet"):
+                a = lv[key]
+                if a.dtype != torch.float32 or not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"track {det} level {i} {key}: {a.dtype}, finite")
+    reps13 = {det: E.track_truth_report(outs13, truth13, E.SHAPE_TRACK, det, TRACK_TOL_PX)
+              for det in E.TRACK_DETECTORS}
+    n_kp13 = {det: [len(k) for k in outs13[f"{det}_keypoints"]] for det in E.TRACK_DETECTORS}
+    for det in E.TRACK_DETECTORS:
+        rep = reps13[det]
+        log(f"tracking path, {det}: keypoints per frame {n_kp13[det]}; good pairs per frame pair "
+            f"{[c[0] for c in outs13['counts'][det]]} of {[c[1] for c in outs13['counts'][det]]} "
+            f"queried; {rep['share']:.4f} of good pairs within {TRACK_TOL_PX} px of the pan's "
+            f"truth (per pair: share {[round(r[1], 4) for r in rep['per_pair']]}, median error "
+            f"{[round(r[2], 4) for r in rep['per_pair']]} px)")
+    for det, need in TRACK_MIN_GOOD.items():
+        rep = reps13[det]
+        if rep["share"] < TRACK_MIN_SHARE[det] or min(n for n, _, _ in rep["per_pair"]) < need:
+            raise AssertionError(f"tracking truth, {det}: {rep}")
+    log(f"tracking path: {len(outs13['akaze_levels'])} AKAZE levels, "
+        f"{len(outs13['brisk_layers'])} BRISK layers, {len(outs13['kaze_levels'])} KAZE levels "
+        f"on {E.TRACK_KAZE_FRAMES} frames; {n_sync13} host syncs; the forward {wall13:.1f} ms on "
+        f"the host clock  [{card}]")
+    # frames 0-1 on the CPU: every stage equal to the card's exactly
+    t13_cpu = time.perf_counter()
+    cpu13 = E.forward_track(x13[:2].cpu())
+    cpu_ms13 = (time.perf_counter() - t13_cpu) * 1e3
+    check_equal("track small frames 0-1", small13[:2].cpu(), cpu13["small"])
+    n_lv13 = 0
+    for det in ("akaze", "kaze"):
+        g_lv, c_lv = outs13[f"{det}_levels"], cpu13[f"{det}_levels"]
+        if len(g_lv) != len(c_lv):
+            raise AssertionError(f"track {det}: {len(g_lv)} levels on the card, {len(c_lv)} on "
+                                 f"the CPU")
+        for i, (g, c) in enumerate(zip(g_lv, c_lv)):
+            for key in ("Lt", "Lx", "Ly", "Ldet"):
+                check_equal(f"track {det} level {i} {key}", g[key][:2].cpu(), c[key])
+            n_lv13 += 1
+    for i, (g, c) in enumerate(zip(outs13["akaze_masks"], cpu13["akaze_masks"])):
+        check_equal(f"track akaze mask {i}", g[:2].cpu(), c)
+    if len(outs13["brisk_layers"]) != len(cpu13["brisk_layers"]):
+        raise AssertionError("track brisk: the card's and the CPU's layer counts differ")
+    for i, (g, c, (gs, gk), (cs, ck)) in enumerate(zip(
+            outs13["brisk_layers"], cpu13["brisk_layers"], outs13["brisk_scores"],
+            cpu13["brisk_scores"])):
+        check_equal(f"track brisk layer {i}", g[:2].cpu(), c)
+        check_equal(f"track brisk layer {i} score", gs[:2].cpu(), cs)
+        check_equal(f"track brisk layer {i} keep", gk[:2].cpu(), ck)
+    n_pairs13 = {}
+    for det in E.TRACK_DETECTORS:
+        for b in range(2):
+            kg = [(k.pt, k.size, k.angle, k.response, k.octave, k.class_id)
+                  for k in outs13[f"{det}_keypoints"][b]]
+            kc = [(k.pt, k.size, k.angle, k.response, k.octave, k.class_id)
+                  for k in cpu13[f"{det}_keypoints"][b]]
+            if kg != kc or not np.array_equal(outs13[f"{det}_descriptors"][b],
+                                              cpu13[f"{det}_descriptors"][b]):
+                raise AssertionError(f"track {det} frame {b}: {len(kg)} keypoints on the card, "
+                                     f"{len(kc)} on the CPU, or their descriptors differ")
+        knn_g = [[(m.queryIdx, m.trainIdx, m.distance) for m in r] for r in outs13["knn"][det][0]]
+        knn_c = [[(m.queryIdx, m.trainIdx, m.distance) for m in r] for r in cpu13["knn"][det][0]]
+        if knn_g != knn_c or not np.array_equal(outs13["good"][det][0], cpu13["good"][det][0]):
+            raise AssertionError(f"track {det} pair 0: the card's matches differ from the CPU's")
+        n_pairs13[det] = (len(knn_g), len(outs13["good"][det][0]))
+    log(f"tracking path, frames 0-1: the small frames, all {n_lv13} AKAZE and KAZE levels (Lt, "
+        f"Lx, Ly, Ldet) and AKAZE's masks, the {len(outs13['brisk_layers'])} BRISK layers with "
+        f"their score and keep maps, each detector's keypoints (pt, size, angle, response, "
+        f"octave, class_id) {[n_kp13[d][:2] for d in E.TRACK_DETECTORS]} and descriptors, and "
+        f"pair 0's (kNN rows, good pairs) {n_pairs13} equal the CPU plain forward exactly; the "
+        f"CPU's frames 0-1 took {cpu_ms13:.1f} ms")
+    del cpu13
+    wall4m = time.perf_counter() - t13_start
+    log(f"phase 4m wall: {wall4m:.1f} s (the card's forward, the truth, the CPU's frames 0-1 and "
+        f"the comparison)")
 
     # -- 5. timing
     timer = Timer(dev)
@@ -2154,6 +2286,75 @@ def main() -> int:
         f"{peak11 / 2 ** 30:.3f} GiB  [{card}]")
     del outs11
 
+    # the tracking path, as the caller sees it: its stages one after another
+    # on one state, the device stages (the fused map, AKAZE's scale space)
+    # by CUDA events (median of 5), the stages that read back and run host
+    # tails once on the host clock; then one forward under torch.profiler
+    # (busy share, wall) with the peak memory.  Bytes: each stage's inputs
+    # read once and outputs written once (the scale spaces write Lt, Lx, Ly
+    # and Ldet of every level; AKAZE's detection reads Ldet, writes the masks
+    # and reads back all four and the masks; BRISK reads the small frames and
+    # writes its layers, their score and keep maps and the five blurs;
+    # KAZE's frames read and its levels written and read back once)
+    t13_time = time.perf_counter()
+    n13, m13 = N13 * H13 * W13, N13 * (H13 // 2) * (W13 // 2)
+    st13 = E.track_state(x13)
+    stage_ms13 = {}
+    for name, stage, keys in E.TRACK_STAGES:
+        if name in ("small", "akaze_space"):
+            stage_ms13[name] = timer(lambda: stage(dict(st13)), iters=5, warmup=1)
+            stage(st13)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage(st13)
+            torch.cuda.synchronize()
+            stage_ms13[name] = (time.perf_counter() - t0) * 1e3
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    ak_lv = nbytes(lv[k] for lv in st13["akaze_levels"] for k in ("Lt", "Lx", "Ly", "Ldet"))
+    ak_det = nbytes(lv["Ldet"] for lv in st13["akaze_levels"])
+    ak_mask = nbytes(st13["akaze_masks"])
+    br_lv = nbytes(st13["brisk_layers"][1:])
+    br_sc = nbytes(t for sk in st13["brisk_scores"] for t in sk)
+    br_blur = 5 * m13 * 4
+    kz_lv = nbytes(lv[k] for lv in st13["kaze_levels"] for k in ("Lt", "Lx", "Ly", "Ldet"))
+    kz_in = E.TRACK_KAZE_FRAMES * (H13 // 2) * (W13 // 2)
+    stage_bytes13 = {"small": 3 * n13 + m13, "akaze_space": m13 + ak_lv,
+                     "akaze_detect": ak_det + ak_mask + ak_lv + ak_mask, "akaze_describe": 0,
+                     "brisk": m13 + br_lv + br_sc + br_blur, "kaze": kz_in + 2 * kz_lv,
+                     "match": 0}
+    fwd_bytes13 = sum(stage_bytes13.values())
+    for name, t in stage_ms13.items():
+        b_ms = bound(stage_bytes13[name], 0)[0]
+        log(f"time track {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({stage_bytes13[name] / 1e6:.1f} MB), share of bound {b_ms / t:.6f}  [{card}]")
+    log(f"track bytes bound terms (MB): small {3 * n13 / 1e6:.1f} in + {m13 / 1e6:.1f} out; AKAZE "
+        f"{len(st13['akaze_levels'])} levels x 4 f32 maps {ak_lv / 1e6:.1f} (Ldet "
+        f"{ak_det / 1e6:.1f}, masks {ak_mask / 1e6:.1f}); BRISK layers {br_lv / 1e6:.1f}, score "
+        f"and keep maps {br_sc / 1e6:.1f}, blurs {br_blur / 1e6:.1f}; KAZE "
+        f"{len(st13['kaze_levels'])} levels x 4 f32 maps on {E.TRACK_KAZE_FRAMES} frames "
+        f"{kz_lv / 1e6:.1f}; total {fwd_bytes13 / 1e6:.1f} MB = "
+        f"{bound(fwd_bytes13, 0)[0]:.4f} ms")
+    del st13
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base13 = torch.cuda.memory_allocated()
+    busy13, k_ms13, f_ms13 = busy_share(lambda: E.forward_track(x13), iters=1, warmup=False)
+    peak13 = torch.cuda.max_memory_allocated() - base13
+    log(f"time forward_track {tuple(x13.shape)}: {f_ms13:.4f} ms (profiled run; the 4m run "
+        f"{wall13:.4f} ms; stages summed {sum(stage_ms13.values()):.4f} ms) on the host clock, "
+        f"bytes bound {bound(fwd_bytes13, 0)[0]:.4f} ms ({fwd_bytes13 / 1e6:.1f} MB), share of "
+        f"bound {bound(fwd_bytes13, 0)[0] / f_ms13:.6f}  [{card}]")
+    log(f"track forward: device busy share {busy13:.4f} (kernels {k_ms13:.4f} ms of "
+        f"{f_ms13:.4f} ms, torch.profiler); {n_sync13} host syncs per batch; peak device memory "
+        f"over the input {peak13 / 2 ** 30:.3f} GiB  [{card}]")
+    log(f"tracking path's wall in chip_smoke.py: phase 4m {wall4m:.1f} s + its timing "
+        f"{time.perf_counter() - t13_time:.1f} s")
+    del outs13, x11, x13
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -2162,7 +2363,7 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4l); the
+    # launches: the kernel's count over the main paths (4a to 4m); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
@@ -2171,7 +2372,8 @@ def main() -> int:
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"),
               "pyr_down": ("pyr_down", *(f"pyr_down c3 {h}x{w}" for _, h, w, _ in
                                          PYR_SEGMENT_SHAPES))}
-    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12)
+    main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
+                  cfg13)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

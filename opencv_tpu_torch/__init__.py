@@ -35,7 +35,8 @@ IntelligentScissorsMB, Subdiv2D and the colour correction model, with the
 port's own native host tails (``native/hosttails.cpp``, built with g++ at
 the first call; findContours' border following among them), and the
 registration path: SIFT, the FLANN indexes (``flann``) and
-FlannBasedMatcher; ``parallel``, batch and spatial sharding over
+FlannBasedMatcher, and the feature-tracking path: AGAST, BRISK, AKAZE,
+KAZE, MSER (a native host tail) and SimpleBlobDetector; ``parallel``, batch and spatial sharding over
 ``torch.distributed``; and the top-level names ``opencv_tpu/__init__.py``
 defines itself (RotatedRect, TickMeter, CV_MAKETYPE, FontFace, ...).
 """
@@ -106,6 +107,12 @@ from .features2d import (  # noqa: F401
     BFMatcher, DMatch, DescriptorMatcher_create, FastFeatureDetector, FastFeatureDetector_create,
     FlannBasedMatcher, FlannBasedMatcher_create, GFTTDetector, GFTTDetector_create, KeyPoint,
     KeyPoint_convert, KeyPoint_overlap, ORB, ORB_create, SIFT, SIFT_create,
+    AGAST, AgastFeatureDetector, AgastFeatureDetector_create, BRISK, BRISK_create, AKAZE,
+    AKAZE_create, KAZE, KAZE_create, MSER, MSER_create, SimpleBlobDetector,
+    SimpleBlobDetector_create, SimpleBlobDetector_Params,
+    AKAZE_DESCRIPTOR_KAZE_UPRIGHT, AKAZE_DESCRIPTOR_KAZE, AKAZE_DESCRIPTOR_MLDB_UPRIGHT,
+    AKAZE_DESCRIPTOR_MLDB, KAZE_DIFF_PM_G1, KAZE_DIFF_PM_G2, KAZE_DIFF_WEICKERT,
+    KAZE_DIFF_CHARBONNIER,
 )
 from . import flann  # noqa: F401,E402
 from . import parallel  # noqa: F401,E402

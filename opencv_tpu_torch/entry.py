@@ -95,6 +95,15 @@ frame in the next → the ratio test d0 < 0.7·d1
 whose true frame-to-frame matrices ``register_truth_report`` checks the
 matches against.
 
+``forward_track`` tracks features between consecutive frames at half size,
+as visual-odometry, SLAM and drone-mapping front ends do:
+``fusedPreprocessGrayBlurDown2`` (the one ``gauss5_down2`` launch) → AKAZE,
+BRISK and (on the first two frames) KAZE, their dense work on the device
+and their sparse tails on the host → kNN of each frame in the next with the
+ratio test d0 < 0.8·d1 (:data:`TRACK_STAGES`).  ``entry_track`` gives it
+the registration path's pan video; ``track_truth_report`` checks each
+detector's good pairs against the pan's truth.
+
 ``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
 on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
 CUDA devices) run the batch-DP step and the spatial filters of
@@ -146,7 +155,10 @@ from .ops.hist import hist_fixed
 from .ops.segmentation import (FLOODFILL_FIXED_RANGE, FLOODFILL_MASK_ONLY, floodFill,
                                pyrMeanShiftFiltering, watershed_frames)
 from .ops.subdiv2d import Subdiv2D
-from .features2d.matchers import FlannBasedMatcher
+from .features2d.akaze import AKAZE_create, image_levels, read_levels, to_float_image
+from .features2d.brisk import BRISK_create
+from .features2d.kaze import KAZE_create
+from .features2d.matchers import BFMatcher, FlannBasedMatcher
 from .features2d.sift import SIFT_create
 
 __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
@@ -166,6 +178,9 @@ __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHA
            "forward_motion", "forward_lines", "forward_segment",
            "SHAPE_REGISTER", "REGISTER_STAGES", "REGISTER_RATIO", "register_size",
            "make_pan_video", "forward_register", "entry_register", "register_truth_report",
+           "SHAPE_TRACK", "TRACK_STAGES", "TRACK_RATIO", "TRACK_TOL_PX", "TRACK_LSH",
+           "TRACK_KAZE_FRAMES", "TRACK_DETECTORS", "track_state", "forward_track", "entry_track",
+           "track_truth_report",
            "MESH_BORDERS", "MESH_TIMEOUT_S", "dryrun_multichip", "make_mesh_batch",
            "run_mesh_scenarios"]
 
@@ -1523,17 +1538,17 @@ def entry_register(device="cuda", shape=SHAPE_REGISTER):
     return forward_register, (torch.from_numpy(video).to(device),)
 
 
-def register_truth_report(out, truth, shape, tol: float = 1.5,
-                          mpx: float = REGISTER_MPX) -> dict:
-    """How forward_register's good pairs meet the pan's `truth` matrices
-    (full-size pixels of frame i to frame i+1): each point of frame i is
-    taken to full size (``resize``'s pixel centres), moved by the truth,
-    taken back to the registration size and compared with its match in
-    frame i+1.  ``share``: the share of all good pairs within `tol` px;
-    ``per_pair``: each pair's (good pairs, share within `tol`, median
-    error px)."""
+def register_truth_report(out, truth, shape, size, tol: float = 1.5) -> dict:
+    """How a path's good pairs meet the pan's `truth` matrices (full-size
+    pixels of frame i to frame i+1): each point of frame i, found on frames
+    of `size` (w, h), is taken to full size (the pixel centres of a resize
+    or of a 2×2 mean: p' = (p + 0.5)·s − 0.5), moved by the truth, taken
+    back and compared with its match in frame i+1.  `out["points"]` holds
+    each pair's (p_i, p_{i+1}).  ``share``: the share of all good pairs
+    within `tol` px; ``per_pair``: each pair's (good pairs, share within
+    `tol`, median error px)."""
     H, W = shape[1], shape[2]
-    w, h = register_size(H, W, mpx)
+    w, h = size
     sx, sy = W / w, H / h
     inside, total, per = 0, 0, []
     for (p0, p1), M in zip(out["points"], truth):
@@ -1546,6 +1561,165 @@ def register_truth_report(out, truth, shape, tol: float = 1.5,
         per.append((len(err), ok / max(len(err), 1),
                     float(np.median(err)) if len(err) else float("nan")))
     return {"share": inside / max(total, 1), "per_pair": per}
+
+
+# ------------------------------------------------------ feature tracking
+
+SHAPE_TRACK = (8, 1080, 1920, 3)
+# the ratio test and the inlier distance of OpenCV's AKAZE tutorial
+# (samples/cpp/tutorial_code/features2D/AKAZE_match.cpp)
+TRACK_RATIO = 0.8
+TRACK_TOL_PX = 2.5
+# BRISK's LSH index: the parameters of OpenCV's feature-matching tutorial
+TRACK_LSH = {"algorithm": 6, "table_number": 6, "key_size": 12, "multi_probe_level": 1}
+# KAZE keeps every level at full size and its host tails grow with the
+# keypoints: it runs on the first frames only
+TRACK_KAZE_FRAMES = 2
+TRACK_DETECTORS = ("akaze", "brisk", "kaze")
+
+
+def _t_small(st):
+    st["small"] = fused_gray_gauss5_down2(st["x"], 0.0)
+
+
+def _t_akaze_space(st):
+    st["akaze_levels"] = st["akaze"].scale_space(to_float_image(st["small"]))
+
+
+def _t_akaze_detect(st):
+    ak = st["akaze"]
+    st["akaze_masks"] = ak.maxima_masks(st["akaze_levels"])
+    st["akaze_host"] = read_levels(st["akaze_levels"], st["akaze_masks"])
+    st["akaze_keypoints"] = [ak.host_detect(image_levels(st["akaze_host"], b))
+                             for b in range(st["small"].shape[0])]
+
+
+def _t_akaze_describe(st):
+    feats = [st["akaze"].host_describe(image_levels(st["akaze_host"], b), k)
+             for b, k in enumerate(st["akaze_keypoints"])]
+    st["akaze_descriptors"] = [d for _, d in feats]
+
+
+def _t_brisk(st):
+    br, small = st["brisk"], st["small"]
+    layers = br.pyramid(small)
+    st["brisk_layers"] = [a for a, _ in layers]
+    st["brisk_scores"] = br.score_layers(layers)
+    rows = br.read_candidates(st["brisk_scores"], [s for _, s in layers])
+    feats = br.compute_batch(small, [br.nms(r) for r in rows])
+    st["brisk_keypoints"] = [k for k, _ in feats]
+    st["brisk_descriptors"] = [d for _, d in feats]
+
+
+def _t_kaze(st):
+    kz = st["kaze"]
+    st["kaze_levels"] = kz.scale_space(to_float_image(st["small"][:TRACK_KAZE_FRAMES]))
+    lv = read_levels(st["kaze_levels"], keys=("Lx", "Ly", "Ldet"))
+    feats = []
+    for b in range(st["kaze_levels"][0]["Ldet"].shape[0]):
+        levels = image_levels(lv, b)
+        feats.append(kz.host_describe(levels, kz.host_detect(levels)))
+    st["kaze_keypoints"] = [k for k, _ in feats]
+    st["kaze_descriptors"] = [d for _, d in feats]
+
+
+def _t_match(st):
+    """Per detector and frame pair: kNN (k = 2) of frame i's descriptors in
+    frame i+1's, the ratio test d0 < 0.8 d1, the good pairs' points and
+    (good pairs, descriptors queried).  AKAZE through BFMatcher
+    (NORM_HAMMING) on the frames' device (integer distances, equal on every
+    device), BRISK through FlannBasedMatcher's LSH index over frame i+1 and
+    KAZE through BFMatcher (NORM_L2) on the host."""
+    knn, good, points, counts = {}, {}, {}, {}
+    dev = st["small"].device
+    for det in TRACK_DETECTORS:
+        kps, desc = st[f"{det}_keypoints"], st[f"{det}_descriptors"]
+        rows = []
+        for i in range(len(desc) - 1):
+            if det == "brisk":
+                m = FlannBasedMatcher(TRACK_LSH, {"checks": 32})
+                m.add(desc[i + 1])
+                m.train()
+                rows.append(m.knnMatch(desc[i], None, 2))
+            elif det == "akaze":
+                rows.append(BFMatcher(K.NORM_HAMMING).knnMatch(
+                    to_device(desc[i], dev), to_device(desc[i + 1], dev), 2))
+            else:
+                rows.append(BFMatcher(K.NORM_L2).knnMatch(desc[i], desc[i + 1], 2))
+        knn[det], good[det], points[det], counts[det] = rows, [], [], []
+        for i, r in enumerate(rows):
+            pairs = np.array([(p[0].queryIdx, p[0].trainIdx) for p in r
+                              if len(p) == 2 and p[0].distance < TRACK_RATIO * p[1].distance],
+                             np.int64).reshape(-1, 2)
+            p0 = np.array([kps[i][q].pt for q in pairs[:, 0]], np.float64).reshape(-1, 2)
+            p1 = np.array([kps[i + 1][t].pt for t in pairs[:, 1]], np.float64).reshape(-1, 2)
+            good[det].append(pairs)
+            points[det].append((p0, p1))
+            counts[det].append((len(pairs), len(r)))
+    st.update(knn=knn, good=good, points=points, counts=counts)
+
+
+# forward_track's stages in order: (name, fn of the state dict, the keys it
+# writes); each reads only keys written before it
+TRACK_STAGES = (
+    ("small", _t_small, ("small",)),
+    ("akaze_space", _t_akaze_space, ("akaze_levels",)),
+    ("akaze_detect", _t_akaze_detect, ("akaze_masks", "akaze_host", "akaze_keypoints")),
+    ("akaze_describe", _t_akaze_describe, ("akaze_descriptors",)),
+    ("brisk", _t_brisk, ("brisk_layers", "brisk_scores", "brisk_keypoints",
+                         "brisk_descriptors")),
+    ("kaze", _t_kaze, ("kaze_levels", "kaze_keypoints", "kaze_descriptors")),
+    ("match", _t_match, ("knn", "good", "points", "counts")),
+)
+
+
+def track_state(x) -> dict:
+    """forward_track's state before its first stage."""
+    return {"x": x, "akaze": AKAZE_create(), "brisk": BRISK_create(), "kaze": KAZE_create()}
+
+
+def forward_track(x):
+    """Feature tracking between consecutive frames of an (N, H, W, 3) u8 BGR
+    video at half size, as visual-odometry and SLAM front ends track
+    (:data:`TRACK_STAGES`): ``fusedPreprocessGrayBlurDown2`` (the one
+    ``gauss5_down2`` launch) → AKAZE (MLDB, threshold 0.001, 4 octaves × 4
+    sublevels, PM_G2: the scale space and maxima masks of every frame on
+    the device, one read-back, the host suppression, refinement,
+    orientation and descriptors) → BRISK (thresh 30, 3 octaves: the pyramid
+    and AGAST on the device, the NMS on the host, the descriptors' reads
+    and bits on the device) → KAZE on the first :data:`TRACK_KAZE_FRAMES`
+    frames → per detector and pair (i, i+1), kNN (k = 2) and the ratio test
+    d0 < 0.8 d1.
+
+    Returns a dict: ``small`` (N, H/2, W/2) u8; ``akaze_levels`` and
+    ``kaze_levels``, the level dicts with ``Lt``, ``Lx``, ``Ly`` and
+    ``Ldet`` ((B, h, w) f32 on the device); ``akaze_masks``;
+    ``brisk_layers`` and ``brisk_scores`` (AGAST's (score, keep) per
+    layer); ``<det>_keypoints`` and ``<det>_descriptors`` per frame; and
+    per detector (``akaze``, ``brisk``, ``kaze``) in ``knn``, ``good``,
+    ``points`` and ``counts`` each pair's DMatch rows, (g, 2) int64 (query,
+    train) indices, (p_i, p_{i+1}) points at half size, and (good pairs,
+    descriptors queried)."""
+    st = track_state(x)
+    for _, stage, _ in TRACK_STAGES:
+        stage(st)
+    for k in ("x", "akaze", "brisk", "kaze", "akaze_host"):
+        del st[k]
+    return st
+
+
+def entry_track(device="cuda", shape=SHAPE_TRACK):
+    """``(forward_track, (x,))`` with :func:`make_pan_video`'s frames on
+    `device`."""
+    video, _ = make_pan_video(shape)
+    return forward_track, (torch.from_numpy(video).to(device),)
+
+
+def track_truth_report(out, truth, shape, det: str, tol: float = TRACK_TOL_PX) -> dict:
+    """:func:`register_truth_report` of detector `det`'s good pairs, found
+    on the half-size frames."""
+    h, w = out["small"].shape[1:3]
+    return register_truth_report({"points": out["points"][det]}, truth, shape, (w, h), tol)
 
 
 # ------------------------------------------------------------ the mesh

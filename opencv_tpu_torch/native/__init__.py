@@ -17,7 +17,8 @@ The functions take and return host numpy arrays:
 - :func:`suzuki_contours` — findContours' border following;
 - :func:`flood_fill` — the u8 flood fill, in place;
 - :func:`maxflow_grid` — GrabCut's min cut on the 8-neighbour grid;
-- :func:`watershed` — the marker-controlled flood, in place.
+- :func:`watershed` — the marker-controlled flood, in place;
+- :func:`mser_detect` — MSER's stable regions of one polarity.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["CXX_FLAGS", "library", "suzuki_contours", "flood_fill", "maxflow_grid",
-           "watershed"]
+           "watershed", "mser_detect"]
 
 _DIR = Path(__file__).resolve().parent
 SOURCE = _DIR / "hosttails.cpp"
@@ -49,6 +50,7 @@ _SIGNATURES = {
                                        ctypes.c_uint8, _P]),
     "maxflow_grid": (ctypes.c_double, [_I, _I, _P, _P, _P, _P, _P, _P, _P]),
     "watershed_u8c3": (ctypes.c_int, [_P, _P, _I, _I]),
+    "mser_detect": (_I, [_P, _I, _I, _I, _I, _I, ctypes.c_double, ctypes.c_double, _P, _P, _I]),
 }
 
 _lock = threading.Lock()
@@ -175,3 +177,19 @@ def watershed(img: np.ndarray, markers: np.ndarray) -> None:
     im = np.ascontiguousarray(img, np.uint8)
     H, W = markers.shape
     library().watershed_u8c3(im.ctypes.data, markers.ctypes.data, H, W)
+
+
+def mser_detect(img: np.ndarray, delta=5, min_area=60, max_area=14400,
+                max_variation=0.25, min_diversity=0.2, max_out=4096):
+    """MSER's stable regions of one polarity of the (H, W) u8 `img`:
+    ``(seeds, levels)``, int32, at most `max_out` of them (the JAX
+    package's cap); each region is the pixels 4-connected to its seed at
+    or below its level."""
+    a = np.ascontiguousarray(img, np.uint8)
+    H, W = a.shape
+    seeds = np.zeros(max_out, np.int32)
+    levels = np.zeros(max_out, np.int32)
+    n = library().mser_detect(a.ctypes.data, H, W, int(delta), int(min_area), int(max_area),
+                              float(max_variation), float(min_diversity), seeds.ctypes.data,
+                              levels.ctypes.data, max_out)
+    return seeds[:n], levels[:n]

@@ -7,11 +7,13 @@
 //   maxflow_grid     Dinic's max-flow on GrabCut's 8-neighbour grid graph
 //                    (the role of GCGraph<double>, imgproc/src/gcgraph.hpp)
 //   watershed_u8c3   marker-controlled watershed (imgproc/src/segmentation.cpp)
+//   mser_detect      MSER's component tree and stability selection
+//                    (features2d/src/mser.cpp)
 //
 // Built by opencv_tpu_torch/native/__init__.py (g++ -O3 -shared -fPIC
 // -std=c++17) at the first call and loaded with ctypes.  The Python twins in
-// opencv_tpu_torch/ops/contours.py, ops/segmentation.py and ops/grabcut.py
-// are their plain versions, which the tests hold them to.
+// opencv_tpu_torch/ops/contours.py, ops/segmentation.py, ops/grabcut.py and
+// features2d/mser.py are their plain versions, which the tests hold them to.
 
 #include <cstdint>
 #include <cstring>
@@ -410,4 +412,148 @@ extern "C" int watershed_u8c3(const uint8_t *img, int32_t *mask,
     }
   }
   return 0;
+}
+
+// ------------------------------------------------------------------ MSER
+// Union-find immersion over gray levels building the component tree
+// (the role of the reference's linked-list flood in
+// features2d/src/mser.cpp), then VLFeat-style stability selection:
+//   var(n) = (size(ancestor at level <= n.level + delta) - size) / size
+// A node is kept when var <= max_variation, it is a local minimum of
+// var along its chain, and it differs from its nearest kept ancestor
+// by at least min_diversity.
+// Output: (seed_pixel, level) pairs; the caller floods to get pixels.
+
+struct MserNode {
+    int level;      // gray level of this snapshot
+    int size;       // pixels at that level
+    int parent;     // next snapshot upward (-1 = root)
+    int seed;       // any pixel inside
+    double var;
+    bool stable;
+};
+
+extern "C" int mser_detect(const uint8_t* img, int H, int W,
+                int delta, int min_area, int max_area,
+                double max_variation, double min_diversity,
+                int32_t* out_seeds, int32_t* out_levels, int max_out)
+{
+    const int N = H * W;
+    std::vector<int> order(N);
+    {   // counting sort by gray level
+        int cnt[257] = {0};
+        for (int i = 0; i < N; i++) cnt[img[i] + 1]++;
+        for (int i = 0; i < 256; i++) cnt[i + 1] += cnt[i];
+        for (int i = 0; i < N; i++) order[cnt[img[i]]++] = i;
+    }
+
+    std::vector<int> ufp(N, -1);        // union-find parent (-1 inactive)
+    std::vector<int> comp_node(N, -1);  // root pixel -> node index
+    std::vector<MserNode> nodes;
+    nodes.reserve(N / 4 + 16);
+
+    auto find = [&](int x) {
+        int r = x;
+        while (ufp[r] != r) r = ufp[r];
+        while (ufp[x] != r) { int nx = ufp[x]; ufp[x] = r; x = nx; }
+        return r;
+    };
+
+    const int dx[4] = {1, -1, 0, 0};
+    const int dy[4] = {0, 0, 1, -1};
+
+    for (int oi = 0; oi < N; oi++) {
+        int p = order[oi];
+        int g = img[p];
+        ufp[p] = p;
+        int node = (int)nodes.size();
+        nodes.push_back({g, 1, -1, p, 0.0, false});
+        comp_node[p] = node;
+        int px = p % W, py = p / W;
+        for (int k = 0; k < 4; k++) {
+            int nxx = px + dx[k], nyy = py + dy[k];
+            if (nxx < 0 || nxx >= W || nyy < 0 || nyy >= H) continue;
+            int q = nyy * W + nxx;
+            if (ufp[q] < 0) continue;
+            int rp = find(p), rq = find(q);
+            if (rp == rq) continue;
+            int na = comp_node[rp], nb = comp_node[rq];
+            // merge at level g: ensure both chains have a snapshot at g
+            auto lift = [&](int n) {
+                if (nodes[n].level == g) return n;
+                int nn = (int)nodes.size();
+                nodes.push_back({g, nodes[n].size, -1, nodes[n].seed,
+                                 0.0, false});
+                nodes[n].parent = nn;
+                return nn;
+            };
+            int la = lift(na), lb = lift(nb);
+            // attach smaller chain under larger
+            int keep = la, drop = lb, rkeep = rp, rdrop = rq;
+            if (nodes[lb].size > nodes[la].size) {
+                keep = lb; drop = la; rkeep = rq; rdrop = rp;
+            }
+            nodes[keep].size += nodes[drop].size;
+            // drop-node becomes an alias: link it upward into keep
+            nodes[drop].parent = keep;
+            ufp[rdrop] = rkeep;
+            comp_node[rkeep] = keep;
+        }
+    }
+
+    int M = (int)nodes.size();
+    // compute var for every node: find ancestor at level <= level+delta
+    for (int i = 0; i < M; i++) {
+        int target = nodes[i].level + delta;
+        int a = i;
+        while (nodes[a].parent >= 0 && nodes[nodes[a].parent].level <= target)
+            a = nodes[a].parent;
+        nodes[i].var = (double)(nodes[a].size - nodes[i].size)
+                       / (double)nodes[i].size;
+    }
+    // local-minimum test along parent chains: mark nodes whose var is
+    // <= parent's var and <= any child's var (children via one sweep)
+    std::vector<double> child_min(M, 1e30);
+    for (int i = 0; i < M; i++) {
+        int par = nodes[i].parent;
+        if (par >= 0 && nodes[i].var < child_min[par])
+            child_min[par] = nodes[i].var;
+    }
+    for (int i = 0; i < M; i++) {
+        const MserNode& n = nodes[i];
+        if (n.size < min_area || n.size > max_area) continue;
+        if (n.var > max_variation) continue;
+        double pv = n.parent >= 0 ? nodes[n.parent].var : 1e30;
+        // skip alias snapshots (same level as parent)
+        if (n.parent >= 0 && nodes[n.parent].level == n.level) continue;
+        if (n.var <= pv && n.var <= child_min[i])
+            nodes[i].stable = true;
+    }
+    // diversity pruning: walk up from each stable node; if a stable
+    // ancestor is too similar, keep the one with smaller var
+    for (int i = 0; i < M; i++) {
+        if (!nodes[i].stable) continue;
+        int a = nodes[i].parent;
+        while (a >= 0) {
+            if (nodes[a].stable) {
+                double div = (double)(nodes[a].size - nodes[i].size)
+                             / (double)nodes[a].size;
+                if (div < min_diversity) {
+                    if (nodes[a].var >= nodes[i].var)
+                        nodes[a].stable = false;
+                    else { nodes[i].stable = false; break; }
+                } else break;
+            }
+            a = nodes[a].parent;
+        }
+    }
+
+    int cnt = 0;
+    for (int i = 0; i < M && cnt < max_out; i++) {
+        if (!nodes[i].stable) continue;
+        out_seeds[cnt] = nodes[i].seed;
+        out_levels[cnt] = nodes[i].level;
+        cnt++;
+    }
+    return cnt;
 }

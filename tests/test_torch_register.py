@@ -99,7 +99,7 @@ def test_chain_against_the_jax_composition(port, ref):
 
 
 def test_truth_report(video, port):
-    rep = E.register_truth_report(port, video[1], SHAPE, mpx=MPX)
+    rep = E.register_truth_report(port, video[1], SHAPE, E.register_size(*SHAPE[1:3], MPX))
     assert rep["share"] >= 0.95
     assert all(n >= 200 and share >= 0.95 for n, share, _ in rep["per_pair"])
     assert port["counts"][0][0] == len(port["good"][0]) >= 200

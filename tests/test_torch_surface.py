@@ -246,6 +246,30 @@ def test_top_level_name_is_exported(name):
     assert type(getattr(tcv, name)) is type(getattr(jcv, name)), name
 
 
+# the names of features2d's slice 17: the classes and factories, and the
+# enum aliases, whose values equal the JAX package's
+SLICE17_NAMES = ("AGAST", "AgastFeatureDetector", "AgastFeatureDetector_create", "BRISK",
+                 "BRISK_create", "AKAZE", "AKAZE_create", "KAZE", "KAZE_create", "MSER",
+                 "MSER_create", "SimpleBlobDetector", "SimpleBlobDetector_create",
+                 "SimpleBlobDetector_Params")
+SLICE17_VALUES = ("AKAZE_DESCRIPTOR_KAZE_UPRIGHT", "AKAZE_DESCRIPTOR_KAZE",
+                  "AKAZE_DESCRIPTOR_MLDB_UPRIGHT", "AKAZE_DESCRIPTOR_MLDB", "KAZE_DIFF_PM_G1",
+                  "KAZE_DIFF_PM_G2", "KAZE_DIFF_WEICKERT", "KAZE_DIFF_CHARBONNIER")
+
+
+@pytest.mark.parametrize("name", SLICE17_NAMES)
+def test_slice17_name_is_exported(name):
+    assert type(getattr(tcv, name)) is type(getattr(jcv, name)), name
+    assert getattr(tcv.features2d, name) is getattr(tcv, name)
+    assert getattr(tcv, name).__name__ == getattr(jcv, name).__name__
+
+
+@pytest.mark.parametrize("name", SLICE17_VALUES)
+def test_slice17_value_equals_opencv_tpu(name):
+    assert getattr(tcv, name) == getattr(jcv, name)
+    assert getattr(tcv.features2d, name) == getattr(jcv, name)
+
+
 MAKERS = ("CV_8UC", "CV_8SC", "CV_16UC", "CV_16SC", "CV_32SC", "CV_32FC", "CV_64FC",
           "CV_16FC", "CV_16BFC", "CV_BoolC", "CV_64UC", "CV_64SC", "CV_32UC")
 
