@@ -13,7 +13,8 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    plain PyTorch version bit for bit (``torch.equal``) on the whole batch at
    the main paths' shapes, with the taps and borders those paths give it
    (sep_filter's template at K = 7 at each of ORB's 8 level shapes too, and
-   pyr_down with C = 3 at the segmentation path's two shapes),
+   pyr_down with C = 3 at the segmentation path's two shapes, and at the
+   video path's: N = 2 at 1080p and its three LK levels, N = 8 at 1080p),
    and on edge cases (borders, channel counts, odd and tiny sizes, rows of
    every width and offset views for the K = 7 template, k = 9 and 31 for
    the generic kernel);
@@ -175,6 +176,20 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       each detector's keypoints (pt, size, angle, response, octave,
       class_id) and descriptors, and pair 0's kNN rows and good pairs of
       each detector equal the card's exactly; the phase prints its wall;
+   n. the video-analytics path: ``entry_video("cuda")``'s forward (gray →
+      goodFeaturesToTrack on frame 0 → pyramidal LK of frame 0 to each
+      later frame → the median shake and the frames aligned by it → MOG2 →
+      one pyrDown of the gray batch and Farnebäck of half-size frame 0 to
+      each later frame) on ``make_motion_video()``'s frames, which must
+      launch pyr_down 22 times (LK's three levels of each pair, N = 2, and
+      the batch's half) through the registry and no other kernel; the truth
+      gates (VIDEO_*: the tracks, the shake, the dense flow, the masks);
+      then frames 0-1 on the CPU, stage by stage on the card's own inputs:
+      the corners overlap by GFTT_OVERLAP, pair (0, 1)'s tracks within
+      VIDEO_LK_TOL px and its status equal on VIDEO_LK_SHARE of the
+      points, the MOG2 masks of frames 0-1 exactly, Farnebäck's (0, 1) flow
+      within VIDEO_FLOW_TOL px on VIDEO_FLOW_SHARE of the pixels, and the
+      CPU's chain of frames 0-1 the same way; the phase prints its wall;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -211,7 +226,10 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    terms, and one profiled forward's wall, busy share and peak memory, with
    the 4k run's wall and host syncs; the tracking forward's seven stages
    the same way, with its busy share, host syncs and peak memory over the
-   input, and 4m's wall with this timing.  A kernel's share of its bound is
+   input, and 4m's wall with this timing; the video forward's six stages
+   on the host clock beside their bytes bounds (the terms listed), one
+   profiled forward's wall, busy share and peak memory, its host syncs, and
+   4n's wall with this timing.  A kernel's share of its bound is
    bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
@@ -296,6 +314,39 @@ REGISTER_MIN_GOOD = 100
 TRACK_TOL_PX = 2.5
 TRACK_MIN_SHARE = {"akaze": 0.95, "brisk": 0.65}
 TRACK_MIN_GOOD = {"akaze": 700, "brisk": 200}
+# (video path) the truth, from entry.video_truth_report: per frame pair, at
+# least VIDEO_KLT_SHARE of the tracked points clear of the movers (by LK's
+# reach) within 0.5 px of the camera's shift, and VIDEO_KLT_MIN of them;
+# the median shake and the static pixels' median Farnebäck flow within
+# VIDEO_SHIFT_TOL px per axis of the shift (half of it at half size); in
+# frames VIDEO_BG_FIRST.. each box's foreground share at least
+# VIDEO_BG_BOX_MIN and on average VIDEO_BG_BOX_MEAN, at least
+# VIDEO_BG_IN_BOX of the foreground inside a box, and in frames 4.. at most
+# VIDEO_BG_STATIC of the static pixels foreground.  Measured at full size
+# (perf/video_truth.py on the H100 and on the CPU alike, and this script;
+# NVIDIA H100 80GB HBM3, 700.00 W): 0.9909-1.0 of 328-372 points; shake
+# <= 0.0011 px, dense <= 0.0014 px; frames 5-7 least box share
+# 0.0262-0.0941, mean 0.6117-0.6212, all the foreground in boxes; static
+# 0.0.  The JAX package's MOG2 counts a fresh mode as background
+# while the older modes' weights sum below backgroundRatio (0.9), which its
+# learning rate 1/(2 frames) keeps true up to frame 4: no foreground before
+# frame 5, and a box over its mover's last place keeps its old mode
+VIDEO_KLT_SHARE = 0.95
+VIDEO_KLT_MIN = 300
+VIDEO_SHIFT_TOL = 0.25
+VIDEO_BG_FIRST = 5
+VIDEO_BG_BOX_MIN = 0.025
+VIDEO_BG_BOX_MEAN = 0.6
+VIDEO_BG_IN_BOX = 0.99
+VIDEO_BG_STATIC = 0.05
+# (video path) card vs CPU: LK's points within VIDEO_LK_TOL px and its
+# status equal on VIDEO_LK_SHARE of the points, Farnebäck's flow within
+# VIDEO_FLOW_TOL px on VIDEO_FLOW_SHARE of the pixels (the bounds the tests
+# hold the port to against the JAX package's jitted programs)
+VIDEO_LK_TOL = 1e-3
+VIDEO_LK_SHARE = 0.99
+VIDEO_FLOW_TOL = 1e-3
+VIDEO_FLOW_SHARE = 0.999
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -451,15 +502,19 @@ def host_median(fn, iters: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def busy_share(fn, iters: int = 3, warmup: bool = True) -> tuple[float, float, float]:
+def busy_share(fn, iters: int = 3, warmup: bool = True,
+               host_ops: bool = True) -> tuple[float, float, float]:
     """(kernel time / wall time, kernel ms, wall ms) per call of fn, from
     torch.profiler over `iters` calls after one warm-up (none for a path that
-    has just run); the wall time ends in a synchronize."""
+    has just run); the wall time ends in a synchronize.  host_ops=False
+    records the device's activity alone (a forward of tens of thousands of
+    small ops otherwise takes a minute to summarise)."""
     from torch.profiler import ProfilerActivity, profile
     if warmup:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -758,6 +813,9 @@ OFFSET_SHAPES = (("offset aligned", (2, 40, 64, 1)), ("offset unaligned", (2, 41
 
 # pyr_down's inputs on the segmentation path (4j): frame 0, then its half
 PYR_SEGMENT_SHAPES = ((1, 1080, 1920, 3), (1, 540, 960, 3))
+# pyr_down's inputs on the video path (4n): LK's pair at 1080p and its next
+# two levels, then the gray batch
+PYR_VIDEO_SHAPES = ((2, 1080, 1920, 1), (2, 540, 960, 1), (2, 270, 480, 1), (8, 1080, 1920, 1))
 
 
 # bound_ms: the card's memory rate and its float32 rate outside the tensor
@@ -901,8 +959,12 @@ def main() -> int:
         x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
         err = check_equal(f"pyr_down segment {shape}", pyr_down_u8(x), pyr_down_u8_plain(x))
         max_err["pyr_down"] = max(max_err["pyr_down"], err)
-    log(f"pyr_down: {len(cases) + len(OFFSET_SHAPES) + len(PYR_SEGMENT_SHAPES)} cases equal "
-        f"to the plain version")
+    for shape in PYR_VIDEO_SHAPES:
+        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        err = check_equal(f"pyr_down video {shape}", pyr_down_u8(x), pyr_down_u8_plain(x))
+        max_err["pyr_down"] = max(max_err["pyr_down"], err)
+    log(f"pyr_down: {len(cases) + len(OFFSET_SHAPES) + len(PYR_SEGMENT_SHAPES)} cases "
+        f"+ {len(PYR_VIDEO_SHAPES)} at the video path's shapes equal to the plain version")
 
     # -- 4a. the flagship path
     def run_counted(fn):
@@ -1767,6 +1829,117 @@ def main() -> int:
     log(f"phase 4m wall: {wall4m:.1f} s (the card's forward, the truth, the CPU's frames 0-1 and "
         f"the comparison)")
 
+    # -- 4n. the video-analytics path: gray -> goodFeaturesToTrack -> LK
+    # (pyr_down of each pair's levels) -> shake -> aligned -> MOG2 -> pyrDown
+    # of the batch (pyr_down) -> Farneback
+    t14_start = time.perf_counter()
+    video14, shifts14, boxes14 = E.make_motion_video(E.SHAPE_VIDEO)
+    x14 = torch.from_numpy(video14).to(dev)
+    reset_tier_stats()
+    held14 = []
+    t14 = time.perf_counter()
+    n_sync14, cfg14 = run_counted(
+        lambda: count_syncs(lambda: held14.append(E.forward_video(x14))))
+    wall14 = (time.perf_counter() - t14) * 1e3
+    outs14 = held14[0]
+    tiers14 = tier_stats()
+    log(f"video path launches: {cfg14}; dispatch {tiers14}")
+    N14, H14, W14, _ = E.SHAPE_VIDEO
+    n_pyr14 = 3 * (N14 - 1) + 1
+    if (cfg14["opencv_pyr_down"] != n_pyr14 or cfg14["opencv_sep_filter"]
+            or cfg14["opencv_gauss5_down2"]
+            or {k: v for k, v in tiers14.items() if k.endswith(".cuda")}
+            != {"tier.pyr_down_u8.cuda": n_pyr14}):
+        raise AssertionError(f"video path: pyr_down must launch {n_pyr14} times through the "
+                             f"registry and no other kernel; got {cfg14}, {tiers14}")
+    flow14, masks14 = outs14["flow"], outs14["masks"]
+    if (tuple(flow14.shape) != (N14 - 1, H14 // 2, W14 // 2, 2) or flow14.dtype != torch.float32
+            or not bool(torch.isfinite(flow14).all())):
+        raise AssertionError(f"video flow: {tuple(flow14.shape)} {flow14.dtype}")
+    if tuple(masks14.shape) != (N14, H14, W14) or masks14.dtype != torch.uint8:
+        raise AssertionError(f"video masks: {tuple(masks14.shape)} {masks14.dtype}")
+    rep14 = E.video_truth_report(outs14, shifts14, boxes14, E.SHAPE_VIDEO)
+    log(f"video path truth: KLT (points clear of the movers by {E.VIDEO_LK_REACH} px, share "
+        f"within 0.5 px) {[(n, round(v, 4)) for n, v in rep14['klt']]}; with no margin "
+        f"{[(n, round(v, 4)) for n, v in rep14['klt_all']]}; shake |d| "
+        f"{[round(v, 5) for v in rep14['shake']]} px; dense |d| "
+        f"{[round(v, 5) for v in rep14['dense']]} px; MOG2 frames 4.. (least, mean box share, "
+        f"foreground in boxes, static) {[tuple(round(v, 4) for v in r) for r in rep14['bg']]}; "
+        f"gates: KLT >= {VIDEO_KLT_SHARE} of >= {VIDEO_KLT_MIN} points, shake and dense <= "
+        f"{VIDEO_SHIFT_TOL} px, MOG2 frames {VIDEO_BG_FIRST}.. least >= {VIDEO_BG_BOX_MIN}, mean "
+        f">= {VIDEO_BG_BOX_MEAN}, in boxes >= {VIDEO_BG_IN_BOX}, static <= {VIDEO_BG_STATIC}")
+    bad14 = []
+    if any(v < VIDEO_KLT_SHARE or n < VIDEO_KLT_MIN for n, v in rep14["klt"]):
+        bad14.append("klt")
+    if max(rep14["shake"]) > VIDEO_SHIFT_TOL:
+        bad14.append("shake")
+    if max(rep14["dense"]) > VIDEO_SHIFT_TOL:
+        bad14.append("dense")
+    late14 = rep14["bg"][VIDEO_BG_FIRST - 4:]
+    if (any(r[0] < VIDEO_BG_BOX_MIN or r[1] < VIDEO_BG_BOX_MEAN or r[2] < VIDEO_BG_IN_BOX
+            for r in late14) or any(r[3] > VIDEO_BG_STATIC for r in rep14["bg"])):
+        bad14.append("bg")
+    if bad14:
+        raise AssertionError(f"video truth fails {bad14}: {rep14}")
+    log(f"video path: {len(outs14['corners'])} corners, {n_sync14} host syncs; the forward "
+        f"{wall14:.1f} ms on the host clock  [{card}]")
+    # frames 0-1 on the CPU: each stage on the card's own inputs, then the
+    # CPU's own chain of frames 0-1
+    t14_cpu = time.perf_counter()
+    gray14 = outs14["gray"][:2, ..., 0].cpu()
+    corners_c14 = cv.goodFeaturesToTrack(gray14[0], **E.VIDEO_GFTT)
+    shared14, n_g14, n_c14 = corner_overlap(outs14["corners"], corners_c14)
+    if shared14 < GFTT_OVERLAP * max(n_g14, n_c14):
+        raise AssertionError(f"video corners: {shared14} shared of {n_g14} (card), {n_c14} (CPU)")
+
+    def lk_compare(what, p_got, s_got, p_want, s_want):
+        d = np.abs(p_got.astype(np.float64) - p_want).max(axis=-1)
+        near, same = float((d <= VIDEO_LK_TOL).mean()), float((s_got == s_want).mean())
+        if near < VIDEO_LK_SHARE or same < VIDEO_LK_SHARE:
+            raise AssertionError(f"{what}: {near} of the points within {VIDEO_LK_TOL} px, "
+                                 f"status equal on {same}")
+        return f"{what}: max |d| {d.max():.3g} px, status equal on {same:.4f}"
+
+    def flow_compare(what, got, want):
+        d = (got - want).abs().amax(dim=-1)
+        share = float((d <= VIDEO_FLOW_TOL).float().mean())
+        if share < VIDEO_FLOW_SHARE:
+            raise AssertionError(f"{what}: {share} of the pixels within {VIDEO_FLOW_TOL} px")
+        return f"{what}: max |d| {float(d.max()):.3g} px, {int((d != 0).sum())} pixels differ"
+
+    p_c14, s_c14, _ = cv.calcOpticalFlowPyrLK(gray14[0], gray14[1], outs14["corners"])
+    notes14 = [lk_compare("LK (0, 1)", outs14["tracks"][0], outs14["status"][0], p_c14[:, 0],
+                          s_c14[:, 0])]
+    mog14 = cv.createBackgroundSubtractorMOG2()
+    for i in range(2):
+        check_equal(f"video MOG2 mask {i}", masks14[i].cpu(),
+                    mog14.apply(outs14["aligned"][i].cpu()))
+    half14 = outs14["half"][:2].cpu()
+    check_equal("video half frames 0-1", half14, cv.pyrDown(gray14[..., None])[..., 0])
+    notes14.append(flow_compare("Farneback (0, 1)", flow14[0].cpu(), cv.calcOpticalFlowFarneback(
+        half14[0], half14[1], *E.VIDEO_FARNEBACK)))
+    cpu14 = E.forward_video(x14[:2].cpu())
+    shared_c14 = corner_overlap(outs14["corners"], cpu14["corners"])[0]
+    if shared_c14 < GFTT_OVERLAP * max(n_g14, len(cpu14["corners"])):
+        raise AssertionError("video chain: the CPU's corners differ from the card's")
+    if np.array_equal(outs14["corners"], cpu14["corners"]):
+        notes14.append(lk_compare("chain LK (0, 1)", outs14["tracks"][0], outs14["status"][0],
+                                  cpu14["tracks"][0], cpu14["status"][0]))
+    if not np.allclose(outs14["shifts"][0], cpu14["shifts"][0], atol=VIDEO_LK_TOL, rtol=0):
+        raise AssertionError(f"video chain shake: {outs14['shifts'][0]} on the card, "
+                             f"{cpu14['shifts'][0]} on the CPU")
+    check_equal("video chain masks 0-1", masks14[:2].cpu(), cpu14["masks"])
+    notes14.append(flow_compare("chain Farneback (0, 1)", flow14[0].cpu(), cpu14["flow"][0]))
+    cpu_ms14 = (time.perf_counter() - t14_cpu) * 1e3
+    log(f"video path, frames 0-1 against the CPU: corners {shared14} shared of {n_g14} / "
+        f"{n_c14}; {'; '.join(notes14)}; MOG2 masks 0-1 and the half frames equal; the CPU's "
+        f"chain: corners {shared_c14} shared, shake {cpu14['shifts'][0].tolist()}, masks equal; "
+        f"the CPU took {cpu_ms14:.1f} ms")
+    del cpu14, half14, gray14
+    wall4n = time.perf_counter() - t14_start
+    log(f"phase 4n wall: {wall4n:.1f} s (the card's forward, the truth, the CPU's frames 0-1 and "
+        f"the comparison)")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -1801,6 +1974,14 @@ def main() -> int:
         rows.append((f"pyr_down c3 {shape[1]}x{shape[2]}", lambda a=a: pyr_down_u8(a),
                      lambda a=a: pyr_down_u8_plain(a), f"{shape} REFLECT_101", n_in + n_out,
                      2 * (5 * n_in // 2 + 5 * n_out), conv_yardstick(a, k5, k5, 2, dev), None))
+    # pyr_down on the video path's LK pairs (N = 2) at its three levels
+    for shape in PYR_VIDEO_SHAPES[:3]:
+        a = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        n_in, n_out = a.numel(), a.numel() // 4
+        rows.append((f"pyr_down video {shape[0]}x{shape[1]}x{shape[2]}",
+                     lambda a=a: pyr_down_u8(a), lambda a=a: pyr_down_u8_plain(a),
+                     f"{shape} REFLECT_101", n_in + n_out, 2 * (5 * n_in // 2 + 5 * n_out),
+                     conv_yardstick(a, k5, k5, 2, dev), None))
     # sep_filter at each of ORB's levels (the pyramid of the config-5 batch),
     # as the blur launches it; then the generic kernel, which no main path
     # launches, at k = 9 on the level-2 shape
@@ -2355,6 +2536,61 @@ def main() -> int:
         f"{time.perf_counter() - t13_time:.1f} s")
     del outs13, x11, x13
 
+    # the video path, as the caller sees it: its stages one after another on
+    # one state on the host clock (each ends in a synchronize), then one
+    # forward under torch.profiler (busy share, wall) with the peak memory.
+    # Bytes: each stage's inputs read once and outputs written once (n =
+    # N*H*W): gray 3n in, n out; corners frame 0; klt each pair's two frames
+    # per call; shake frames 1.. in, the aligned batch out; MOG2 the aligned
+    # frames in, the masks out, and its state (weights, means, variances:
+    # 100 B a pixel) read and written at each frame; dense the gray batch in,
+    # the half batch out, each pair's two half frames in and its flow out
+    t14_time = time.perf_counter()
+    st14 = {"x": x14}
+    stage_ms14 = {}
+    for name, stage, keys in E.VIDEO_STAGES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage(st14)
+        torch.cuda.synchronize()
+        stage_ms14[name] = (time.perf_counter() - t0) * 1e3
+    hw14 = H14 * W14
+    n14 = N14 * hw14
+    n_pts14 = len(st14["corners"])
+    stage_bytes14 = {"gray": 3 * n14 + n14, "corners": hw14 + 8 * n_pts14,
+                     "klt": (N14 - 1) * (2 * hw14 + 9 * n_pts14) + 8 * n_pts14,
+                     "shake": (N14 - 1) * 3 * hw14 + N14 * 3 * hw14,
+                     "bg": 3 * n14 + n14 + N14 * 2 * 100 * hw14 + 3 * hw14,
+                     "dense": n14 + n14 // 4 + (N14 - 1) * (2 * hw14 // 4 + 8 * hw14 // 4)}
+    fwd_bytes14 = sum(stage_bytes14.values())
+    for name, t in stage_ms14.items():
+        b_ms = bound(stage_bytes14[name], 0)[0]
+        log(f"time video {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({stage_bytes14[name] / 1e6:.1f} MB), share of bound {b_ms / t:.6f}  [{card}]")
+    log(f"video bytes bound terms (MB): gray {4 * n14 / 1e6:.1f}; corners "
+        f"{stage_bytes14['corners'] / 1e6:.2f}; klt {stage_bytes14['klt'] / 1e6:.1f} "
+        f"({N14 - 1} pairs); "
+        f"shake {stage_bytes14['shake'] / 1e6:.1f}; MOG2 frames {4 * n14 / 1e6:.1f} + state "
+        f"{N14 * 200 * hw14 / 1e6:.1f}; dense {stage_bytes14['dense'] / 1e6:.1f}; total "
+        f"{fwd_bytes14 / 1e6:.1f} MB = {bound(fwd_bytes14, 0)[0]:.4f} ms")
+    del st14
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base14 = torch.cuda.memory_allocated()
+    busy14, k_ms14, f_ms14 = busy_share(lambda: E.forward_video(x14), iters=1, warmup=False,
+                                        host_ops=False)
+    peak14 = torch.cuda.max_memory_allocated() - base14
+    log(f"time forward_video {tuple(x14.shape)}: {f_ms14:.4f} ms (profiled run; the 4n run "
+        f"{wall14:.4f} ms; stages summed {sum(stage_ms14.values()):.4f} ms) on the host clock, "
+        f"bytes bound {bound(fwd_bytes14, 0)[0]:.4f} ms ({fwd_bytes14 / 1e6:.1f} MB), share of "
+        f"bound {bound(fwd_bytes14, 0)[0] / f_ms14:.6f}  [{card}]")
+    log(f"video forward: device busy share {busy14:.4f} (kernels {k_ms14:.4f} ms of "
+        f"{f_ms14:.4f} ms, torch.profiler); {n_sync14} host syncs per batch; peak device memory "
+        f"over the input {peak14 / 2 ** 30:.3f} GiB  [{card}]")
+    log(f"video path's wall in chip_smoke.py: phase 4n {wall4n:.1f} s + its timing "
+        f"{time.perf_counter() - t14_time:.1f} s")
+    del outs14, x14
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -2363,7 +2599,7 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4m); the
+    # launches: the kernel's count over the main paths (4a to 4n); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
@@ -2371,9 +2607,11 @@ def main() -> int:
                              "sep_filter generic k9 level 2"),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"),
               "pyr_down": ("pyr_down", *(f"pyr_down c3 {h}x{w}" for _, h, w, _ in
-                                         PYR_SEGMENT_SHAPES))}
+                                         PYR_SEGMENT_SHAPES),
+                           *(f"pyr_down video {n}x{h}x{w}" for n, h, w, _ in
+                             PYR_VIDEO_SHAPES[:3]))}
     main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
-                  cfg13)
+                  cfg13, cfg14)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

@@ -197,6 +197,27 @@ class _SegmentationNS:
 
 segmentation = _SegmentationNS()
 
+from .features2d import (  # noqa: F401,E402
+    BOWKMeansTrainer, BOWImgDescriptorExtractor, AffineFeature, AffineFeature_create,
+    evaluateFeatureDetector, computeRecallPrecisionCurve, getRecall, getNearestPoint,
+)
+from . import video  # noqa: F401,E402
+from .video import (  # noqa: F401,E402
+    BackgroundSubtractorMOG2, createBackgroundSubtractorMOG2, BackgroundSubtractorKNN,
+    createBackgroundSubtractorKNN, calcOpticalFlowPyrLK, SparsePyrLKOpticalFlow,
+    SparsePyrLKOpticalFlow_create, buildOpticalFlowPyramid, readOpticalFlow, writeOpticalFlow,
+    calcOpticalFlowFarneback, FarnebackOpticalFlow_create, KalmanFilter, meanShift, CamShift,
+    findTransformECC, computeECC, findTransformECCWithMask, findTransformECCMultiScale,
+    MOTION_TRANSLATION, MOTION_EUCLIDEAN, MOTION_AFFINE, MOTION_HOMOGRAPHY, DISOpticalFlow,
+    DISOpticalFlow_create, TrackerMIL, TrackerMIL_create, VariationalRefinement,
+    VariationalRefinement_create,
+)
+
+# the binding's base-class aliases of the video module
+BackgroundSubtractor = BackgroundSubtractorMOG2
+SparseOpticalFlow = SparsePyrLKOpticalFlow
+DenseOpticalFlow = DISOpticalFlow
+
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
 from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "dtype_name", "to_batched", "from_batched", "to_device"]
+__all__ = ["as_tensor", "dtype_name", "to_batched", "from_batched", "to_device", "to_host"]
 
 
 def as_tensor(src) -> torch.Tensor:
@@ -22,6 +22,14 @@ def as_tensor(src) -> torch.Tensor:
     if isinstance(src, torch.Tensor):
         return src
     return torch.from_numpy(np.ascontiguousarray(src))
+
+
+def to_host(a) -> np.ndarray:
+    """A tensor on any device (read back once), or an array-like, as a host
+    numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def to_device(table, device) -> torch.Tensor:

@@ -104,6 +104,20 @@ ratio test d0 < 0.8·d1 (:data:`TRACK_STAGES`).  ``entry_track`` gives it
 the registration path's pan video; ``track_truth_report`` checks each
 detector's good pairs against the pan's truth.
 
+``forward_video`` is video analytics on a shaking camera, the steps of
+OpenCV's own video tutorials as CCTV, traffic and drone pipelines run them:
+gray → goodFeaturesToTrack on frame 0 (500 corners, quality 0.01, distance
+7, block 7) → pyramidal Lucas-Kanade of frame 0 to each later frame at
+cv2's defaults (21×21, 3 levels, 30 iterations; each level's pair one
+``pyr_down`` launch) → the camera's shake as each frame's median track
+displacement, and the frames aligned by it rounded (warpAffine, NEAREST,
+BORDER_REPLICATE) → MOG2 at its defaults over the aligned frames → one
+``pyrDown`` of the gray batch (one ``pyr_down`` launch) and Farnebäck
+(0.5, 3, 15, 3, 5, 1.2) of half-size frame 0 to each later one
+(:data:`VIDEO_STAGES`).  ``entry_video`` gives it ``make_motion_video()``'s
+frames; ``video_truth_report`` checks the tracks, the shake, the dense flow
+and the masks against the video's shifts and object boxes.
+
 ``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
 on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
 CUDA devices) run the batch-DP step and the spatial filters of
@@ -160,6 +174,10 @@ from .features2d.brisk import BRISK_create
 from .features2d.kaze import KAZE_create
 from .features2d.matchers import BFMatcher, FlannBasedMatcher
 from .features2d.sift import SIFT_create
+from .ops.corners import goodFeaturesToTrack
+from .video.bgsub import createBackgroundSubtractorMOG2
+from .video.farneback import calcOpticalFlowFarneback
+from .video.lk import calcOpticalFlowPyrLK
 
 __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
            "SHAPE_MOTION", "SHAPE_LINES", "SHAPE_SEGMENT", "PERSPECTIVE_CFG2",
@@ -181,6 +199,8 @@ __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHA
            "SHAPE_TRACK", "TRACK_STAGES", "TRACK_RATIO", "TRACK_TOL_PX", "TRACK_LSH",
            "TRACK_KAZE_FRAMES", "TRACK_DETECTORS", "track_state", "forward_track", "entry_track",
            "track_truth_report",
+           "SHAPE_VIDEO", "VIDEO_STAGES", "VIDEO_GFTT", "VIDEO_FARNEBACK", "VIDEO_LK_REACH",
+           "VIDEO_BORDER", "forward_video", "entry_video", "video_truth_report",
            "MESH_BORDERS", "MESH_TIMEOUT_S", "dryrun_multichip", "make_mesh_batch",
            "run_mesh_scenarios"]
 
@@ -1720,6 +1740,177 @@ def track_truth_report(out, truth, shape, det: str, tol: float = TRACK_TOL_PX) -
     on the half-size frames."""
     h, w = out["small"].shape[1:3]
     return register_truth_report({"points": out["points"][det]}, truth, shape, (w, h), tol)
+
+
+# ------------------------------------------------------- video analytics
+
+SHAPE_VIDEO = (8, 1080, 1920, 3)
+# goodFeaturesToTrack's and Farnebäck's parameters: OpenCV's optical-flow
+# tutorials (samples/python/tutorial_code/video/optical_flow/optical_flow.py
+# with blockSize 7, and optical_flow_dense.py)
+VIDEO_GFTT = dict(maxCorners=500, qualityLevel=0.01, minDistance=7, blockSize=7)
+VIDEO_FARNEBACK = (None, 0.5, 3, 15, 3, 5, 1.2, 0)
+# the reach of LK's coarsest window at cv2's defaults: half of 21 px at
+# level 3, in level-0 px
+VIDEO_LK_REACH = (21 // 2) * 2 ** 3
+# the truth's margin at the frame's edge: the camera's largest shake, whose
+# strip the alignment fills by replication
+VIDEO_BORDER = MOTION_MAX_SHIFT
+
+
+def _v_gray(st):
+    st["gray"] = cvtColor(st["x"], K.COLOR_BGR2GRAY)
+
+
+def _v_corners(st):
+    """Frame 0's corners, (n, 1, 2) f32 host numpy (GFTT's tail reads its
+    response map back)."""
+    st["corners"] = goodFeaturesToTrack(st["gray"][0], **VIDEO_GFTT)
+
+
+def _v_klt(st):
+    """Each later frame's tracks of frame 0's corners: (N-1, n, 2) f32 and
+    (N-1, n) u8 status, host numpy (each call reads its points back)."""
+    g, p0 = st["gray"][..., 0], st["corners"]
+    tracks, status = [], []
+    for i in range(1, g.shape[0]):
+        p1, s1, _ = calcOpticalFlowPyrLK(g[0], g[i], p0)
+        tracks.append(p1[:, 0])
+        status.append(s1[:, 0])
+    st["tracks"] = np.stack(tracks)
+    st["status"] = np.stack(status)
+
+
+def _v_shake(st):
+    """The median displacement of each frame's tracked points (status 1),
+    (N-1, 2) f64 (x, y), and the frames moved back by it rounded to whole
+    pixels."""
+    p0 = st["corners"][:, 0].astype(np.float64)
+    shifts = np.stack([np.median(t[s == 1] - p0[s == 1], axis=0)
+                       for t, s in zip(st["tracks"].astype(np.float64), st["status"])])
+    x = st["x"]
+    H, W = x.shape[1], x.shape[2]
+    frames = [x[:1]]
+    for i, (sx, sy) in enumerate(np.rint(shifts), 1):
+        M = np.array([[1.0, 0.0, -sx], [0.0, 1.0, -sy]])
+        frames.append(warpAffine(x[i:i + 1], M, (W, H), K.INTER_NEAREST, K.BORDER_REPLICATE))
+    st["shifts"], st["aligned"] = shifts, torch.cat(frames)
+
+
+def _v_bg(st):
+    mog = createBackgroundSubtractorMOG2()
+    st["masks"] = torch.stack([mog.apply(f) for f in st["aligned"]])
+    st["background"] = mog.getBackgroundImage()
+
+
+def _v_dense(st):
+    """Half-size frames (one pyrDown of the batch) and Farnebäck's flow of
+    frame 0 to each later frame, (N-1, h, w, 2) f32."""
+    half = pyrDown(st["gray"])[..., 0]
+    st["half"] = half
+    st["flow"] = torch.stack([calcOpticalFlowFarneback(half[0], half[i], *VIDEO_FARNEBACK)
+                              for i in range(1, half.shape[0])])
+
+
+# forward_video's stages in order: (name, fn of the state dict, the keys it
+# writes); each reads only keys written before it
+VIDEO_STAGES = (
+    ("gray", _v_gray, ("gray",)),
+    ("corners", _v_corners, ("corners",)),
+    ("klt", _v_klt, ("tracks", "status")),
+    ("shake", _v_shake, ("shifts", "aligned")),
+    ("bg", _v_bg, ("masks", "background")),
+    ("dense", _v_dense, ("half", "flow")),
+)
+
+
+def forward_video(x):
+    """Video analytics over an (N, H, W, 3) u8 BGR video from a shaking
+    camera, frame 0 the reference (:data:`VIDEO_STAGES`).
+
+    Returns a dict: ``gray`` (N, H, W, 1) u8; ``corners`` (n, 1, 2) f32,
+    ``tracks`` (N-1, n, 2) f32 and ``status`` (N-1, n) u8 (host numpy);
+    ``shifts`` (N-1, 2) f64 (x, y) host numpy, the median track displacement
+    of frames 1..; ``aligned`` (N, H, W, 3) u8; ``masks`` (N, H, W) u8 (0,
+    127 shadow, 255) and ``background`` (H, W, 3) u8, MOG2's; ``half`` (N,
+    H/2, W/2) u8 and ``flow`` (N-1, H/2, W/2, 2) f32, Farnebäck's flow of
+    half-size frame 0 to each later one."""
+    st = {"x": x}
+    for _, stage, _ in VIDEO_STAGES:
+        stage(st)
+    del st["x"]
+    return st
+
+
+def entry_video(device="cuda", shape=SHAPE_VIDEO):
+    """``(forward_video, (x,))`` with :func:`make_motion_video`'s frames on
+    `device`."""
+    video, _, _ = make_motion_video(shape)
+    return forward_video, (torch.from_numpy(video).to(device),)
+
+
+def _outside(px, py, boxes, margin: float = 0.0):
+    """Whether points (px, py) lie outside every (x, y, w, h) box grown by
+    `margin` on each side."""
+    ok = np.ones(np.shape(px), bool)
+    for bx, by, bw, bh in boxes:
+        ok &= ~((px >= bx - margin) & (px < bx + bw + margin)
+                & (py >= by - margin) & (py < by + bh + margin))
+    return ok
+
+
+def video_truth_report(out, shifts, boxes, shape, reach: int = VIDEO_LK_REACH) -> dict:
+    """forward_video's outputs against the video's truth (``shifts`` (N, 2)
+    and ``boxes`` (N, objects, 4) of :func:`make_motion_video`):
+
+    - ``klt``: per frame i ≥ 1, (static tracked points, their share within
+      0.5 px of shifts[i]): points of status 1 whose coarsest LK window
+      clears every box of frames 0 and i (outside each box grown by `reach`
+      px: a mover inside that window drags the coarse estimate); ``klt_all``
+      the same with no growth;
+    - ``shake``: per frame, the largest |median shift − shifts[i]| per axis;
+    - ``dense``: per frame, the largest |median flow − shifts[i]/2| per axis
+      over the half-size pixels outside every box of frames 0 and i and
+      :data:`VIDEO_BORDER` px (at full size) from the edge, past the
+      aligned frames' replicated strips;
+    - ``bg``: per frame 4.., (the least and the mean share of foreground,
+      127 or 255, in a box of that frame; the share of the foreground
+      VIDEO_BORDER px from the edge that lies in a box of that frame; the
+      share of foreground among the pixels outside every box of frames
+      0..i and VIDEO_BORDER px from the edge)."""
+    N, H, W = shape[:3]
+    border = VIDEO_BORDER
+    p0 = out["corners"][:, 0].astype(np.float64)
+    klt, klt_all, shake, dense, bg = [], [], [], [], []
+    for i in range(1, N):
+        st = out["status"][i - 1] == 1
+        err = np.hypot(*(out["tracks"][i - 1].astype(np.float64) - p0 - shifts[i]).T)
+        for rows, grow in ((klt, reach), (klt_all, 0)):
+            keep = st & _outside(p0[:, 0], p0[:, 1], np.concatenate([boxes[0], boxes[i]]), grow)
+            rows.append((int(keep.sum()), float((err[keep] <= 0.5).mean()) if keep.any() else 0.0))
+        shake.append(float(np.abs(out["shifts"][i - 1] - shifts[i]).max()))
+    flow = out["flow"].cpu().numpy()
+    h, w = flow.shape[1:3]
+    ys, xs = np.mgrid[0:h, 0:w]
+    # a half-size pixel covers full-size pixels 2y..2y+1
+    edge = ((xs >= border // 2) & (xs < w - border // 2)
+            & (ys >= border // 2) & (ys < h - border // 2))
+    for i in range(1, N):
+        keep = edge & _outside(2 * xs + 0.5, 2 * ys + 0.5,
+                               np.concatenate([boxes[0], boxes[i]]), 1.0)
+        med = np.median(flow[i - 1][keep], axis=0)
+        dense.append(float(np.abs(med - shifts[i] / 2.0).max()))
+    masks = out["masks"].cpu().numpy() > 0
+    ys, xs = np.mgrid[0:H, 0:W]
+    edge = (xs >= border) & (xs < W - border) & (ys >= border) & (ys < H - border)
+    for i in range(4, N):
+        inside = [masks[i, by:by + bh, bx:bx + bw].mean() for bx, by, bw, bh in boxes[i]]
+        fg = masks[i] & edge
+        in_box = fg & ~_outside(xs, ys, boxes[i])
+        static = edge & _outside(xs, ys, boxes[:i + 1].reshape(-1, 4))
+        bg.append((float(min(inside)), float(np.mean(inside)),
+                   float(in_box.sum() / max(fg.sum(), 1)), float(masks[i][static].mean())))
+    return {"klt": klt, "klt_all": klt_all, "shake": shake, "dense": dense, "bg": bg}
 
 
 # ------------------------------------------------------------ the mesh

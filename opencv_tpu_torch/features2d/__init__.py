@@ -1,8 +1,9 @@
 """features2d of the port: the KeyPoint API, GFTTDetector, FAST, AGAST,
 ORB, SIFT, BRISK, AKAZE, KAZE, MSER, SimpleBlobDetector, BFMatcher and
-FlannBasedMatcher (twin of ``opencv_tpu/features2d``; bow, affine_feature,
-evaluation, the DNN features and LightGlue are not ported yet, ROADMAP.md
-queue A)."""
+FlannBasedMatcher, BOWKMeansTrainer and BOWImgDescriptorExtractor,
+AffineFeature, and the detector evaluation (twin of
+``opencv_tpu/features2d``; the DNN features and LightGlue wait for ``dnn``,
+ROADMAP.md queue A)."""
 
 from .keypoint import (  # noqa: F401
     KeyPoint, KeyPoint_convert, KeyPoint_overlap, retain_best, run_by_image_border,
@@ -27,6 +28,11 @@ from .kaze import KAZE, KAZE_create  # noqa: F401
 from .mser import MSER, MSER_create  # noqa: F401
 from .blob import (  # noqa: F401
     SimpleBlobDetector, SimpleBlobDetector_create, SimpleBlobDetector_Params,
+)
+from .bow import BOWKMeansTrainer, BOWImgDescriptorExtractor  # noqa: F401
+from .affine_feature import AffineFeature, AffineFeature_create  # noqa: F401
+from .evaluation import (  # noqa: F401
+    evaluateFeatureDetector, computeRecallPrecisionCurve, getRecall, getNearestPoint,
 )
 
 # cv2-style flat constant aliases

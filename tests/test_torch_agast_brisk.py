@@ -22,7 +22,7 @@ from opencv_tpu_torch.features2d import agast as tagast
 from opencv_tpu_torch.features2d import brisk as tbrisk
 from opencv_tpu_torch import entry as E
 
-from test_torch_akaze import _one_torch_thread  # noqa: F401
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _gray(shape, seed=0):

@@ -32,22 +32,12 @@ import opencv_tpu_torch as tcv
 from opencv_tpu_torch.features2d import akaze as ta
 from opencv_tpu_torch import entry as E
 
+from torch_threads import _one_torch_thread  # noqa: F401
+
 LEVEL_RTOL = 2e-5
 KP_SHARE = 0.99
 KP_TOL = 1e-3
 ANGLE_TOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for a module's many small torch ops (the files
-    of the tracking slice import this fixture): the suite runs several
-    test processes at once, and each op's thread pool would otherwise
-    oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def gray(shape, seed=0):

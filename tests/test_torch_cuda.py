@@ -1002,3 +1002,41 @@ def test_segmentation_ops_on_the_card_equal_cpu(cuda):
     model = E.fit_cells_model()
     d = (model.correctImage(g).cpu().int() - model.correctImage(t).int()).abs()
     assert int(d.max()) <= 1 and int(d.count_nonzero()) <= 1e-3 * d.numel()
+
+
+@pytest.mark.parametrize("shape", [(2, 1080, 1920, 1), (2, 540, 960, 1), (2, 270, 480, 1),
+                                   (8, 1080, 1920, 1)])
+def test_pyr_down_at_the_video_shapes(cuda, shape):
+    """pyr_down on the video path's inputs (LK's pair at 1080p and its next
+    two levels, N = 2; the gray batch, N = 8) equals its plain version, one
+    launch each."""
+    x = _rand(shape, shape[2]).to(cuda)
+    before = PYR_DOWN.launches
+    got = pyr_down_u8(x)
+    torch.cuda.synchronize()
+    assert PYR_DOWN.launches == before + 1
+    assert tuple(got.shape) == (shape[0], shape[1] // 2, shape[2] // 2, 1)
+    assert torch.equal(got, pyr_down_u8_plain(x))
+
+
+def test_video_path_on_the_card_equals_cpu(cuda):
+    """forward_video on a (3, 270, 480) video: 7 pyr_down launches (LK's
+    three levels of two pairs, the batch's half) and no other kernel; the
+    corners, tracks, shifts, aligned frames, masks and half frames equal the
+    CPU's, the flow within 1e-3 px on 99.9% of the pixels."""
+    video, _, _ = E.make_motion_video((3, 270, 480, 3))
+    x = torch.from_numpy(video)
+    kernels = (SEP_FILTER, GAUSS5_DOWN2, PYR_DOWN)
+    for k in kernels:
+        k.reset()
+    got = E.forward_video(x.to(cuda))
+    torch.cuda.synchronize()
+    assert {k.symbol: k.launches for k in kernels} == {
+        "opencv_sep_filter": 0, "opencv_gauss5_down2": 0, "opencv_pyr_down": 7}
+    want = E.forward_video(x)
+    for key in ("corners", "tracks", "status", "shifts"):
+        assert np.array_equal(got[key], want[key]), key
+    for key in ("gray", "aligned", "masks", "background", "half"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    d = (got["flow"].cpu() - want["flow"]).abs().amax(dim=-1)
+    assert float((d <= 1e-3).float().mean()) >= 0.999

@@ -23,6 +23,7 @@ from opencv_tpu_torch.core.dispatch import reset_tier_stats, tier_stats
 from opencv_tpu_torch.features2d import fast as tfast
 from opencv_tpu_torch.features2d import orb as torb
 from opencv_tpu_torch.ops import resize as tresize
+from torch_threads import _one_torch_thread  # noqa: F401
 
 # ORB against opencv_tpu: the JAX package takes float32 products in XLA's
 # order, which fuses multiply-adds, and the port takes them one op at a

@@ -21,6 +21,7 @@ import opencv_tpu as jcv
 import opencv_tpu_torch as tcv
 from opencv_tpu_torch import native
 from opencv_tpu_torch.ops import grabcut as G
+from torch_threads import _one_torch_thread  # noqa: F401
 
 REL = 1e-5
 

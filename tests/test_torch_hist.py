@@ -17,6 +17,7 @@ from common import cv2
 import opencv_tpu as jcv
 import opencv_tpu_torch as tcv
 from opencv_tpu_torch.ops.hist import hist_fixed, hist_per_image
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _t(a):

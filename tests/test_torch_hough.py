@@ -26,6 +26,7 @@ import opencv_tpu as jcv
 from opencv_tpu.ops.hough import _hough_accum
 import opencv_tpu_torch as tcv
 from opencv_tpu_torch.ops import hough as H
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -30,8 +30,8 @@ from opencv_tpu_torch.features2d import kaze as tk
 
 from opencv_tpu_torch import entry as E
 
-from test_torch_akaze import (  # noqa: F401
-    LEVEL_RTOL, _one_torch_thread, assert_within_bound, exact, gray)
+from test_torch_akaze import LEVEL_RTOL, assert_within_bound, exact, gray
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TRACK_SHAPE = (3, 240, 320, 3)
 

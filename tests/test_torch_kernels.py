@@ -30,6 +30,7 @@ from opencv_tpu_torch.kernels.fused_preproc import (
 from opencv_tpu_torch.kernels.sepfilter import (
     SEP_FILTER, pyr_down_u8, pyr_down_u8_plain, sep_filter_int, sep_filter_int_plain,
     sep_filter_route)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 # test_kernels.py's Gaussian cases: (H, W, C, ksize, sigma, border)
 GAUSS_CASES = [

@@ -13,7 +13,7 @@ import opencv_tpu_torch as tcv
 from opencv_tpu_torch import native
 from opencv_tpu_torch.features2d import mser as tmser
 
-from test_torch_akaze import _one_torch_thread  # noqa: F401
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def blobs(seed, H=120, W=160, n=14, bg=200):

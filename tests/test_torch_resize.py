@@ -19,6 +19,7 @@ from common import cv2, rand_img
 
 import opencv_tpu as jcv
 import opencv_tpu_torch as tcv
+from torch_threads import _one_torch_thread  # noqa: F401
 
 # the sizes of tests/test_resize.py: (src, dst) as (width, height)
 SIZES = [((640, 480), (320, 240)), ((320, 240), (640, 480)),

@@ -25,6 +25,7 @@ from common import cv2
 import opencv_tpu as jcv
 import opencv_tpu_torch as tcv
 from opencv_tpu_torch.features2d import sift as S
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SHAPE = (2, 120, 160)
 PYR_ATOL = 2e-4

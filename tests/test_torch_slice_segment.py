@@ -14,6 +14,7 @@ import opencv_tpu as jcv
 import opencv_tpu_torch as tcv
 from opencv_tpu_torch import entry as E
 from opencv_tpu_torch.core.dispatch import reset_tier_stats, tier_stats
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SHAPE_SEGMENT = (2, 216, 384, 3)  # a fifth of 1080p, two frames
 

@@ -25,7 +25,8 @@ from opencv_tpu.features2d import brisk as jbrisk
 import opencv_tpu_torch as tcv
 from opencv_tpu_torch import entry as E
 
-from test_torch_akaze import _one_torch_thread, assert_within_bound, same_mldb  # noqa: F401
+from test_torch_akaze import assert_within_bound, same_mldb
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SHAPE = (3, 240, 320, 3)
 

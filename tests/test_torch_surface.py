@@ -399,3 +399,55 @@ def test_descriptor_matcher_and_bfmatcher_create_equal_opencv_tpu():
     d = tcv.DescriptorMatcher(tcv.NORM_HAMMING)
     assert [m.trainIdx for m in d.match(torch.from_numpy(q), t)] == \
         [m.trainIdx for m in jcv.DescriptorMatcher(jcv.NORM_HAMMING).match(q, t)]
+
+
+# the names of the video module (but the DNN trackers) and of features2d's
+# bow, affine_feature and evaluation, with the binding's base-class
+# aliases, whose types and names equal the JAX package's; the MOTION_*
+# values equal its values
+VIDEO_F2D_NAMES = ("BackgroundSubtractorMOG2", "createBackgroundSubtractorMOG2",
+                 "BackgroundSubtractorKNN", "createBackgroundSubtractorKNN",
+                 "calcOpticalFlowPyrLK", "SparsePyrLKOpticalFlow",
+                 "SparsePyrLKOpticalFlow_create", "buildOpticalFlowPyramid", "readOpticalFlow",
+                 "writeOpticalFlow", "calcOpticalFlowFarneback", "FarnebackOpticalFlow_create",
+                 "KalmanFilter", "meanShift", "CamShift", "findTransformECC", "computeECC",
+                 "findTransformECCWithMask", "findTransformECCMultiScale", "DISOpticalFlow",
+                 "DISOpticalFlow_create", "TrackerMIL", "TrackerMIL_create",
+                 "VariationalRefinement", "VariationalRefinement_create",
+                 "BOWKMeansTrainer", "BOWImgDescriptorExtractor", "AffineFeature",
+                 "AffineFeature_create", "evaluateFeatureDetector", "computeRecallPrecisionCurve",
+                 "getRecall", "getNearestPoint")
+VIDEO_ALIASES = {"BackgroundSubtractor": "BackgroundSubtractorMOG2",
+                   "SparseOpticalFlow": "SparsePyrLKOpticalFlow",
+                   "DenseOpticalFlow": "DISOpticalFlow"}
+MOTION_VALUES = ("MOTION_TRANSLATION", "MOTION_EUCLIDEAN", "MOTION_AFFINE", "MOTION_HOMOGRAPHY")
+F2D_NAMES = VIDEO_F2D_NAMES[-8:]
+
+
+@pytest.mark.parametrize("name", VIDEO_F2D_NAMES)
+def test_video_and_features2d_name_is_exported(name):
+    assert type(getattr(tcv, name)) is type(getattr(jcv, name)), name
+    assert getattr(tcv, name).__name__ == getattr(jcv, name).__name__
+    sub = tcv.features2d if name in F2D_NAMES else tcv.video
+    assert getattr(sub, name) is getattr(tcv, name)
+
+
+@pytest.mark.parametrize("alias", sorted(VIDEO_ALIASES))
+def test_video_alias_equals_opencv_tpu(alias):
+    assert getattr(tcv, alias) is getattr(tcv, VIDEO_ALIASES[alias])
+    assert getattr(tcv, alias).__name__ == getattr(jcv, alias).__name__
+
+
+@pytest.mark.parametrize("name", MOTION_VALUES)
+def test_motion_value_equals_opencv_tpu(name):
+    assert getattr(tcv, name) == getattr(jcv, name) == getattr(tcv.video, name)
+    assert getattr(tcv, name) == getattr(cv2, name)
+
+
+def test_video_leaves_out_only_the_dnn_trackers():
+    import opencv_tpu.video as jvideo
+    left = sorted(n for n in dir(jvideo) if not n.startswith("_") and not hasattr(tcv.video, n)
+                  and not n.islower())
+    assert left == ["TrackerDaSiamRPN", "TrackerDaSiamRPN_create", "TrackerGOTURN",
+                    "TrackerGOTURN_create", "TrackerNano", "TrackerNano_create", "TrackerVit",
+                    "TrackerVit_create"]

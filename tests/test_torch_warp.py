@@ -18,6 +18,7 @@ from common import cv2, rand_img
 
 import opencv_tpu as jcv
 import opencv_tpu_torch as tcv
+from torch_threads import _one_torch_thread  # noqa: F401
 
 BORDERS = [tcv.BORDER_CONSTANT, tcv.BORDER_REPLICATE, tcv.BORDER_REFLECT,
            tcv.BORDER_REFLECT_101, tcv.BORDER_WRAP]
