@@ -14,9 +14,11 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    the main paths' shapes, with the taps and borders those paths give it
    (sep_filter's template at K = 7 at each of ORB's 8 level shapes too, and
    pyr_down with C = 3 at the segmentation path's two shapes, and at the
-   video path's: N = 2 at 1080p and its three LK levels, N = 8 at 1080p),
-   and on edge cases (borders, channel counts, odd and tiny sizes, rows of
-   every width and offset views for the K = 7 template, k = 9 and 31 for
+   video path's: N = 2 at 1080p and its three LK levels, N = 8 at 1080p;
+   sep_filter's route k3 with C = 3 at the photo path's (1, 1071, 1911, 3),
+   u8 -> i16, dx and dy under BORDER_REPLICATE), and on edge cases
+   (borders, channel counts, odd and tiny sizes, rows of every width and
+   offset views for the K = 7 template, k = 9 and 31 for
    the generic kernel);
 4. main paths, each read with the launch counts set to 0 just before it:
    a. the flagship: ``entry("cuda")``'s forward and the fused forward on the
@@ -190,6 +192,19 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       points, the MOG2 masks of frames 0-1 exactly, Farnebäck's (0, 1) flow
       within VIDEO_FLOW_TOL px on VIDEO_FLOW_SHARE of the pixels, and the
       CPU's chain of frames 0-1 the same way; the phase prints its wall;
+   o. the photo-finishing path: ``entry.forward_photo`` on
+      ``make_bracket()``'s (3, 1080, 1920, 3) exposure bracket (AlignMTB →
+      MergeMertens → fastNlMeansDenoisingColored 21x21 → detailEnhance →
+      textureFlattening of the face → inpaint of the wire), which must
+      launch sep_filter twice, both on route k3 (Canny's Sobels of the
+      masked three-channel frame), through the registry, and no other
+      kernel; the truth gates (PHOTO_*: AlignMTB's shifts undo the planted
+      ones exactly, NL-means' PSNR gain, the face's flattening and the
+      pixels outside it, the wire's fill); then a (3, 270, 480, 3) bracket
+      on the card and on the CPU: the shifts and the aligned frames
+      exactly, and each later stage on the card's own input on the CPU
+      (inpaint exactly, the others within PHOTO_ATOL on PHOTO_SHARE of the
+      values); the phase prints its wall;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -229,7 +244,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    input, and 4m's wall with this timing; the video forward's six stages
    on the host clock beside their bytes bounds (the terms listed), one
    profiled forward's wall, busy share and peak memory, its host syncs, and
-   4n's wall with this timing.  A kernel's share of its bound is
+   4n's wall with this timing; the photo forward's six stages the same way,
+   with 4o's wall, and sep_filter k3 at the photo path's C = 3 shape beside
+   its bound and F.conv2d.  A kernel's share of its bound is
    bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
@@ -347,6 +364,30 @@ VIDEO_LK_TOL = 1e-3
 VIDEO_LK_SHARE = 0.99
 VIDEO_FLOW_TOL = 1e-3
 VIDEO_FLOW_SHARE = 0.999
+
+# (photo path) the truth, from entry.photo_truth_report at (3, 1080, 1920, 3):
+# AlignMTB's shifts undo the planted ones exactly; NL-means gains at least
+# PHOTO_DENOISE_GAIN dB of PSNR against the noise-free twin's fusion; the
+# face keeps at most PHOTO_FLAT_RATIO of its mean |Sobel| and at least
+# PHOTO_OUTSIDE_SHARE of the pixels 5 px clear of it move by at most 1; the
+# wire reads at least PHOTO_INPAINT_RATIO of its 3-px ring.  Measured by the
+# port's plain forward on the CPU at full size (the gates sit just under):
+# gain 0.129 dB (the noisy fusion's weights, not only its noise, part it
+# from the twin's), ratio 0.599, outside 0.242 (the Poisson solve spans the
+# frame, as cv2's does: cv2.textureFlattening on the same input is within
+# 0.52 levels of the port on average), wire 0.958
+PHOTO_DENOISE_GAIN = 0.1
+PHOTO_FLAT_RATIO = 0.62
+PHOTO_OUTSIDE_SHARE = 0.2
+PHOTO_INPAINT_RATIO = 0.8
+# (photo path) card vs CPU on a (3, 270, 480, 3) bracket, each stage on the
+# card's own input: the shifts, the aligned frames and inpaint exactly; fuse,
+# denoise, detail and flatten within PHOTO_ATOL on all values and equal on
+# PHOTO_SHARE of them (the float32 exp, pow and FFT of the card and the CPU
+# round apart before a rounding or a truncating cast to u8)
+PHOTO_CHECK_SHAPE = (3, 270, 480, 3)
+PHOTO_ATOL = 1
+PHOTO_SHARE = 0.999
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -818,6 +859,14 @@ PYR_SEGMENT_SHAPES = ((1, 1080, 1920, 3), (1, 540, 960, 3))
 PYR_VIDEO_SHAPES = ((2, 1080, 1920, 1), (2, 540, 960, 1), (2, 270, 480, 1), (8, 1080, 1920, 1))
 
 
+# sep_filter's inputs on the photo path (4o): textureFlattening's Canny of the
+# masked three-channel frame, cut to the window AlignMTB's shifts leave at
+# 1080p ((5, -3) and (-4, 6) planted: 1920 - 9 by 1080 - 9), u8 -> i16, dx and
+# dy, BORDER_REPLICATE
+SEP_PHOTO_SHAPE = (1, 1071, 1911, 3)
+SEP_PHOTO_TAPS = (((-1, 0, 1), (1, 2, 1)), ((1, 2, 1), (-1, 0, 1)))
+
+
 # bound_ms: the card's memory rate and its float32 rate outside the tensor
 # cores (NVIDIA's data sheet, H100 SXM)
 HBM_BYTES_PER_S = 3.35e12
@@ -920,8 +969,14 @@ def main() -> int:
         for kw in offset_taps:
             check_equal(f"sep_filter {name} {shape} k{len(kw['kx'])}", sep_filter_int(x, **kw),
                         sep_filter_int_plain(x, **kw))
-    log(f"sep_filter: {len(cases) + len(offset_taps) * len(OFFSET_SHAPES)} cases equal to the "
-        f"plain version")
+    for kx, ky in SEP_PHOTO_TAPS:
+        x = torch.from_numpy(rng.integers(0, 256, SEP_PHOTO_SHAPE, np.uint8)).to(dev)
+        kw = dict(kx=kx, ky=ky, out_dtype="int16", border=cv.BORDER_REPLICATE)
+        err = check_equal(f"sep_filter photo k3 C3 {SEP_PHOTO_SHAPE} {kx}", sep_filter_int(x, **kw),
+                          sep_filter_int_plain(x, **kw))
+        max_err["sep_filter"] = max(max_err["sep_filter"], err)
+    log(f"sep_filter: {len(cases) + len(offset_taps) * len(OFFSET_SHAPES)} cases + "
+        f"{len(SEP_PHOTO_TAPS)} at the photo path's shape equal to the plain version")
 
     imgs = torch.from_numpy(E.make_batch()).to(dev)
     n = 0
@@ -1940,6 +1995,86 @@ def main() -> int:
     log(f"phase 4n wall: {wall4n:.1f} s (the card's forward, the truth, the CPU's frames 0-1 and "
         f"the comparison)")
 
+    # -- 4o. the photo-finishing path: AlignMTB -> MergeMertens -> NL-means
+    # -> detailEnhance -> textureFlattening (Canny: sep_filter k3 twice,
+    # C = 3) -> inpaint
+    t15_start = time.perf_counter()
+    info15 = E.make_bracket(E.SHAPE_PHOTO)
+    x15, face15, wire15 = (torch.from_numpy(a).to(dev) for a in (info15[0], info15[3], info15[4]))
+    reset_tier_stats()
+    held15 = []
+    t15 = time.perf_counter()
+    n_sync15, cfg15 = run_counted(
+        lambda: count_syncs(lambda: held15.append(E.forward_photo(x15, face15, wire15))))
+    wall15 = (time.perf_counter() - t15) * 1e3
+    outs15 = held15[0]
+    tiers15 = tier_stats()
+    log(f"photo path launches: {cfg15}; dispatch {tiers15}")
+    if (cfg15["opencv_sep_filter"] != 2 or cfg15["sep_filter routes"]["k3"] != 2
+            or cfg15["opencv_pyr_down"] or cfg15["opencv_gauss5_down2"]
+            or {k: v for k, v in tiers15.items() if k.endswith(".cuda")}
+            != {"tier.sep_filter_int.cuda": 2}):
+        raise AssertionError(f"photo path: sep_filter must launch twice on route k3 through the "
+                             f"registry and no other kernel; got {cfg15}, {tiers15}")
+    h15, w15 = outs15["fused"].shape[:2]
+    for key in ("fused", "denoised", "detailed", "flattened", "inpainted"):
+        o = outs15[key]
+        if tuple(o.shape) != (h15, w15, 3) or o.dtype != torch.uint8 or o.device != dev:
+            raise AssertionError(f"photo {key}: {tuple(o.shape)} {o.dtype} {o.device}")
+    rep15 = E.photo_truth_report(outs15, info15)
+    got15, want15, same15 = rep15["align"]
+    log(f"photo path truth: shifts {got15.tolist()} (planted undone {want15.tolist()}); PSNR "
+        f"against the twin's fusion: denoised {rep15['denoise'][0]:.4f} dB, fused "
+        f"{rep15['denoise'][1]:.4f} dB, gain {rep15['denoise'][2]:.4f} dB; face |Sobel| ratio "
+        f"{rep15['flatten'][0]:.4f}, outside within 1: {rep15['flatten'][1]:.4f}; wire over "
+        f"ring {rep15['inpaint'][0]:.4f} (before {rep15['inpaint'][1]:.4f}); gates: gain >= "
+        f"{PHOTO_DENOISE_GAIN}, ratio <= {PHOTO_FLAT_RATIO}, outside >= {PHOTO_OUTSIDE_SHARE}, "
+        f"wire >= {PHOTO_INPAINT_RATIO}")
+    bad15 = [name for name, ok in (
+        ("align", same15), ("denoise", rep15["denoise"][2] >= PHOTO_DENOISE_GAIN),
+        ("flatten", rep15["flatten"][0] <= PHOTO_FLAT_RATIO
+         and rep15["flatten"][1] >= PHOTO_OUTSIDE_SHARE),
+        ("inpaint", rep15["inpaint"][0] >= PHOTO_INPAINT_RATIO)) if not ok]
+    if bad15:
+        raise AssertionError(f"photo truth fails {bad15}: {rep15}")
+    log(f"photo path: output {(h15, w15, 3)}, {n_sync15} host syncs; the forward {wall15:.1f} ms "
+        f"on the host clock  [{card}]")
+    # card against CPU on a smaller bracket (the CPU's 21x21 NL-means at
+    # 1080p is minutes of host time): the chain on both, then each stage
+    # on the CPU from the card's own inputs
+    t15_cpu = time.perf_counter()
+    small15 = E.make_bracket(PHOTO_CHECK_SHAPE)
+    args15 = [torch.from_numpy(a) for a in (small15[0], small15[3], small15[4])]
+    g15 = E.forward_photo(*(a.to(dev) for a in args15))
+    c15 = E.forward_photo(*args15)
+    if not np.array_equal(g15["shifts"], c15["shifts"]):
+        raise AssertionError(f"photo shifts: card {g15['shifts']}, CPU {c15['shifts']}")
+    check_equal("photo aligned frames", g15["aligned"].cpu(), c15["aligned"])
+    st15 = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in g15.items()}
+    notes15 = []
+    for name, stage, keys in E.PHOTO_STAGES[1:]:
+        cpu = dict(st15)
+        stage(cpu)
+        for key in keys:
+            d = (cpu[key].to(torch.int32) - st15[key].to(torch.int32)).abs()
+            n_diff = int(d.count_nonzero())
+            if name == "inpaint" and n_diff:
+                raise AssertionError(f"photo inpaint: {n_diff} values differ on the CPU")
+            if int(d.max()) > PHOTO_ATOL or n_diff > (1 - PHOTO_SHARE) * d.numel():
+                raise AssertionError(f"photo {name}: max |d| {int(d.max())}, {n_diff} of "
+                                     f"{d.numel()} differ")
+            notes15.append(f"{name} max |d| {int(d.max())} on {n_diff} of {d.numel()}")
+    dc15 = max(int((g15[k].cpu().to(torch.int32) - c15[k].to(torch.int32)).abs().max())
+               for k in ("fused", "denoised", "detailed", "flattened", "inpainted"))
+    cpu_ms15 = (time.perf_counter() - t15_cpu) * 1e3
+    log(f"photo path {PHOTO_CHECK_SHAPE} against the CPU: shifts {g15['shifts'].tolist()} and "
+        f"the aligned frames equal; stage by stage on the card's inputs: {'; '.join(notes15)}; "
+        f"the two chains' outputs within {dc15}; {cpu_ms15:.1f} ms")
+    del g15, c15, st15
+    wall4o = time.perf_counter() - t15_start
+    log(f"phase 4o wall: {wall4o:.1f} s (the card's forward, the truth, the {PHOTO_CHECK_SHAPE} "
+        f"bracket on the card and the CPU, and the comparison)")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -1997,6 +2132,15 @@ def main() -> int:
                                                              border=cv.BORDER_REFLECT_101),
                      f"{tuple(a.shape)} k{len(kx)} s2 REFLECT_101", 2 * a.numel(),
                      2 * 2 * len(kx) * a.numel(), conv_yardstick(a, kx, kx, 1, dev), (kx, kx)))
+    # sep_filter on route k3 at the photo path's shape: Canny's dx of the
+    # masked three-channel frame, u8 -> i16 (its dy is the same work)
+    a = torch.from_numpy(rng.integers(0, 256, SEP_PHOTO_SHAPE, np.uint8)).to(dev)
+    kx3, ky3 = SEP_PHOTO_TAPS[0]
+    kw3 = dict(out_dtype="int16", border=cv.BORDER_REPLICATE)
+    rows.append(("sep_filter k3 photo", lambda: sep_filter_int(a, kx3, ky3, **kw3),
+                 lambda: sep_filter_int_plain(a, kx3, ky3, **kw3),
+                 f"{SEP_PHOTO_SHAPE} Sobel dx u8->16S REPLICATE", 3 * a.numel(), 2 * 6 * a.numel(),
+                 conv_yardstick(a, kx3, ky3, 1, dev), (kx3, ky3)))
     log(f"library_ms: one F.conv2d (cuDNN) on a pre-padded f32 NCHW copy, "
         f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
     times = {}
@@ -2591,6 +2735,54 @@ def main() -> int:
         f"{time.perf_counter() - t14_time:.1f} s")
     del outs14, x14
 
+    # the photo path, as the caller sees it: its stages one after another on
+    # one state on the host clock (each ends in a synchronize), then one
+    # forward under torch.profiler (the device's activity: busy share, wall)
+    # with the peak memory over the input.  Bytes: each stage's inputs read
+    # once and outputs written once (n = h*w of the cut frame, HW the
+    # bracket's): align the bracket (9 HW) and the masks (2 HW) in, the
+    # aligned frames (9 n) and cut masks (2 n) out; fuse 9 n in, 3 n out;
+    # denoise, detail 3 n in, 3 n out; flatten and inpaint 3 n and a mask in,
+    # 3 n out
+    t15_time = time.perf_counter()
+    st15 = E.photo_state(x15, face15, wire15)
+    stage_ms15 = {}
+    for name, stage, keys in E.PHOTO_STAGES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage(st15)
+        torch.cuda.synchronize()
+        stage_ms15[name] = (time.perf_counter() - t0) * 1e3
+    HW15 = E.SHAPE_PHOTO[1] * E.SHAPE_PHOTO[2]
+    n15 = h15 * w15
+    stage_bytes15 = {"align": 11 * HW15 + 11 * n15, "fuse": 12 * n15, "denoise": 6 * n15,
+                     "detail": 6 * n15, "flatten": 7 * n15, "inpaint": 7 * n15}
+    fwd_bytes15 = sum(stage_bytes15.values())
+    for name, t in stage_ms15.items():
+        b_ms = bound(stage_bytes15[name], 0)[0]
+        log(f"time photo {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({stage_bytes15[name] / 1e6:.1f} MB), share of bound {b_ms / t:.8f}  [{card}]")
+    terms15 = "; ".join(f"{k} {v / 1e6:.2f}" for k, v in stage_bytes15.items())
+    log(f"photo bytes bound terms (MB): {terms15}; total {fwd_bytes15 / 1e6:.1f} MB = "
+        f"{bound(fwd_bytes15, 0)[0]:.4f} ms")
+    del st15
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base15 = torch.cuda.memory_allocated()
+    busy15, k_ms15, f_ms15 = busy_share(lambda: E.forward_photo(x15, face15, wire15), iters=1,
+                                        warmup=False, host_ops=False)
+    peak15 = torch.cuda.max_memory_allocated() - base15
+    log(f"time forward_photo {tuple(x15.shape)}: {f_ms15:.4f} ms (profiled run; the 4o run "
+        f"{wall15:.4f} ms; stages summed {sum(stage_ms15.values()):.4f} ms) on the host clock, "
+        f"bytes bound {bound(fwd_bytes15, 0)[0]:.4f} ms ({fwd_bytes15 / 1e6:.1f} MB), share of "
+        f"bound {bound(fwd_bytes15, 0)[0] / f_ms15:.8f}  [{card}]")
+    log(f"photo forward: device busy share {busy15:.4f} (kernels {k_ms15:.4f} ms of "
+        f"{f_ms15:.4f} ms, torch.profiler); {n_sync15} host syncs per bracket; peak device "
+        f"memory over the input {peak15 / 2 ** 30:.3f} GiB  [{card}]")
+    log(f"photo path's wall in chip_smoke.py: phase 4o {wall4o:.1f} s + its timing "
+        f"{time.perf_counter() - t15_time:.1f} s")
+    del outs15, x15
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -2599,19 +2791,19 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4n); the
+    # launches: the kernel's count over the main paths (4a to 4o); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
-                             "sep_filter generic k9 level 2"),
+                             "sep_filter k3 photo", "sep_filter generic k9 level 2"),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"),
               "pyr_down": ("pyr_down", *(f"pyr_down c3 {h}x{w}" for _, h, w, _ in
                                          PYR_SEGMENT_SHAPES),
                            *(f"pyr_down video {n}x{h}x{w}" for n, h, w, _ in
                              PYR_VIDEO_SHAPES[:3]))}
     main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
-                  cfg13, cfg14)
+                  cfg13, cfg14, cfg15)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

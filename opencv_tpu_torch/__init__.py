@@ -37,8 +37,12 @@ the first call; findContours' border following among them), and the
 registration path: SIFT, the FLANN indexes (``flann``) and
 FlannBasedMatcher, and the feature-tracking path: AGAST, BRISK, AKAZE,
 KAZE, MSER (a native host tail) and SimpleBlobDetector; ``parallel``, batch and spatial sharding over
-``torch.distributed``; and the top-level names ``opencv_tpu/__init__.py``
-defines itself (RotatedRect, TickMeter, CV_MAKETYPE, FontFace, ...).
+``torch.distributed``; the video module; and the photo-finishing path: the
+photo module (NL-means and TV-L1, HDR alignment, merging and tonemapping,
+inpaint, the domain-transform filters, Poisson cloning, decolor) and
+``utils`` (logging, configuration, tracing, the system surface); and the
+top-level names ``opencv_tpu/__init__.py`` defines itself (RotatedRect,
+TickMeter, CV_MAKETYPE, FontFace, ...).
 """
 
 from .constants import *  # noqa: F401,F403
@@ -217,6 +221,34 @@ from .video import (  # noqa: F401,E402
 BackgroundSubtractor = BackgroundSubtractorMOG2
 SparseOpticalFlow = SparsePyrLKOpticalFlow
 DenseOpticalFlow = DISOpticalFlow
+
+from . import photo  # noqa: F401,E402
+from .photo import (  # noqa: F401,E402
+    fastNlMeansDenoising, fastNlMeansDenoisingColored, fastNlMeansDenoisingMulti,
+    fastNlMeansDenoisingColoredMulti, denoise_TVL1, inpaint, INPAINT_NS, INPAINT_TELEA,
+    createMergeMertens, MergeMertens, createMergeDebevec, MergeDebevec,
+    createCalibrateDebevec, CalibrateDebevec, createTonemap, Tonemap, createTonemapDrago,
+    TonemapDrago, createTonemapReinhard, TonemapReinhard, createAlignMTB, AlignMTB,
+    createMergeRobertson, MergeRobertson, createCalibrateRobertson, CalibrateRobertson,
+    createTonemapMantiuk, TonemapMantiuk,
+    edgePreservingFilter, detailEnhance, stylization, pencilSketch, RECURS_FILTER,
+    NORMCONV_FILTER, seamlessClone, colorChange, illuminationChange, textureFlattening,
+    NORMAL_CLONE, MIXED_CLONE, MONOCHROME_TRANSFER, decolor,
+)
+
+# the binding's base-class aliases of the photo module's HDR classes
+AlignExposures = AlignMTB
+MergeExposures = MergeMertens
+CalibrateCRF = CalibrateDebevec
+
+from . import utils  # noqa: F401,E402
+from .utils.system import (  # noqa: F401,E402
+    getCPUTickCount, getNumThreads, setNumThreads, getThreadNum, getNumberOfCPUs,
+    useOptimized, setUseOptimized, checkHardwareSupport, getHardwareFeatureName,
+    getCPUFeaturesLine, getVersionMajor, getVersionMinor, getVersionRevision,
+    getVersionString, getBuildInformation, redirectError, getDefaultAlgorithmHint, bootstrap,
+    VideoCapture_waitAny,
+)
 
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
 from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401

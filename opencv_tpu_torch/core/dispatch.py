@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-__all__ = ["register", "lookup", "tier_stats", "reset_tier_stats"]
+__all__ = ["register", "lookup", "count", "tier_stats", "reset_tier_stats"]
 
 _REGISTRY: dict = {}
 _COUNTERS: collections.Counter = collections.Counter()
@@ -58,6 +58,11 @@ def lookup(op: str, device: torch.device, **ctx):
                 return functools.partial(fn, ctx)
     _COUNTERS[f"tier.{op}.plain"] += 1
     return None
+
+
+def count(counter: str, n: int = 1) -> None:
+    """Bump `counter` by `n` (``utils.trace.count``)."""
+    _COUNTERS[counter] += n
 
 
 def tier_stats() -> dict:

@@ -178,6 +178,9 @@ from .ops.corners import goodFeaturesToTrack
 from .video.bgsub import createBackgroundSubtractorMOG2
 from .video.farneback import calcOpticalFlowFarneback
 from .video.lk import calcOpticalFlowPyrLK
+from .core.fixedpoint import saturate_cast
+from .photo import (AlignMTB, INPAINT_TELEA, createAlignMTB, createMergeMertens, detailEnhance,
+                    fastNlMeansDenoisingColored, inpaint, textureFlattening)
 
 __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHAPE_NV12",
            "SHAPE_MOTION", "SHAPE_LINES", "SHAPE_SEGMENT", "PERSPECTIVE_CFG2",
@@ -201,6 +204,9 @@ __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHA
            "track_truth_report",
            "SHAPE_VIDEO", "VIDEO_STAGES", "VIDEO_GFTT", "VIDEO_FARNEBACK", "VIDEO_LK_REACH",
            "VIDEO_BORDER", "forward_video", "entry_video", "video_truth_report",
+           "SHAPE_PHOTO", "PHOTO_STAGES", "PHOTO_TIMES", "PHOTO_SHIFTS", "PHOTO_NOISE",
+           "PHOTO_NLM", "PHOTO_DETAIL", "PHOTO_FLATTEN", "PHOTO_INPAINT_RADIUS", "make_bracket",
+           "fuse", "photo_state", "forward_photo", "entry_photo", "photo_truth_report",
            "MESH_BORDERS", "MESH_TIMEOUT_S", "dryrun_multichip", "make_mesh_batch",
            "run_mesh_scenarios"]
 
@@ -1911,6 +1917,265 @@ def video_truth_report(out, shifts, boxes, shape, reach: int = VIDEO_LK_REACH) -
         bg.append((float(min(inside)), float(np.mean(inside)),
                    float(in_box.sum() / max(fg.sum(), 1)), float(masks[i][static].mean())))
     return {"klt": klt, "klt_all": klt_all, "shake": shake, "dense": dense, "bg": bg}
+
+
+# ------------------------------------------------------- photo finishing
+
+SHAPE_PHOTO = (3, 1080, 1920, 3)
+PHOTO_TIMES = (0.25, 1.0, 4.0)   # the bracket's exposure times
+# the planted shifts (x, y) of frames 0 and 2 at 1080p, scaled with the
+# frame (at least 1 px); frame 1, AlignMTB's pivot, is not moved
+PHOTO_SHIFTS = ((5, -3), (-4, 6))
+PHOTO_NOISE = 3.0                # the sensor noise's sigma, grey levels
+PHOTO_NLM = (3, 3, 7, 21)        # fastNlMeansDenoisingColored's h, hColor, template, search
+PHOTO_DETAIL = dict(sigma_s=10, sigma_r=0.15)
+PHOTO_FLATTEN = (30, 45, 3)      # textureFlattening's thresholds and aperture
+PHOTO_INPAINT_RADIUS = 3
+
+
+def _photo_shift(v: int, W: int) -> int:
+    return int(np.sign(v)) * max(1, int(round(abs(v) * W / 1920)))
+
+
+def _radiance(rng, H: int, W: int, m: int):
+    """The scene's linear radiance, (H + 2m, W + 2m, 3) f64 BGR, about
+    1:1000 from the shadowed block to the disc, with the face ellipse and
+    the wire, in the canvas's coordinates: ``(radiance, face, wire)``."""
+    Hc, Wc = H + 2 * m, W + 2 * m
+    s = min(H / 1080, W / 1920)
+    ys, xs = np.mgrid[0:Hc, 0:Wc].astype(np.float64)
+    # the ground: smoothed noise stretched over 6..70, a texture at every
+    # exposure's median for the bitmaps
+    k = max(3, int(round(9 * s)) | 1)
+    tex = _box_mean(rng.random((Hc + k - 1, Wc + k - 1)), k)
+    tex = (tex - tex.min()) / (tex.max() - tex.min())
+    base = 6.0 + 64.0 * tex
+    rad = np.stack([base * 0.8, base, base * 0.9], axis=-1)
+    # the sky: a gradient over the top third, blue-white, 90..200
+    sky = ys < 0.3 * Hc
+    t = np.clip(ys / (0.3 * Hc), 0, 1)
+    rad[sky] = np.stack([200 - 60 * t, 170 - 50 * t, 120 - 30 * t], axis=-1)[sky]
+    # the bright disc in the sky
+    cx, cy, r = 0.8 * Wc, 0.12 * Hc, 0.06 * Hc
+    rad[(xs - cx) ** 2 + (ys - cy) ** 2 <= r * r] = (900.0, 950.0, 1000.0)
+    # the dark shadowed block, textured at 0.3..3
+    sh = (xs > 0.05 * Wc) & (xs < 0.3 * Wc) & (ys > 0.55 * Hc) & (ys < 0.9 * Hc)
+    rad[sh] = (0.3 + 2.7 * tex[sh])[:, None] * np.array([0.9, 1.0, 1.1])
+    # textured rectangles: checkers of 2..10 % of the height, 15..90
+    for _ in range(6):
+        x0, y0 = rng.uniform(0.35, 0.95) * Wc, rng.uniform(0.35, 0.9) * Hc
+        w, h = rng.uniform(0.05, 0.12) * Wc, rng.uniform(0.05, 0.12) * Hc
+        cell = max(2.0, rng.uniform(0.02, 0.1) * Hc)
+        inside = (xs >= x0) & (xs < x0 + w) & (ys >= y0) & (ys < y0 + h)
+        chk = ((np.floor((xs - x0) / cell) + np.floor((ys - y0) / cell)) % 2)[inside]
+        rad[inside] = (15.0 + 75.0 * chk)[:, None] * rng.uniform(0.7, 1.0, 3)
+    # the face: an ellipse of skin with fine texture (1-2 px grain, ±25 %)
+    fx, fy, ra, rb = 0.22 * Wc, 0.5 * Hc, 0.09 * Wc, 0.16 * Hc
+    face = ((xs - fx) / ra) ** 2 + ((ys - fy) / rb) ** 2 <= 1.0
+    grain = _box_mean(rng.random((Hc + 1, Wc + 1)), 2)
+    skin = 1.0 + 0.5 * (grain - 0.5) / 0.5
+    rad[face] = skin[face][:, None] * np.array([40.0, 55.0, 80.0])
+    # the wire: 2-3 px wide, dark, crossing the frame on a slight slope,
+    # clear of the face
+    y_wire = 0.22 * Hc + 0.08 * Hc * (xs - 0.35 * Wc) / Wc
+    half = max(1.0, 1.25 * s)
+    wire = (np.abs(ys - y_wire) <= half) & (xs >= 0.35 * Wc)
+    rad[wire] = 0.5
+    return rad, face, wire
+
+
+def make_bracket(shape=SHAPE_PHOTO, seed: int = 0):
+    """An exposure bracket of one scene, all from one ``default_rng(seed)``:
+    ``(bracket, twin, shifts, face, wire)``.
+
+    - the scene's radiance spans about 1:1000: a sky gradient (90–200), a
+      bright disc (about 1,000), a dark shadowed block (0.3–3), a textured
+      ground (6–70) and checkered rectangles (15–90), an ellipse of
+      skin-like fine texture and a dark wire 2–3 px wide across the frame;
+    - frame i is the radiance times :data:`PHOTO_TIMES`[i], plus Gaussian
+      sensor noise of sigma :data:`PHOTO_NOISE`, rounded and clipped to u8;
+      ``twin`` is the same without the noise;
+    - frames 0 and 2 are the scene moved by the planted ``shifts`` (3, 2)
+      int64 (x, y), :data:`PHOTO_SHIFTS` scaled with the frame (frame 1,
+      the pivot, at (0, 0)): frame i(x, y) = frame 1(x - dx, y - dy);
+    - ``face`` and ``wire`` (H, W) u8 0/255 are in frame 1's coordinates:
+      the ellipse, and the wire grown by 1 px.
+
+    Returns (N, H, W, 3) u8 BGR frames (N = 3)."""
+    N, H, W, _ = shape
+    rng = np.random.default_rng(seed)
+    shifts = np.zeros((N, 2), np.int64)
+    shifts[0] = [_photo_shift(v, W) for v in PHOTO_SHIFTS[0]]
+    shifts[N - 1] = [_photo_shift(v, W) for v in PHOTO_SHIFTS[1]]
+    m = int(np.abs(shifts).max())
+    rad, face, wire = _radiance(rng, H, W, m)
+    bracket = np.empty(shape, np.uint8)
+    twin = np.empty(shape, np.uint8)
+    for i, ((dx, dy), t) in enumerate(zip(shifts, PHOTO_TIMES)):
+        crop = rad[m - dy:m - dy + H, m - dx:m - dx + W] * t
+        twin[i] = np.clip(np.rint(crop), 0, 255)
+        noisy = crop + rng.normal(0.0, PHOTO_NOISE, crop.shape)
+        bracket[i] = np.clip(np.rint(noisy), 0, 255)
+    face = face[m:m + H, m:m + W]
+    wire = wire[m:m + H, m:m + W]
+    grown = np.zeros_like(wire)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            grown |= np.roll(np.roll(wire, dy, 0), dx, 1)
+    return (bracket, twin, shifts, face.astype(np.uint8) * 255,
+            grown.astype(np.uint8) * 255)
+
+
+def _p_align(st):
+    """AlignMTB of the bracket (cut on): the aligned frames, the shifts
+    (x, y) it found per frame, and the masks cut by the same window."""
+    mtb = createAlignMTB()
+    x = st["x"]
+    frames, shifts = mtb._align([x[i] for i in range(x.shape[0])])
+    x0, y0, x1, y1 = mtb._window(shifts, x.shape[1], x.shape[2])
+    st["aligned"] = torch.stack(frames)
+    st["shifts"] = np.array(shifts, np.int64)
+    st["face"] = st["face_in"][y0:y1, x0:x1]
+    st["wire"] = st["wire_in"][y0:y1, x0:x1]
+
+
+def fuse(aligned):
+    """MergeMertens of the aligned frames, as u8 (saturate_cast(x · 255))."""
+    res = createMergeMertens().process([f for f in aligned])
+    return saturate_cast(res * 255.0, torch.uint8)
+
+
+def _p_fuse(st):
+    st["fused"] = fuse(st["aligned"])
+
+
+def _p_denoise(st):
+    st["denoised"] = fastNlMeansDenoisingColored(st["fused"], *PHOTO_NLM)
+
+
+def _p_detail(st):
+    st["detailed"] = detailEnhance(st["denoised"], **PHOTO_DETAIL)
+
+
+def _p_flatten(st):
+    """textureFlattening of the face: the port's Canny (two ``sep_filter``
+    k3 launches, C = 3) and a Poisson solve over the whole frame."""
+    st["flattened"] = textureFlattening(st["detailed"], st["face"], *PHOTO_FLATTEN)
+
+
+def _p_inpaint(st):
+    st["inpainted"] = inpaint(st["flattened"], st["wire"], PHOTO_INPAINT_RADIUS,
+                              INPAINT_TELEA)
+
+
+# forward_photo's stages in order: (name, fn of the state dict, the keys it
+# writes); each reads only keys written before it
+PHOTO_STAGES = (
+    ("align", _p_align, ("aligned", "shifts", "face", "wire")),
+    ("fuse", _p_fuse, ("fused",)),
+    ("denoise", _p_denoise, ("denoised",)),
+    ("detail", _p_detail, ("detailed",)),
+    ("flatten", _p_flatten, ("flattened",)),
+    ("inpaint", _p_inpaint, ("inpainted",)),
+)
+
+
+def photo_state(x, face, wire) -> dict:
+    """The state dict the photo stages start from."""
+    return {"x": x, "face_in": face, "wire_in": wire}
+
+
+def forward_photo(x, face, wire):
+    """HDR finishing of one exposure bracket (:data:`PHOTO_STAGES`): x (3,
+    H, W, 3) u8 BGR, the masks (H, W) u8 in frame 1's coordinates.
+
+    Returns a dict: ``shifts`` (3, 2) int64 (x, y) host numpy, AlignMTB's;
+    ``aligned`` (3, h, w, 3) u8, the frames cut to the window they share;
+    ``face`` and ``wire`` (h, w) u8, the masks cut alike; ``fused``,
+    ``denoised``, ``detailed``, ``flattened`` and ``inpainted`` (h, w, 3)
+    u8, each stage's image."""
+    st = photo_state(x, face, wire)
+    for _, stage, _ in PHOTO_STAGES:
+        stage(st)
+    for k in ("x", "face_in", "wire_in"):
+        del st[k]
+    return st
+
+
+def entry_photo(device="cuda", shape=SHAPE_PHOTO):
+    """``(forward_photo, (x, face, wire))`` with :func:`make_bracket`'s
+    bracket and masks on `device`."""
+    bracket, _, _, face, wire = make_bracket(shape)
+    return forward_photo, tuple(torch.from_numpy(a).to(device) for a in (bracket, face, wire))
+
+
+def _psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = float(((a.to(torch.float64) - b.to(torch.float64)) ** 2).mean())
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def _grow(mask: np.ndarray, r: int) -> np.ndarray:
+    """A bool mask grown by r px (a (2r+1)² square)."""
+    p = np.pad(mask, r)
+    h, w = mask.shape
+    out = np.zeros_like(mask)
+    for dy in range(2 * r + 1):
+        for dx in range(2 * r + 1):
+            out |= p[dy:dy + h, dx:dx + w]
+    return out
+
+
+def _sobel_mag(img: torch.Tensor) -> np.ndarray:
+    """|Sobel dx| + |Sobel dy| of the gray image, f64 host numpy."""
+    g = cvtColor(img, K.COLOR_BGR2GRAY).to(torch.float32)
+    gx = Sobel(g, K.CV_32F, 1, 0)
+    gy = Sobel(g, K.CV_32F, 0, 1)
+    return (gx.abs() + gy.abs()).cpu().numpy().astype(np.float64)
+
+
+def photo_truth_report(out, bracket_info) -> dict:
+    """forward_photo's outputs against :func:`make_bracket`'s truth
+    (``bracket_info`` is its tuple):
+
+    - ``align``: AlignMTB's shifts (3, 2) and the ones that undo the
+      planted shifts (minus them), and whether they are equal;
+    - ``denoise``: the PSNR of ``denoised`` and of ``fused`` against the
+      noise-free twin's fusion (the twin shifted and cut as the bracket,
+      then ``fuse``), and the gain, in dB;
+    - ``flatten``: the mean |Sobel| of the gray image inside the face mask
+      eroded by 5 px after ``flatten`` over the same before it, and the
+      share of pixels outside the mask grown by 5 px that ``flatten`` moved
+      by at most 1;
+    - ``inpaint``: the mean gray level under the wire after ``inpaint``
+      over that of the 3-px ring around it (and the same before it)."""
+    _, twin, planted, _, _ = bracket_info
+    want = -planted
+    rep = {"align": (out["shifts"], want, bool(np.array_equal(out["shifts"], want)))}
+    dev = out["fused"].device
+    h, w = out["fused"].shape[:2]
+    x0, y0, _, _ = AlignMTB._window([tuple(s) for s in out["shifts"]], twin.shape[1],
+                                    twin.shape[2])
+    tw = [AlignMTB.shiftMat(torch.from_numpy(twin[i]).to(dev), out["shifts"][i])
+          [y0:y0 + h, x0:x0 + w] for i in range(twin.shape[0])]
+    clean = fuse(torch.stack(tw))
+    p_den, p_fus = _psnr(out["denoised"], clean), _psnr(out["fused"], clean)
+    rep["denoise"] = (p_den, p_fus, p_den - p_fus)
+    face = out["face"].cpu().numpy() > 0
+    inner = ~_grow(~face, 5)
+    outer = ~_grow(face, 5)
+    before, after = _sobel_mag(out["detailed"]), _sobel_mag(out["flattened"])
+    moved = np.abs(out["flattened"].cpu().numpy().astype(np.int32)
+                   - out["detailed"].cpu().numpy().astype(np.int32)).max(axis=-1)
+    rep["flatten"] = (float(after[inner].mean() / before[inner].mean()),
+                      float((moved[outer] <= 1).mean()))
+    wire = out["wire"].cpu().numpy() > 0
+    ring = _grow(wire, 3) & ~wire
+    ratios = []
+    for key in ("inpainted", "flattened"):
+        g = cvtColor(out[key], K.COLOR_BGR2GRAY).cpu().numpy().astype(np.float64)
+        ratios.append(float(g[wire].mean() / g[ring].mean()))
+    rep["inpaint"] = tuple(ratios)
+    return rep
 
 
 # ------------------------------------------------------------ the mesh

@@ -2,9 +2,10 @@
 """Where the port's forwards spend their device time, on one GPU.
 
     python3 perf/profile_torch_forward.py [--path PATH] [--iters 5] [--repeats 20] [--table FILE]
+        [--sort COLUMN]
 
 PATH is one of flagship, cfg2, cfg3, cfg4, cfg5, decode, enhance, motion,
-lines and segment.
+lines, segment and photo.
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
@@ -37,13 +38,17 @@ gray, GaussianBlur, Otsu, the opening, the sure background, the distance
 transform and sure foreground, the unknown band, the markers, the
 watershed, the cells and their triangles, frame 0's flood, its cut-out
 (pyrDown, mean shift, grabCut), EMD, the painted boundaries and the sums (a
-forward of seconds: run it with ``--repeats 3 --iters 1``). Each runs under
+forward of seconds: run it with ``--repeats 3 --iters 1``); ``--path photo``
+the photo-finishing path (``entry.forward_photo``) on ``make_bracket()``'s
+(3, 1080, 1920, 3) bracket in its stages (``entry.PHOTO_STAGES``): align,
+fuse, denoise, detail, flatten, inpaint. Each runs under
 ``torch.profiler`` with one ``record_function`` span per stage. Prints, per
 stage, the time between CUDA events around it (median of ``--repeats``,
 unprofiled) beside the device time of its torch-op kernels
 (profiled); the device busy share (all kernel time over the stage spans,
 where a low share means the device waits on the host); and the top kernels.
-``--table`` writes the profiler's full table to a file. Needs a CUDA device.
+``--table`` writes the profiler's full table to a file, in ``--sort``'s
+order. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -217,10 +222,25 @@ def segment_stages():
     return [(name, step(fn)) for name, fn, _ in E.SEGMENT_STAGES]
 
 
+def photo_stages():
+    """``entry.forward_photo`` stage by stage (``entry.PHOTO_STAGES``), each
+    adding its outputs to the state dict the previous stage passed on."""
+    _, (x, face, wire) = E.entry_photo("cuda")
+
+    def step(fn):
+        def run(st):
+            st = E.photo_state(x, face, wire) if st is None else st
+            fn(st)
+            return st
+        return run
+
+    return [(name, step(fn)) for name, fn, _ in E.PHOTO_STAGES]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
          "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages,
          "enhance": enhance_stages, "motion": motion_stages, "lines": lines_stages,
-         "segment": segment_stages}
+         "segment": segment_stages, "photo": photo_stages}
 
 
 def staged(stages, marks=None):
@@ -242,6 +262,8 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=20,
                     help="unprofiled runs whose median time each stage")
     ap.add_argument("--table", help="write the profiler's key_averages table here")
+    ap.add_argument("--sort", default="cuda_time_total",
+                    help="the table's order (a key_averages column, e.g. self_cpu_time_total)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_forward: no CUDA device", file=sys.stderr)
@@ -271,7 +293,7 @@ def main() -> int:
     if args.table:
         os.makedirs(os.path.dirname(os.path.abspath(args.table)), exist_ok=True)
         with open(args.table, "w") as f:
-            f.write(events.table(sort_by="cuda_time_total", row_limit=40))
+            f.write(events.table(sort_by=args.sort, row_limit=40))
 
     def device_us(e):
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)

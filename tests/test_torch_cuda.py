@@ -1040,3 +1040,50 @@ def test_video_path_on_the_card_equals_cpu(cuda):
         assert torch.equal(got[key].cpu(), want[key]), key
     d = (got["flow"].cpu() - want["flow"]).abs().amax(dim=-1)
     assert float((d <= 1e-3).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("shape", [(1, 1071, 1911, 3), (1, 268, 478, 3)])
+def test_sep_filter_k3_c3_at_the_photo_shapes(cuda, shape):
+    """Canny's two Sobels (BORDER_REPLICATE, u8 -> i16) on the photo path's
+    masked three-channel frame, cut at 1080p and at 270x480 (odd widths):
+    route k3, one launch each, equal to the plain version."""
+    x = _rand(shape, shape[2]).to(cuda)
+    for kx, ky in (((-1, 0, 1), (1, 2, 1)), ((1, 2, 1), (-1, 0, 1))):
+        SEP_FILTER.reset()
+        kw = dict(kx=kx, ky=ky, out_dtype="int16", border=tcv.BORDER_REPLICATE)
+        got = sep_filter_int(x, **kw)
+        torch.cuda.synchronize()
+        assert SEP_FILTER.launches == SEP_FILTER.routes["k3"] == 1
+        assert sep_filter_route(kx, ky) == 3
+        assert torch.equal(got, sep_filter_int_plain(x, **kw))
+
+
+def test_photo_path_on_the_card_equals_cpu(cuda):
+    """forward_photo on a (3, 270, 480) bracket: two sep_filter launches on
+    route k3 (textureFlattening's Canny, C = 3) and no other kernel; the
+    shifts, aligned frames and inpaint's fill (on the same input) equal the
+    CPU's; fuse, denoise, detail and flatten, each on the card's own input,
+    within 1 on 99.9% of the values."""
+    bracket, _, _, face, wire = E.make_bracket((3, 270, 480, 3))
+    args = [torch.from_numpy(a) for a in (bracket, face, wire)]
+    kernels = (SEP_FILTER, GAUSS5_DOWN2, PYR_DOWN)
+    for k in kernels:
+        k.reset()
+    got = E.forward_photo(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert {k.symbol: k.launches for k in kernels} == {
+        "opencv_sep_filter": 2, "opencv_gauss5_down2": 0, "opencv_pyr_down": 0}
+    assert SEP_FILTER.routes["k3"] == 2
+    want = E.forward_photo(*args)
+    assert np.array_equal(got["shifts"], want["shifts"])
+    assert torch.equal(got["aligned"].cpu(), want["aligned"])
+    st = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in got.items()}
+    for name, stage, keys in E.PHOTO_STAGES[1:]:
+        cpu = dict(st)
+        stage(cpu)
+        for key in keys:
+            d = (cpu[key].int() - st[key].int()).abs()
+            assert int(d.max()) <= 1 and int(d.count_nonzero()) <= 1e-3 * d.numel(), key
+    cpu = dict(st)
+    E.PHOTO_STAGES[-1][1](cpu)
+    assert torch.equal(cpu["inpainted"], st["inpainted"])

@@ -451,3 +451,66 @@ def test_video_leaves_out_only_the_dnn_trackers():
     assert left == ["TrackerDaSiamRPN", "TrackerDaSiamRPN_create", "TrackerGOTURN",
                     "TrackerGOTURN_create", "TrackerNano", "TrackerNano_create", "TrackerVit",
                     "TrackerVit_create"]
+
+
+# the photo module's top-level names (classes, factories, functions), with
+# the binding's HDR base-class aliases, and its flags, whose values equal
+# the JAX package's and cv2's; utils.system's top-level names
+PHOTO_VALUES = ("INPAINT_NS", "INPAINT_TELEA", "RECURS_FILTER", "NORMCONV_FILTER",
+                "NORMAL_CLONE", "MIXED_CLONE", "MONOCHROME_TRANSFER")
+PHOTO_NAMES = ("fastNlMeansDenoising", "fastNlMeansDenoisingColored",
+               "fastNlMeansDenoisingMulti", "fastNlMeansDenoisingColoredMulti", "denoise_TVL1",
+               "inpaint", "createMergeMertens", "MergeMertens", "createMergeDebevec",
+               "MergeDebevec", "createCalibrateDebevec", "CalibrateDebevec", "createTonemap",
+               "Tonemap", "createTonemapDrago", "TonemapDrago", "createTonemapReinhard",
+               "TonemapReinhard", "createAlignMTB", "AlignMTB", "createMergeRobertson",
+               "MergeRobertson", "createCalibrateRobertson", "CalibrateRobertson",
+               "createTonemapMantiuk", "TonemapMantiuk", "edgePreservingFilter", "detailEnhance",
+               "stylization", "pencilSketch", "seamlessClone", "colorChange",
+               "illuminationChange", "textureFlattening", "decolor")
+PHOTO_ALIASES = {"AlignExposures": "AlignMTB", "MergeExposures": "MergeMertens",
+                 "CalibrateCRF": "CalibrateDebevec"}
+SYSTEM_NAMES = ("getCPUTickCount", "getNumThreads", "setNumThreads", "getThreadNum",
+                "getNumberOfCPUs", "useOptimized", "setUseOptimized", "checkHardwareSupport",
+                "getHardwareFeatureName", "getCPUFeaturesLine", "getVersionMajor",
+                "getVersionMinor", "getVersionRevision", "getVersionString",
+                "getBuildInformation", "redirectError", "getDefaultAlgorithmHint", "bootstrap",
+                "VideoCapture_waitAny")
+
+
+@pytest.mark.parametrize("name", PHOTO_NAMES)
+def test_photo_name_is_exported(name):
+    assert type(getattr(tcv, name)) is type(getattr(jcv, name)), name
+    assert getattr(tcv, name).__name__ == getattr(jcv, name).__name__
+    assert getattr(tcv.photo, name) is getattr(tcv, name)
+
+
+@pytest.mark.parametrize("name", PHOTO_VALUES)
+def test_photo_value_equals_opencv_tpu(name):
+    assert getattr(tcv, name) == getattr(jcv, name) == getattr(tcv.photo, name)
+    assert getattr(tcv, name) == getattr(cv2, name)
+
+
+@pytest.mark.parametrize("alias", sorted(PHOTO_ALIASES))
+def test_photo_alias_equals_opencv_tpu(alias):
+    assert getattr(tcv, alias) is getattr(tcv, PHOTO_ALIASES[alias])
+    assert getattr(tcv, alias).__name__ == getattr(jcv, alias).__name__
+
+
+@pytest.mark.parametrize("name", SYSTEM_NAMES)
+def test_system_name_is_exported(name):
+    import opencv_tpu_torch.utils.system as tsystem
+    assert type(getattr(tcv, name)) is type(getattr(jcv, name)), name
+    assert getattr(tcv, name) is getattr(tsystem, name)
+
+
+def test_photo_and_utils_leave_nothing_out():
+    import opencv_tpu.photo as jphoto
+    import opencv_tpu.utils as jutils
+    import opencv_tpu.utils.system as jsystem
+    import opencv_tpu_torch.utils.system as tsystem
+    for jmod, tmod in ((jphoto, tcv.photo), (jutils, tcv.utils), (jsystem, tsystem)):
+        left = sorted(n for n in dir(jmod) if not n.startswith("_") and not hasattr(tmod, n)
+                      and n not in ("jnp", "jax", "annotations"))
+        assert left == [], (jmod.__name__, left)
+    assert len(PHOTO_NAMES) + len(PHOTO_VALUES) == 42 and len(SYSTEM_NAMES) == 19
