@@ -15,6 +15,7 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    (sep_filter's template at K = 7 at each of ORB's 8 level shapes too, and
    pyr_down with C = 3 at the segmentation path's two shapes, and at the
    video path's: N = 2 at 1080p and its three LK levels, N = 8 at 1080p;
+   gauss5_down2 at the stereo path's rectified pair, (2, 1080, 1920, 3);
    sep_filter's route k3 with C = 3 at the photo path's (1, 1071, 1911, 3),
    u8 -> i16, dx and dy under BORDER_REPLICATE), and on edge cases
    (borders, channel counts, odd and tiny sizes, rows of every width and
@@ -205,6 +206,21 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       exactly, and each later stage on the card's own input on the CPU
       (inpaint exactly, the others within PHOTO_ATOL on PHOTO_SHARE of the
       values); the phase prints its wall;
+   p. the stereo-depth path: ``entry.calibrate_rig`` on
+      ``make_stereo_rig()``'s 12 chessboard pairs (findChessboardCorners
+      and cornerSubPix on the 24 views, calibrateCamera per camera,
+      stereoCalibrate, stereoRectify, the four maps on the card), then
+      ``entry.forward_stereo`` on its (2, 1080, 1920, 3) scene pair (remap
+      → the fused gray + blur + 2x map → StereoSGBM at half size → cvtColor
+      and StereoBM at full size → filterSpeckles → reprojectImageTo3D),
+      which must launch gauss5_down2 once (BGR, N = 2, through the
+      registry) and no other kernel; the truth gates
+      (``entry.STEREO_GATES``: the intrinsics, the baseline, the
+      reprojection RMS, the rectified rows, both disparities against the
+      scene's); then the card against the CPU: the first pair's corners,
+      the rectified and half pairs, StereoSGBM on a band of the half pair
+      and StereoBM, filterSpeckles and the depth on a band of the full
+      pair, each exactly; the phase prints its wall against its budget;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -246,7 +262,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    profiled forward's wall, busy share and peak memory, its host syncs, and
    4n's wall with this timing; the photo forward's six stages the same way,
    with 4o's wall, and sep_filter k3 at the photo path's C = 3 shape beside
-   its bound and F.conv2d.  A kernel's share of its bound is
+   its bound and F.conv2d; the stereo forward's six stages the same way,
+   with SGBM's kernel launches in one stage (``torch.profiler``), 4p's
+   wall, and gauss5_down2 at the stereo shape (2, 1080, 1920, 3).  A kernel's share of its bound is
    bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
@@ -388,6 +406,19 @@ PHOTO_INPAINT_RATIO = 0.8
 PHOTO_CHECK_SHAPE = (3, 270, 480, 3)
 PHOTO_ATOL = 1
 PHOTO_SHARE = 0.999
+
+
+# (stereo path) card vs CPU on the band of rows STEREO_BAND of the full-size
+# rectified pair (StereoBM, filterSpeckles, the depth) and the band
+# STEREO_HALF_BAND of the half-size pair (StereoSGBM): all exact (integer
+# stages; the depth float64 one op at a time, rounded to float32 once)
+STEREO_BAND = (405, 675)
+STEREO_HALF_BAND = (135, 405)
+# phase 4p's wall budget, s (the rendering, calibrate_rig, the forward, the
+# truth and the CPU's bands)
+STEREO_WALL_BUDGET_S = 60.0
+# gauss5_down2's shape on the stereo path: the rectified pair, N = 2
+GAUSS_STEREO_SHAPE = (2, 1080, 1920, 3)
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -989,6 +1020,12 @@ def main() -> int:
     gray = cv.cvtColor(imgs, cv.COLOR_BGR2GRAY)[..., 0].contiguous()
     check_equal("gauss5_down2 gray", gauss5_down2_u8(gray, 0.0),
                 gauss5_down2_u8_plain(gray, 0.0))
+    n += 1
+    # the stereo path's rectified pair, N = 2
+    x = torch.from_numpy(rng.integers(0, 256, GAUSS_STEREO_SHAPE, np.uint8)).to(dev)
+    err = check_equal(f"gauss5_down2 stereo {GAUSS_STEREO_SHAPE}", fused_gray_gauss5_down2(x, 0.0),
+                      fused_gray_gauss5_down2_plain(x, 0.0))
+    max_err["gauss5_down2"] = max(max_err["gauss5_down2"], err)
     n += 1
     for shape, sigma in (((2, 98, 262, 3), 0.8), ((1, 4, 6, 3), 0.0), ((3, 34, 130, 3), 2.0)):
         x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
@@ -2075,6 +2112,119 @@ def main() -> int:
     log(f"phase 4o wall: {wall4o:.1f} s (the card's forward, the truth, the {PHOTO_CHECK_SHAPE} "
         f"bracket on the card and the CPU, and the comparison)")
 
+    # -- 4p. the stereo-depth path: calibrate_rig once (findChessboardCorners
+    # and cornerSubPix on 24 views, calibrateCamera per camera,
+    # stereoCalibrate, stereoRectify, the maps), then forward_stereo: remap
+    # -> gauss5_down2 (N = 2) -> StereoSGBM at half size -> cvtColor and
+    # StereoBM at full size -> filterSpeckles -> reprojectImageTo3D
+    t16_start = time.perf_counter()
+    data16 = E.make_stereo_rig(E.SHAPE_STEREO)
+    render16 = time.perf_counter() - t16_start
+    views16 = torch.from_numpy(data16["views"]).to(dev)
+    t0 = time.perf_counter()
+    rig16 = E.calibrate_rig(views16, data16["object_points"])
+    torch.cuda.synchronize()
+    calib16 = time.perf_counter() - t0
+    pair16 = torch.from_numpy(data16["scene"]).to(dev)
+    reset_tier_stats()
+    held16 = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base16 = torch.cuda.memory_allocated()
+    t16 = time.perf_counter()
+    n_sync16, cfg16 = run_counted(
+        lambda: count_syncs(lambda: held16.append(E.forward_stereo(pair16, rig16))))
+    wall16 = (time.perf_counter() - t16) * 1e3
+    peak16 = (torch.cuda.max_memory_allocated() - base16) / 2 ** 30
+    outs16 = held16[0]
+    tiers16 = tier_stats()
+    log(f"stereo path launches: {cfg16}; dispatch {tiers16}")
+    if (cfg16["opencv_gauss5_down2"] != 1 or cfg16["opencv_sep_filter"]
+            or cfg16["opencv_pyr_down"] or tiers16 != {"tier.gauss5_down2_u8.cuda": 1}):
+        raise AssertionError(f"stereo path: gauss5_down2 must launch once (BGR route, through the "
+                             f"registry) and no other kernel; got {cfg16}, {tiers16}")
+    N16, H16, W16, _ = E.SHAPE_STEREO
+    for key, shape, dtype in (("rectified", (2, H16, W16, 3), torch.uint8),
+                              ("half", (2, H16 // 2, W16 // 2), torch.uint8),
+                              ("sgbm", (H16 // 2, W16 // 2), torch.int16),
+                              ("gray", (2, H16, W16), torch.uint8),
+                              ("bm", (H16, W16), torch.int16),
+                              ("bm_filtered", (H16, W16), torch.int16),
+                              ("xyz", (H16, W16, 3), torch.float32)):
+        o = outs16[key]
+        if tuple(o.shape) != shape or o.dtype != dtype or o.device != dev:
+            raise AssertionError(f"stereo {key}: {tuple(o.shape)} {o.dtype} {o.device}")
+    rep16 = E.stereo_truth_report(rig16, outs16, data16)
+    g16 = E.STEREO_GATES
+    log(f"stereo path truth: pairs used {rig16['pairs']} of {N16}; intrinsics within "
+        f"{rep16['intrinsics'][0]:.6f}, {rep16['intrinsics'][1]:.6f} (gate {g16['intrinsics']}); "
+        f"|T| {rep16['baseline'][0]:.4f} mm, off by {rep16['baseline'][1]:.6f} (gate "
+        f"{g16['baseline']}); RMS {rep16['rms'][0]:.4f}, {rep16['rms'][1]:.4f} px, stereo "
+        f"{rep16['rms'][2]:.4f} (gate {g16['rms']}); rectified rows {rep16['rows']:.4f} px (gate "
+        f"{g16['rows']}); SGBM within 1 px {rep16['sgbm'][0]:.4f} (gate {g16['sgbm_within']}), "
+        f"valid {rep16['sgbm'][1]:.4f} (gate {g16['sgbm_valid']}), of all valid "
+        f"{rep16['sgbm'][2]:.4f}; BM within 1 px {rep16['bm'][0]:.4f} (gate {g16['bm_within']}), "
+        f"valid {rep16['bm'][1]:.4f}, of all valid {rep16['bm'][2]:.4f}")
+    bad16 = [name for name, ok in (
+        ("intrinsics", max(rep16["intrinsics"]) <= g16["intrinsics"]),
+        ("baseline", rep16["baseline"][1] <= g16["baseline"]),
+        ("rms", max(rep16["rms"][:2]) <= g16["rms"]), ("rows", rep16["rows"] <= g16["rows"]),
+        ("sgbm", rep16["sgbm"][0] >= g16["sgbm_within"]
+         and rep16["sgbm"][1] >= g16["sgbm_valid"]),
+        ("bm", rep16["bm"][0] >= g16["bm_within"])) if not ok]
+    if bad16:
+        raise AssertionError(f"stereo truth fails {bad16}: {rep16}")
+    if not bool(torch.isfinite(outs16["xyz"]).all()):
+        raise AssertionError("stereo depth: non-finite values")
+    log(f"stereo path: render {render16:.1f} s (host numpy), calibrate_rig {calib16:.1f} s; the "
+        f"forward {wall16:.1f} ms on the host clock, {n_sync16} host syncs, peak device memory "
+        f"over the input {peak16:.3f} GiB  [{card}]")
+    # card against CPU: the first pair's corners, the rectification and the
+    # half pair whole, then StereoSGBM on a band of the half pair and
+    # StereoBM, filterSpeckles and the depth on a band of the full pair, each
+    # from the card's own input
+    t16_cpu = time.perf_counter()
+    i16 = rig16["pairs"][0]
+    for c in range(2):
+        gray_c = cv.cvtColor(data16["views"][i16, c], cv.COLOR_BGR2GRAY)
+        ok, pts = cv.findChessboardCorners(gray_c, E.STEREO_BOARD, flags=3)
+        pts = cv.cornerSubPix(gray_c, pts, (11, 11), (-1, -1), (3, 30, 0.01)) if ok else None
+        if pts is None or not np.array_equal(pts, rig16["corners"][0, c]):
+            raise AssertionError(f"stereo corners of pair {i16} camera {c + 1}: the CPU's differ")
+    maps_c = [m.cpu() for m in rig16["maps"]]
+    rect_c = torch.stack([cv.remap(data16["scene"][c], maps_c[2 * c], maps_c[2 * c + 1],
+                                   cv.INTER_LINEAR) for c in range(2)])
+    check_equal("stereo rectified pair", outs16["rectified"].cpu(), rect_c)
+    check_equal("stereo half pair", outs16["half"].cpu(),
+                fused_gray_gauss5_down2_plain(outs16["rectified"].cpu(), 0.0))
+    y0, y1 = STEREO_HALF_BAND
+    hb = outs16["half"][:, y0:y1].contiguous()
+    sg_g = E.stereo_sgbm().compute(hb[0], hb[1])
+    sg_c = E.stereo_sgbm().compute(hb[0].cpu(), hb[1].cpu())
+    check_equal(f"stereo SGBM on half rows {STEREO_HALF_BAND}", sg_g.cpu(), sg_c)
+    y0, y1 = STEREO_BAND
+    gb = outs16["gray"][:, y0:y1].contiguous()
+    bm_g = E.stereo_bm().compute(gb[0], gb[1])
+    bm_c = E.stereo_bm().compute(gb[0].cpu(), gb[1].cpu())
+    check_equal(f"stereo BM on rows {STEREO_BAND}", bm_g.cpu(), bm_c)
+    sp = dict(newVal=-16, maxSpeckleSize=E.STEREO_BM["speckleWindowSize"],
+              maxDiff=E.STEREO_BM["speckleRange"])
+    fs_g = cv.filterSpeckles(bm_g, **sp)
+    fs_c = cv.filterSpeckles(bm_c, **sp)
+    check_equal(f"stereo filterSpeckles on rows {STEREO_BAND}", fs_g.cpu(), fs_c)
+    xyz_g = cv.reprojectImageTo3D(fs_g.to(torch.float32) / 16.0, rig16["Q"], True)
+    xyz_c = cv.reprojectImageTo3D(fs_c.to(torch.float32) / 16.0, rig16["Q"], True)
+    check_equal(f"stereo depth on rows {STEREO_BAND}", xyz_g.cpu(), xyz_c)
+    cpu_s16 = time.perf_counter() - t16_cpu
+    log(f"stereo path against the CPU: pair {i16}'s corners, the rectified and half pairs, SGBM "
+        f"on half rows {STEREO_HALF_BAND}, BM, filterSpeckles and the depth on rows "
+        f"{STEREO_BAND} equal; {cpu_s16:.1f} s")
+    del sg_g, sg_c, bm_g, bm_c, xyz_g, xyz_c, rect_c, maps_c
+    wall4p = time.perf_counter() - t16_start
+    log(f"phase 4p wall: {wall4p:.1f} s (render {render16:.1f} s, calibrate_rig {calib16:.1f} s, "
+        f"the card's forward, the truth, the CPU's corners and bands {cpu_s16:.1f} s; budget "
+        f"{STEREO_WALL_BUDGET_S:.0f} s)")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -2084,6 +2234,7 @@ def main() -> int:
     sobel = ((-1, 0, 1), (1, 2, 1))
     # (name, kernel, plain, what, bytes in + out, operations, library call or
     # None, sep_filter's taps or None)
+    xs16 = torch.from_numpy(rng.integers(0, 256, GAUSS_STEREO_SHAPE, np.uint8)).to(dev)
     rows = [
         ("sep_filter", lambda: sep_filter_int(g1, kx5, kx5, shift=16),
          lambda: sep_filter_int_plain(g1, kx5, kx5, shift=16), "(8,1080,1920,1) k5 u8",
@@ -2095,6 +2246,9 @@ def main() -> int:
         ("gauss5_down2", lambda: fused_gray_gauss5_down2(imgs, 0.0),
          lambda: fused_gray_gauss5_down2_plain(imgs, 0.0), "(8,1080,1920,3) bgr",
          imgs.numel() + n_half, 2 * 13 * n1, None, None),
+        ("gauss5_down2 stereo", lambda: fused_gray_gauss5_down2(xs16, 0.0),
+         lambda: fused_gray_gauss5_down2_plain(xs16, 0.0), f"{GAUSS_STEREO_SHAPE} bgr",
+         xs16.numel() + xs16.numel() // 12, 2 * 13 * (xs16.numel() // 3), None, None),
         ("gauss5_down2 gray", lambda: gauss5_down2_u8(gray, 0.0),
          lambda: gauss5_down2_u8_plain(gray, 0.0), "(8,1080,1920) gray", n1 + n_half,
          2 * 10 * n1, None, None),
@@ -2783,6 +2937,62 @@ def main() -> int:
         f"{time.perf_counter() - t15_time:.1f} s")
     del outs15, x15
 
+    # the stereo forward stage by stage on the host clock, beside their
+    # bytes bounds (n = H*W of a frame; each stage's inputs read once and
+    # outputs written once): rectify the pair (6 n) and four f32 maps (16 n)
+    # in, the rectified pair (6 n) out; half 6 n in, n / 2 out; sgbm the
+    # half pair (n / 2) in, n / 4 int16 (n / 2) out; bm the rectified pair in
+    # (6 n), the gray pair (2 n) and the int16 disparity (2 n) out; speckles
+    # 2 n in and out; depth 2 n in, 12 n out
+    t16_time = time.perf_counter()
+    st16 = E.stereo_state(pair16, rig16)
+    stage_ms16 = {}
+    for name, stage, keys in E.STEREO_STAGES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage(st16)
+        torch.cuda.synchronize()
+        stage_ms16[name] = (time.perf_counter() - t0) * 1e3
+    n16 = H16 * W16
+    stage_bytes16 = {"rectify": 28 * n16, "half": 6 * n16 + n16 // 2, "sgbm": n16,
+                     "bm": 10 * n16, "speckles": 4 * n16, "depth": 14 * n16}
+    fwd_bytes16 = sum(stage_bytes16.values())
+    for name, t in stage_ms16.items():
+        b_ms = bound(stage_bytes16[name], 0)[0]
+        log(f"time stereo {name}: {t:.4f} ms, bytes bound {b_ms:.4f} ms "
+            f"({stage_bytes16[name] / 1e6:.1f} MB), share of bound {b_ms / t:.8f}  [{card}]")
+    terms16 = "; ".join(f"{k} {v / 1e6:.2f}" for k, v in stage_bytes16.items())
+    log(f"stereo bytes bound terms (MB): {terms16}; total {fwd_bytes16 / 1e6:.1f} MB = "
+        f"{bound(fwd_bytes16, 0)[0]:.4f} ms")
+    # the launches of SGBM's path loops: the kernels torch.profiler sees in
+    # one SGBM stage
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof16:
+        E.STEREO_STAGES[2][1](st16)
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    sgbm_kernels16 = sum(e.count for e in prof16.key_averages() if e.device_type == cuda_t)
+    log(f"stereo SGBM at {(H16 // 2, W16 // 2)}, {E.STEREO_SGBM['numDisparities']} disparities: "
+        f"{sgbm_kernels16} kernel launches in one stage (torch.profiler)")
+    del st16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base16 = torch.cuda.memory_allocated()
+    busy16, k_ms16, f_ms16 = busy_share(lambda: E.forward_stereo(pair16, rig16), iters=1,
+                                        warmup=False, host_ops=False)
+    peak16b = (torch.cuda.max_memory_allocated() - base16) / 2 ** 30
+    log(f"time forward_stereo {tuple(pair16.shape)}: {f_ms16:.4f} ms (profiled run; the 4p run "
+        f"{wall16:.4f} ms; stages summed {sum(stage_ms16.values()):.4f} ms) on the host clock, "
+        f"bytes bound {bound(fwd_bytes16, 0)[0]:.4f} ms ({fwd_bytes16 / 1e6:.1f} MB), share of "
+        f"bound {bound(fwd_bytes16, 0)[0] / f_ms16:.8f}  [{card}]")
+    log(f"stereo forward: device busy share {busy16:.4f} (kernels {k_ms16:.4f} ms of "
+        f"{f_ms16:.4f} ms, torch.profiler); {n_sync16} host syncs per pair; peak device memory "
+        f"over the input {peak16b:.3f} GiB (the 4p run {peak16:.3f})  [{card}]")
+    log(f"stereo path's wall in chip_smoke.py: phase 4p {wall4p:.1f} s + its timing "
+        f"{time.perf_counter() - t16_time:.1f} s")
+    del outs16, pair16, views16, rig16
+
     meta = {
         "sep_filter": ("opencv_tpu_torch/csrc/sepfilter.cu",
                        "opencv_tpu/kernels/sepfilter.py:220", "opencv_sep_filter"),
@@ -2791,19 +3001,19 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4o); the
+    # launches: the kernel's count over the main paths (4a to 4p); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
                              "sep_filter k3 photo", "sep_filter generic k9 level 2"),
-              "gauss5_down2": ("gauss5_down2", "gauss5_down2 gray"),
+              "gauss5_down2": ("gauss5_down2", "gauss5_down2 stereo", "gauss5_down2 gray"),
               "pyr_down": ("pyr_down", *(f"pyr_down c3 {h}x{w}" for _, h, w, _ in
                                          PYR_SEGMENT_SHAPES),
                            *(f"pyr_down video {n}x{h}x{w}" for n, h, w, _ in
                              PYR_VIDEO_SHAPES[:3]))}
     main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
-                  cfg13, cfg14, cfg15)
+                  cfg13, cfg14, cfg15, cfg16)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

@@ -41,7 +41,10 @@ KAZE, MSER (a native host tail) and SimpleBlobDetector; ``parallel``, batch and 
 photo module (NL-means and TV-L1, HDR alignment, merging and tonemapping,
 inpaint, the domain-transform filters, Poisson cloning, decolor) and
 ``utils`` (logging, configuration, tracing, the system surface); and the
-top-level names ``opencv_tpu/__init__.py`` defines itself (RotatedRect,
+stereo-depth path: calib3d (chessboards, calibrateCamera and
+stereoCalibrate, stereoRectify and the rectification maps, StereoBM and
+StereoSGBM, filterSpeckles (a native host tail), USAC, PnP, fisheye,
+hand-eye, multiview); and the top-level names ``opencv_tpu/__init__.py`` defines itself (RotatedRect,
 TickMeter, CV_MAKETYPE, FontFace, ...).
 """
 
@@ -250,6 +253,61 @@ from .utils.system import (  # noqa: F401,E402
     VideoCapture_waitAny,
 )
 
+from . import calib3d  # noqa: F401,E402
+from .calib3d import (  # noqa: F401,E402
+    Rodrigues, projectPoints, undistortPoints, initUndistortRectifyMap, undistort,
+    findHomography, findFundamentalMat, solvePnP, triangulatePoints, computeCorrespondEpilines,
+    perspectiveTransform, getOptimalNewCameraMatrix, RANSAC, LMEDS, FM_8POINT, FM_RANSAC,
+    SOLVEPNP_ITERATIVE, USAC_DEFAULT, USAC_PARALLEL, USAC_FM_8PTS, USAC_FAST, USAC_ACCURATE,
+    USAC_PROSAC, USAC_MAGSAC, SOLVEPNP_EPNP, SOLVEPNP_P3P, SOLVEPNP_AP3P, SOLVEPNP_IPPE,
+    SOLVEPNP_IPPE_SQUARE, SOLVEPNP_SQPNP, SOLVEPNP_MAX_COUNT,
+    StereoBM, StereoBM_create, StereoSGBM, StereoSGBM_create,
+    estimateAffine2D, estimateAffinePartial2D, stereoRectify,
+    findEssentialMat, recoverPose, decomposeHomographyMat, solvePnPRansac, solveP3P,
+    fisheye, UsacParams,
+    calibrateCamera, calibrateCameraRO, stereoCalibrate, findChessboardCorners,
+    drawChessboardCorners, cornerSubPix, CALIB_CB_ADAPTIVE_THRESH, CALIB_CB_NORMALIZE_IMAGE,
+    CALIB_CB_FAST_CHECK, findChessboardCornersSB, CALIB_CB_EXHAUSTIVE, CALIB_CB_ACCURACY,
+    CALIB_CB_LARGER, CALIB_CB_MARKER,
+    calibrateHandEye, calibrateRobotWorldHandEye,
+    CALIB_HAND_EYE_TSAI, CALIB_HAND_EYE_PARK, CALIB_HAND_EYE_HORAUD,
+    CALIB_HAND_EYE_ANDREFF, CALIB_HAND_EYE_DANIILIDIS,
+    CALIB_ROBOT_WORLD_HAND_EYE_SHAH, CALIB_ROBOT_WORLD_HAND_EYE_LI,
+)
+from .calib3d.geometry import (  # noqa: F401,E402
+    estimateTranslation2D, undistortImagePoints, convertPointsToHomogeneous,
+    convertPointsFromHomogeneous, sampsonDistance, estimateAffine3D, estimateTranslation3D,
+)
+from .calib3d.misc3d import (  # noqa: F401,E402
+    composeRT, decomposeEssentialMat, decomposeProjectionMatrix,
+    calibrationMatrixValues, drawFrameAxes, correctMatches,
+    getDefaultNewCameraMatrix, filterSpeckles, validateDisparity,
+    getValidDisparityROI, reprojectImageTo3D,
+    stereoRectifyUncalibrated, matMulDeriv, RQDecomp3x3,
+)
+from .calib3d.extended import (  # noqa: F401,E402
+    solvePnPGeneric, solvePnPRefineLM, solvePnPRefineVVS,
+    initCameraMatrix2D, calibrateCameraExtended, stereoCalibrateExtended,
+    filterHomographyDecompByVisibleRefpoints, checkChessboard,
+    find4QuadCornerSubpix, initInverseRectificationMap,
+    projectPointsSepJ, findChessboardCornersSBWithMeta,
+    calibrateCameraROExtended,
+)
+from .calib3d.multiview import (  # noqa: F401,E402
+    registerCameras, registerCamerasExtended, calibrateMultiview,
+    calibrateMultiviewExtended, correctChromaticAberration,
+    loadChromaticAberrationParams, findPlanes,
+    minEnclosingConvexPolygon,
+)
+from .calib3d.circlesgrid import (  # noqa: F401,E402
+    findCirclesGrid, estimateChessboardSharpness,
+    CALIB_CB_SYMMETRIC_GRID, CALIB_CB_ASYMMETRIC_GRID,
+    CALIB_CB_CLUSTERING,
+)
+
+# the binding's base-class alias of the stereo matchers
+StereoMatcher = StereoBM
+
 # fused fast path (no cv2 equivalent): gray + blur + 2x area in one kernel
 from .kernels import fused_gray_gauss5_down2 as fusedPreprocessGrayBlurDown2  # noqa: F401
 
@@ -352,6 +410,25 @@ class RotatedRect:
         x0, y0 = _np.floor(p.min(0)).astype(int)
         x1, y1 = _np.ceil(p.max(0)).astype(int)
         return (int(x0), int(y0), int(x1 - x0 + 1), int(y1 - y0 + 1))
+
+
+class CirclesGridFinderParameters:
+    """findCirclesGrid's parameter struct (calib3d.hpp)."""
+
+    def __init__(self):
+        self.densityNeighborhoodSize = (16, 16)
+        self.minDensity = 10.0
+        self.kmeansAttempts = 100
+        self.minDistanceToAddKeypoint = 20
+        self.keypointScale = 1
+        self.minGraphConfidence = 9.0
+        self.vertexGain = 1.0
+        self.vertexPenalty = -0.6
+        self.existingVertexGain = 10000.0
+        self.edgeGain = 1.0
+        self.edgePenalty = -0.6
+        self.convexHullFactor = 1.1
+        self.minRNGEdgeSwitchDist = 5.0
 
 
 class MSTEdge:

@@ -118,6 +118,23 @@ BORDER_REPLICATE) → MOG2 at its defaults over the aligned frames → one
 frames; ``video_truth_report`` checks the tracks, the shake, the dense flow
 and the masks against the video's shifts and object boxes.
 
+``forward_stereo`` computes depth from a calibrated stereo rig, as OpenCV's
+samples/cpp/stereo_calib.cpp and stereo_match.cpp do it: once,
+``calibrate_rig`` finds the 9×6 chessboard in each of N pairs
+(findChessboardCorners, cornerSubPix 11×11), calibrates each camera and
+then the pair (intrinsics fixed), rectifies (stereoRectify, alpha 0) and
+builds the four maps on the device; then, per frame pair: remap LINEAR of
+both frames → ``fusedPreprocessGrayBlurDown2`` of the rectified pair (the
+one ``gauss5_down2`` launch, N = 2) → StereoSGBM at half size (128
+disparities, window 3, P1 72, P2 288) → cvtColor and StereoBM at full size
+(240 disparities, window 9) → filterSpeckles (the native host tail) →
+reprojectImageTo3D of the BM disparity (:data:`STEREO_STAGES`).
+``make_stereo_rig`` renders the rig's calibration pairs and one scene pair
+of textured planes at 1.5-6 m, with their truth; ``entry_stereo`` gives
+the path its calibrated rig and the scene pair, and
+``stereo_truth_report`` checks the calibration, the rectification and both
+disparities against the truth.
+
 ``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
 on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
 CUDA devices) run the batch-DP step and the spatial filters of
@@ -151,7 +168,7 @@ from .ops.integral import integral
 from .ops.resize import resize
 from .ops.templmatch import matchTemplate
 from .ops.thresh import threshold
-from .ops.warp import getRotationMatrix2D, warpAffine, warpPerspective
+from .ops.warp import getRotationMatrix2D, remap, warpAffine, warpPerspective
 from .ops.contours import boundingRect, contourArea, findContours
 from .ops.misc import createHanningWindow, phase_correlate_batch
 from .ops.shape import component_stats, components_batch, distanceTransform, moments_dict, \
@@ -179,6 +196,12 @@ from .video.bgsub import createBackgroundSubtractorMOG2
 from .video.farneback import calcOpticalFlowFarneback
 from .video.lk import calcOpticalFlowPyrLK
 from .core.fixedpoint import saturate_cast
+from .calib3d import (StereoBM, StereoBM_create, StereoSGBM, StereoSGBM_create, calibrateCamera,
+                      cornerSubPix, findChessboardCorners, initUndistortRectifyMap, stereoCalibrate,
+                      stereoRectify)
+from .calib3d.geometry import Rodrigues, projectPoints, undistortPoints
+from .calib3d.chessboard import CALIB_CB_ADAPTIVE_THRESH, CALIB_CB_NORMALIZE_IMAGE, _sb_grid_regular
+from .calib3d.misc3d import filterSpeckles, reprojectImageTo3D
 from .photo import (AlignMTB, INPAINT_TELEA, createAlignMTB, createMergeMertens, detailEnhance,
                     fastNlMeansDenoisingColored, inpaint, textureFlattening)
 
@@ -2175,6 +2198,508 @@ def photo_truth_report(out, bracket_info) -> dict:
         g = cvtColor(out[key], K.COLOR_BGR2GRAY).cpu().numpy().astype(np.float64)
         ratios.append(float(g[wire].mean() / g[ring].mean()))
     rep["inpaint"] = tuple(ratios)
+    return rep
+
+
+# ------------------------------------------------------------ stereo depth
+
+SHAPE_STEREO = (12, 1080, 1920, 3)   # calibration pairs, and each frame's size
+STEREO_BOARD = (9, 6)                # inner corners per row and column
+STEREO_SQUARE_MM = 25.0
+STEREO_BASELINE_MM = 120.0
+# StereoSGBM at half size and StereoBM at full size, as OpenCV's
+# samples/cpp/stereo_match.cpp sets them (cn = 1, SGBM's window 3)
+STEREO_SGBM = dict(minDisparity=0, numDisparities=128, blockSize=3, P1=8 * 3 * 3,
+                   P2=32 * 3 * 3, disp12MaxDiff=1, preFilterCap=63, uniquenessRatio=10,
+                   speckleWindowSize=100, speckleRange=32, mode=0)
+STEREO_BM = dict(numDisparities=240, blockSize=9, preFilterCap=31, textureThreshold=10,
+                 uniquenessRatio=15, speckleWindowSize=100, speckleRange=32,
+                 disp12MaxDiff=1)
+# the scene's fronto-parallel planes in the true rectified camera-1 frame
+# (mm): depth Z and the rectangle X0, X1, Y0, Y1, nearest first
+STEREO_PLANES = ((1500.0, -900.0, -200.0, -150.0, 500.0),
+                 (2200.0, 0.0, 700.0, -700.0, -100.0),
+                 (3000.0, 300.0, 1600.0, 100.0, 900.0),
+                 (4200.0, -2400.0, -900.0, -1500.0, -300.0),
+                 (6000.0, -1e5, 1e5, -1e5, 1e5))
+STEREO_NOISE = 1.0                   # each camera's sensor noise, grey levels
+# the fewest pairs calibrate_rig calibrates from (Zhang's method needs 3
+# views of the plane)
+STEREO_MIN_PAIRS = 3
+# the undistortion's fixed-point steps when rendering (at 1080p its residual
+# is under 1e-11 px)
+STEREO_UNDISTORT_ITERS = 12
+
+
+def _rig_truth(W: int, H: int) -> dict:
+    """The rig scaled to a (W, H) frame: K, distortion (k1, k2, p1, p2, k3)
+    per camera and camera 2's pose R, T (X2 = R X1 + T, mm): fx about 1,400
+    px at 1080p, a 120 mm baseline, 0.4° of roll, 0.6° of yaw and 0.1° of
+    pitch."""
+    s = W / 1920.0
+    K1 = np.array([[1400.0 * s, 0, 0.5 * (W - 1) + 6.0 * s],
+                   [0, 1398.0 * s, 0.5 * (H - 1) - 4.0 * s], [0, 0, 1.0]])
+    K2 = np.array([[1405.0 * s, 0, 0.5 * (W - 1) - 5.0 * s],
+                   [0, 1403.5 * s, 0.5 * (H - 1) + 3.0 * s], [0, 0, 1.0]])
+    d1 = np.array([-0.12, 0.06, 0.0008, -0.0005, -0.01])
+    d2 = np.array([-0.10, 0.05, -0.0006, 0.0004, -0.008])
+    R, _ = Rodrigues(np.deg2rad([0.1, 0.6, 0.4]))
+    T = np.array([-STEREO_BASELINE_MM, 0.6, 1.2])
+    T *= STEREO_BASELINE_MM / np.linalg.norm(T)
+    return dict(K1=K1, d1=d1, K2=K2, d2=d2, R=R, T=T)
+
+
+def _pixel_rays(K, dist, W: int, H: int) -> np.ndarray:
+    """The undistorted normalized (x, y) of every pixel of a (W, H) frame
+    under the distortion `dist`, (H, W, 2) f64: the fixed point of
+    cv::undistortPoints' iteration, run to convergence."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    k1, k2, p1, p2, k3 = dist
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    x0, y0 = (u - cx) / fx, (v - cy) / fy
+    x, y = x0.copy(), y0.copy()
+    for _ in range(STEREO_UNDISTORT_ITERS):
+        r2 = x * x + y * y
+        radial = 1 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x, y = (x0 - dx) / radial, (y0 - dy) / radial
+    return np.stack([x, y], axis=-1)
+
+
+def _bilinear(grid: np.ndarray, gx: np.ndarray, gy: np.ndarray) -> np.ndarray:
+    """`grid` sampled at the continuous (gx, gy), clamped at its border."""
+    gh, gw = grid.shape
+    gx = np.clip(gx, 0, gw - 1.000001)
+    gy = np.clip(gy, 0, gh - 1.000001)
+    x0, y0 = np.floor(gx).astype(np.int64), np.floor(gy).astype(np.int64)
+    fx, fy = gx - x0, gy - y0
+    return ((grid[y0, x0] * (1 - fx) + grid[y0, x0 + 1] * fx) * (1 - fy)
+            + (grid[y0 + 1, x0] * (1 - fx) + grid[y0 + 1, x0 + 1] * fx) * fy)
+
+
+def _board_view(rays, origin, rot, Rb, tb, bg) -> np.ndarray:
+    """One camera's gray view of the board: rays (H, W, 3) and the centre
+    `origin` in camera 1's frame (rot turns a camera ray into that frame),
+    the board's pose (Rb, tb: board to camera 1) and the background (H, W);
+    the squares anti-aliased by their footprint, (H, W) f64."""
+    d = rays @ (rot.T @ Rb)                        # the rays in board axes
+    o = (origin - tb) @ Rb
+    t = -o[2] / d[..., 2]
+    sq = STEREO_SQUARE_MM
+    cols, rows = STEREO_BOARD
+    bx = o[0] + t * d[..., 0]
+    by = o[1] + t * d[..., 1]
+    paper = ((bx > -2 * sq) & (bx < (cols + 1) * sq) & (by > -2 * sq)
+             & (by < (rows + 1) * sq) & (t > 0))
+    val = np.array(bg, np.float64)
+    ys, xs = np.nonzero(paper.any(axis=1))[0], np.nonzero(paper.any(axis=0))[0]
+    if not len(ys):
+        return val
+    win = (slice(ys[0], ys[-1] + 1), slice(xs[0], xs[-1] + 1))
+    # each axis' square wave over the paper's box, softened over a pixel's
+    # footprint
+    s = []
+    for b in (bx[win], by[win]):
+        q = (b + sq) / sq
+        gy, gx = np.gradient(b)
+        foot = np.maximum(np.abs(gx) + np.abs(gy), 1e-6)
+        frac = q - np.floor(q)
+        edge = sq * np.minimum(frac, 1 - frac)
+        sign = np.where(np.floor(q) % 2 == 0, 1.0, -1.0)
+        s.append(sign * np.minimum(1.0, 2 * edge / foot))
+    inside = ((bx[win] >= -sq) & (bx[win] < cols * sq)
+              & (by[win] >= -sq) & (by[win] < rows * sq))
+    square = np.where(inside, 225.0 - 195.0 * 0.5 * (1 + s[0] * s[1]), 225.0)
+    val[win] = np.where(paper[win], square, val[win])
+    return val
+
+
+def _board_poses(rng, rig, W: int, H: int, n: int):
+    """n board poses (Rb, tb) whose paper lies inside both frames with a
+    margin, at 0.5-0.85 m, tilted up to 15° about each axis and turned up
+    to 10° in its plane, spread over the frame (the detector fits each
+    square's minimum-area rectangle, which steeper tilts skew)."""
+    sq = STEREO_SQUARE_MM
+    cols, rows = STEREO_BOARD
+    paper = np.array([[x, y, 0.0] for x in (-2 * sq, (cols + 1) * sq)
+                      for y in (-2 * sq, (rows + 1) * sq)])
+    centre = np.array([(cols - 1) * sq / 2, (rows - 1) * sq / 2, 0.0])
+    rv2, _ = Rodrigues(rig["R"])
+    poses = []
+    margin = 40 * W / 1920
+    while len(poses) < n:
+        z = rng.uniform(500.0, 850.0)
+        ang = np.deg2rad([rng.uniform(-15, 15), rng.uniform(-15, 15), rng.uniform(-10, 10)])
+        Rb, _ = Rodrigues(ang)
+        # the board's centre somewhere in the frame's middle 70 %
+        u = rng.uniform(0.15, 0.85) * W
+        v = rng.uniform(0.15, 0.85) * H
+        K1 = rig["K1"]
+        c = np.array([(u - K1[0, 2]) / K1[0, 0] * z, (v - K1[1, 2]) / K1[1, 1] * z, z])
+        tb = c - Rb @ centre
+        ok = True
+        for (K, d, rv, tv) in ((rig["K1"], rig["d1"], np.zeros(3), np.zeros(3)),
+                               (rig["K2"], rig["d2"], rv2.ravel(), rig["T"])):
+            Rc, _ = Rodrigues(rv)
+            pts = (paper @ Rb.T + tb) @ Rc.T + tv
+            if (pts[:, 2] <= 0).any():
+                ok = False
+                break
+            proj, _ = projectPoints(paper @ Rb.T + tb, rv, tv, K, d)
+            p = proj.reshape(-1, 2)
+            if (p[:, 0] < margin).any() or (p[:, 0] > W - 1 - margin).any() \
+                    or (p[:, 1] < margin).any() or (p[:, 1] > H - 1 - margin).any():
+                ok = False
+                break
+        if ok:
+            poses.append((Rb, tb))
+    return poses
+
+
+def _scene_view(grids, rays, origin, rot, texture: bool = True) -> tuple:
+    """One camera's view of the plane scene: its rays (H, W, 3) turned by
+    `rot` into the true rectified camera-1 frame, from `origin` there (on
+    its z = 0 plane, as both centres are); the nearest plane each ray
+    meets, the planes being fronto-parallel and in depth order: ``(gray
+    (H, W) f64 or None, depth Z (H, W))``."""
+    d = rays @ rot.T
+    zhit = np.zeros(d.shape[:2])
+    val = np.zeros(d.shape[:2]) if texture else None
+    for (Z, X0, X1, Y0, Y1), (fine, coarse, cell, lo, hi) in zip(STEREO_PLANES, grids):
+        t = (Z - origin[2]) / d[..., 2]
+        X = origin[0] + t * d[..., 0]
+        Y = origin[1] + t * d[..., 1]
+        hit = (zhit == 0) & (t > 0) & (X >= X0) & (X < X1) & (Y >= Y0) & (Y < Y1)
+        zhit[hit] = Z
+        if texture:
+            gx = (X[hit] - max(X0, -1e4)) / cell
+            gy = (Y[hit] - max(Y0, -1e4)) / cell
+            tex = 0.65 * _bilinear(fine, gx, gy) + 0.35 * _bilinear(coarse, gx / 3, gy / 3)
+            val[hit] = lo + (hi - lo) * tex
+    return val, zhit
+
+
+def make_stereo_rig(shape=SHAPE_STEREO, seed: int = 0) -> dict:
+    """A calibrated stereo rig's data, rendered on the host from one
+    ``default_rng(seed)``: a dict of
+
+    - ``views``: (N, 2, H, W, 3) u8 BGR, N pairs of a 9×6 inner-corner
+      chessboard with 25 mm squares (OpenCV's samples/cpp/stereo_calib.cpp's
+      board) at varied poses, each seen by camera 1 then camera 2 through
+      its lens distortion;
+    - ``scene``: (2, H, W, 3) u8 BGR, one pair of a scene of textured
+      fronto-parallel planes at 1.5-6 m (:data:`STEREO_PLANES`);
+    - ``object_points``: (54, 3) f32, the board's inner corners in mm, row
+      by row;
+    - ``rig``: the truth, :func:`_rig_truth`'s K1, d1, K2, d2, R, T, and
+      its ``stereoRectify`` (alpha 0): R1, R2, P1, P2, Q;
+    - ``disparity``: (H, W) f64, the scene's disparity at each pixel of
+      camera 1's image rectified by the true rig; ``both``: (H, W) bool,
+      where camera 2 sees the same point; ``disparity_half`` and
+      ``both_half``, the same at half size (the 2×2 block's mean over 2).
+
+    Each camera adds Gaussian noise of sigma :data:`STEREO_NOISE`."""
+    N, H, W, _ = shape
+    rng = np.random.default_rng(seed)
+    rig = _rig_truth(W, H)
+    R1, R2, P1, P2, Q, _, _ = stereoRectify(rig["K1"], rig["d1"], rig["K2"], rig["d2"], (W, H),
+                                            rig["R"], rig["T"].reshape(3, 1), alpha=0)
+    rig.update(R1=R1, R2=R2, P1=P1, P2=P2, Q=Q)
+    rays = []
+    for K, d in ((rig["K1"], rig["d1"]), (rig["K2"], rig["d2"])):
+        xy = _pixel_rays(K, d, W, H)
+        rays.append(np.concatenate([xy, np.ones(xy.shape[:2] + (1,))], axis=-1))
+    c2 = -rig["R"].T @ rig["T"]                    # camera 2's centre, camera-1 frame
+    # the calibration views: a smooth grey background, the board on it
+    bg = 100.0 + 60.0 * _bilinear(rng.random((8, 12)),
+                                  *np.meshgrid(np.linspace(0, 11, W), np.linspace(0, 7, H)))
+    views = np.empty((N, 2, H, W, 3), np.uint8)
+    for i, (Rb, tb) in enumerate(_board_poses(rng, rig, W, H, N)):
+        for c, (origin, rot) in enumerate(((np.zeros(3), np.eye(3)), (c2, rig["R"].T))):
+            g = _board_view(rays[c], origin, rot, Rb, tb, bg)
+            g = g + rng.normal(0.0, STEREO_NOISE, g.shape)
+            views[i, c] = np.clip(np.rint(g), 0, 255).astype(np.uint8)[..., None]
+    # the scene: each plane's texture two octaves of value noise, its finer
+    # cell about 3 px at its depth
+    f = P1[0, 0]
+    grids = []
+    for Z, X0, X1, Y0, Y1 in STEREO_PLANES:
+        cell = 3.0 * Z / f
+        ext_x = min(X1, 1e4) - max(X0, -1e4)
+        ext_y = min(Y1, 1e4) - max(Y0, -1e4)
+        fine = rng.random((int(ext_y / cell) + 2, int(ext_x / cell) + 2))
+        coarse = rng.random((int(ext_y / cell / 3) + 2, int(ext_x / cell / 3) + 2))
+        lo = rng.uniform(20, 70)
+        grids.append((fine, coarse, cell, lo, lo + rng.uniform(140, 180)))
+    tint = (0.9, 1.0, 1.08)
+    scene = np.empty((2, H, W, 3), np.uint8)
+    for c, (origin, rot) in enumerate(((np.zeros(3), R1), (R1 @ c2, R1 @ rig["R"].T))):
+        g, _ = _scene_view(grids, rays[c], origin, rot)
+        for ch in range(3):
+            gc = g * tint[ch] + rng.normal(0.0, STEREO_NOISE, g.shape)
+            scene[c, ..., ch] = np.clip(np.rint(gc), 0, 255)
+    # the truth at camera 1's rectified pixels: the first plane each
+    # rectified ray meets, and whether camera 2 sees that point first
+    fx, cx, cy = P1[0, 0], P1[0, 2], P1[1, 2]
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    rect_rays = np.stack([(u - cx) / fx, (v - cy) / P1[1, 1], np.ones_like(u)], axis=-1)
+    _, z1 = _scene_view(grids, rect_rays, np.zeros(3), np.eye(3), texture=False)
+    baseline = -P2[0, 3] / P2[0, 0]
+    disp = fx * baseline / z1
+    pts = rect_rays * z1[..., None]
+    o2 = R1 @ c2
+    to2 = pts - o2
+    _, z2 = _scene_view(grids, to2 / to2[..., 2:3], o2, np.eye(3), texture=False)
+    both = np.abs(z2 - z1) < 1e-6
+    Hh, Wh = H // 2, W // 2
+    dh = disp[:2 * Hh, :2 * Wh].reshape(Hh, 2, Wh, 2).mean(axis=(1, 3)) / 2
+    bh = both[:2 * Hh, :2 * Wh].reshape(Hh, 2, Wh, 2).all(axis=(1, 3))
+    sq = STEREO_SQUARE_MM
+    cols, rows = STEREO_BOARD
+    obj = np.array([[x * sq, y * sq, 0.0] for y in range(rows) for x in range(cols)], np.float32)
+    return dict(views=views, scene=scene, object_points=obj, rig=rig, disparity=disp,
+                both=both, disparity_half=dh, both_half=bh)
+
+
+def calibrate_rig(views, object_points) -> dict:
+    """Calibrate the rig from N chessboard pairs, as OpenCV's
+    samples/cpp/stereo_calib.cpp does: findChessboardCorners (adaptive
+    threshold, normalized) and cornerSubPix (11×11, 30 iterations, 0.01)
+    on every view, calibrateCamera per camera, stereoCalibrate with the
+    intrinsics fixed, stereoRectify (alpha 0) and initUndistortRectifyMap
+    of each camera.  `views` (N, 2, H, W, 3) u8 on any device; the corners
+    come back to the host, so the solvers run there, and the maps are built
+    on the views' device.
+
+    A pair counts only where the board is found in both views, as in the
+    sample, and where both grids pass the detector's regularity check
+    (``chessboard._sb_grid_regular``: no row or column bends by more than
+    0.35 of the median spacing); fewer than :data:`STEREO_MIN_PAIRS` such
+    pairs raise.
+
+    Returns a dict: ``pairs``, the indices of the pairs used; ``corners``
+    (n, 2, 54, 1, 2) f32 host, theirs; ``rms1``,
+    ``rms2`` (each camera's reprojection RMS, px), ``rms`` (the stereo
+    one); K1, d1, K2, d2, R, T, E, F; R1, R2, P1, P2, Q, roi1, roi2; and
+    ``maps``, the four (H, W) f32 maps (camera 1's x and y, camera 2's)
+    on the device."""
+    v = torch.as_tensor(views)
+    N, _, H, W, _ = v.shape
+    n_pts = STEREO_BOARD[0] * STEREO_BOARD[1]
+    corners, used = [], []
+    for i in range(N):
+        found = []
+        for c in range(2):
+            gray = cvtColor(v[i, c], K.COLOR_BGR2GRAY)
+            ok, pts = findChessboardCorners(gray, STEREO_BOARD, flags=CALIB_CB_ADAPTIVE_THRESH
+                                            | CALIB_CB_NORMALIZE_IMAGE)
+            if not ok:
+                break
+            pts = cornerSubPix(gray, pts, (11, 11), (-1, -1), (3, 30, 0.01))
+            # the detector can return a grid with a stray point in it: keep
+            # only a grid whose rows and columns run evenly
+            if not _sb_grid_regular(pts.reshape(STEREO_BOARD[1], STEREO_BOARD[0], 2)):
+                break
+            found.append(pts)
+        # the sample keeps a pair only if both views show the whole board
+        if len(found) == 2:
+            corners.append(found)
+            used.append(i)
+    if len(used) < STEREO_MIN_PAIRS:
+        raise RuntimeError(f"calibrate_rig: the {STEREO_BOARD} board was found in both views of "
+                           f"{len(used)} of {N} pairs, fewer than {STEREO_MIN_PAIRS}")
+    corners = np.asarray(corners, np.float32).reshape(len(used), 2, n_pts, 1, 2)
+    objs = [np.asarray(object_points, np.float32)] * len(used)
+    size = (W, H)
+    rms1, K1, d1, _, _ = calibrateCamera(objs, list(corners[:, 0]), size)
+    rms2, K2, d2, _, _ = calibrateCamera(objs, list(corners[:, 1]), size)
+    rms, _, _, _, _, R, T, E, F = stereoCalibrate(objs, list(corners[:, 0]), list(corners[:, 1]),
+                                                  K1, d1, K2, d2, size)
+    R1, R2, P1, P2, Q, roi1, roi2 = stereoRectify(K1, d1, K2, d2, size, R, T, alpha=0)
+    maps = (*initUndistortRectifyMap(K1, d1, R1, P1, size, K.CV_32FC1, device=v.device),
+            *initUndistortRectifyMap(K2, d2, R2, P2, size, K.CV_32FC1, device=v.device))
+    return dict(corners=corners, pairs=used, rms1=rms1, rms2=rms2, rms=rms, K1=K1, d1=d1, K2=K2, d2=d2,
+                R=R, T=T, E=E, F=F, R1=R1, R2=R2, P1=P1, P2=P2, Q=Q, roi1=roi1, roi2=roi2,
+                maps=maps)
+
+
+def stereo_sgbm() -> StereoSGBM:
+    return StereoSGBM_create(**STEREO_SGBM)
+
+
+def stereo_bm() -> StereoBM:
+    """StereoBM with :data:`STEREO_BM`'s settings but its speckle pass,
+    which the path runs as a stage of its own."""
+    bm = StereoBM_create(STEREO_BM["numDisparities"], STEREO_BM["blockSize"])
+    bm.setPreFilterCap(STEREO_BM["preFilterCap"])
+    bm.setTextureThreshold(STEREO_BM["textureThreshold"])
+    bm.setUniquenessRatio(STEREO_BM["uniquenessRatio"])
+    bm.setDisp12MaxDiff(STEREO_BM["disp12MaxDiff"])
+    return bm
+
+
+def _s_rectify(st):
+    m1x, m1y, m2x, m2y = st["rig"]["maps"]
+    x = st["x"]
+    st["rectified"] = torch.stack([remap(x[0], m1x, m1y, K.INTER_LINEAR),
+                                   remap(x[1], m2x, m2y, K.INTER_LINEAR)])
+
+
+def _s_half(st):
+    """The rectified pair through ``fusedPreprocessGrayBlurDown2``: the one
+    ``gauss5_down2`` launch, (2, H, W, 3) → (2, H/2, W/2)."""
+    st["half"] = fused_gray_gauss5_down2(st["rectified"])
+
+
+def _s_sgbm(st):
+    h = st["half"]
+    st["sgbm"] = stereo_sgbm().compute(h[0], h[1])
+
+
+def _s_bm(st):
+    g = cvtColor(st["rectified"], K.COLOR_BGR2GRAY)[..., 0]
+    st["gray"] = g
+    st["bm"] = stereo_bm().compute(g[0], g[1])
+
+
+def _s_speckles(st):
+    st["bm_filtered"] = filterSpeckles(st["bm"], -16, STEREO_BM["speckleWindowSize"],
+                                       STEREO_BM["speckleRange"])
+
+
+def _s_depth(st):
+    st["xyz"] = reprojectImageTo3D(st["bm_filtered"].to(torch.float32) / 16.0, st["rig"]["Q"],
+                                   handleMissingValues=True)
+
+
+# forward_stereo's stages in order: (name, fn of the state dict, the keys
+# it writes); each reads only keys written before it
+STEREO_STAGES = (
+    ("rectify", _s_rectify, ("rectified",)),
+    ("half", _s_half, ("half",)),
+    ("sgbm", _s_sgbm, ("sgbm",)),
+    ("bm", _s_bm, ("gray", "bm")),
+    ("speckles", _s_speckles, ("bm_filtered",)),
+    ("depth", _s_depth, ("xyz",)),
+)
+
+
+def stereo_state(pair, rig) -> dict:
+    """The state dict the stereo stages start from."""
+    return {"x": pair, "rig": rig}
+
+
+def forward_stereo(pair, rig) -> dict:
+    """Depth from one stereo pair (:data:`STEREO_STAGES`): ``pair`` (2, H, W,
+    3) u8 BGR, camera 1 then camera 2; ``rig`` :func:`calibrate_rig`'s.
+
+    Returns a dict: ``rectified`` (2, H, W, 3) u8; ``half`` (2, H/2, W/2) u8;
+    ``sgbm`` (H/2, W/2) int16, StereoSGBM's disparity × 16 at half size
+    (median and speckle passes included); ``gray`` (2, H, W) u8; ``bm`` and
+    ``bm_filtered`` (H, W) int16, StereoBM's at full size before and after
+    filterSpeckles; ``xyz`` (H, W, 3) f32, reprojectImageTo3D of the
+    filtered BM disparity over 16 (mm; 10,000 where it is invalid)."""
+    st = stereo_state(pair, rig)
+    for _, stage, _ in STEREO_STAGES:
+        stage(st)
+    del st["x"], st["rig"]
+    return st
+
+
+def entry_stereo(device="cuda", shape=SHAPE_STEREO):
+    """``(forward_stereo, (pair, rig))``: :func:`make_stereo_rig`'s views
+    calibrated by :func:`calibrate_rig` on `device`, and its scene pair
+    there."""
+    data = make_stereo_rig(shape)
+    rig = calibrate_rig(torch.from_numpy(data["views"]).to(device), data["object_points"])
+    return forward_stereo, (torch.from_numpy(data["scene"]).to(device), rig)
+
+
+def _window_all(mask: np.ndarray, r: int) -> np.ndarray:
+    """Where `mask` holds over the whole (2r+1)² window (False near the
+    border)."""
+    from numpy.lib.stride_tricks import sliding_window_view as win
+    out = np.zeros_like(mask)
+    k = 2 * r + 1
+    rows = win(mask, k, axis=1).all(axis=-1)
+    out[r:-r, r:-r] = win(rows, k, axis=0).all(axis=-1)
+    return out
+
+
+def stereo_interior(disp: np.ndarray, both: np.ndarray, r: int, first_col: int) -> np.ndarray:
+    """The pixels between the planes' edges: where the truth's disparity is
+    one value and camera 2 sees the same point over the (2r+1)² window,
+    at or right of column `first_col` (the matcher's first)."""
+    same = np.ones_like(both)
+    same[:, 1:] = disp[:, 1:] == disp[:, :-1]
+    same[1:] &= disp[1:] == disp[:-1]
+    inner = _window_all(same & both, r)
+    inner[:, :first_col] = False
+    return inner
+
+
+# the path's truth gates (stereo_truth_report's numbers): each camera's
+# fx, fy, cx and cy within 1% of the rig's, |T| within 1% of 120 mm, each
+# camera's reprojection RMS at most 0.2 px, the rectified corners' rows
+# within 0.5 px (median); of the valid pixels between the planes' edges,
+# SGBM at least 85% within 1 px (half size) with at least 60% of those
+# pixels valid, BM at least 75% within 1 px (full size).  Measured on the
+# CPU at full size (perf/stereo_truth.py): 0.061% and 0.050%, 2.2e-5, 0.026
+# and 0.023 px, 0.015 px; SGBM 1.0 with 1.0 valid, BM 1.0
+STEREO_GATES = dict(intrinsics=0.01, baseline=0.01, rms=0.2, rows=0.5, sgbm_within=0.85,
+                    sgbm_valid=0.60, bm_within=0.75)
+
+# the windows of the interior masks: SGBM's 3×3 block and median at half
+# size, BM's 9×9 block at full size, each with its neighbours
+STEREO_INTERIOR_R = {"sgbm": 4, "bm": 8}
+
+
+def stereo_calibration_report(rig, data) -> dict:
+    """calibrate_rig's ``rig`` against :func:`make_stereo_rig`'s ``data``:
+
+    - ``intrinsics``: per camera the largest relative error of fx, fy, cx
+      and cy against the truth;
+    - ``baseline``: |T| (mm) and its relative error against 120 mm;
+    - ``rms``: each camera's reprojection RMS and the stereo one (px);
+    - ``rows``: the median |y1 - y2| of the pairs' corners rectified by
+      (R1, P1) and (R2, P2) (px)."""
+    truth = data["rig"]
+    rep = {"intrinsics": tuple(
+        max(abs(rig[k][i, j] / truth[k][i, j] - 1) for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+        for k in ("K1", "K2"))}
+    b = float(np.linalg.norm(rig["T"]))
+    rep["baseline"] = (b, abs(b / STEREO_BASELINE_MM - 1))
+    rep["rms"] = (rig["rms1"], rig["rms2"], rig["rms"])
+    c = rig["corners"]
+    crit = (3, 50, 1e-9)
+    y1 = np.concatenate([undistortPoints(c[i, 0], rig["K1"], rig["d1"], rig["R1"], rig["P1"],
+                                         crit)[:, 0, 1] for i in range(len(c))])
+    y2 = np.concatenate([undistortPoints(c[i, 1], rig["K2"], rig["d2"], rig["R2"], rig["P2"],
+                                         crit)[:, 0, 1] for i in range(len(c))])
+    rep["rows"] = float(np.median(np.abs(y1 - y2)))
+    return rep
+
+
+def stereo_truth_report(rig, out, data) -> dict:
+    """:func:`stereo_calibration_report`'s keys, and for forward_stereo's
+    ``out``: ``sgbm`` and ``bm``, of the valid pixels between the planes'
+    edges (:func:`stereo_interior`), the share within 1 px of the truth at
+    the matcher's scale, the share of those pixels that are valid, and the
+    share within 1 px of all valid pixels."""
+    rep = stereo_calibration_report(rig, data)
+    for name, key, dkey, bkey, first in (
+            ("sgbm", "sgbm", "disparity_half", "both_half", STEREO_SGBM["numDisparities"]),
+            ("bm", "bm_filtered", "disparity", "both",
+             STEREO_BM["numDisparities"] + STEREO_BM["blockSize"] // 2)):
+        d = out[key].cpu().numpy()
+        valid = d >= 0
+        err = np.abs(d / 16.0 - data[dkey])
+        inner = stereo_interior(data[dkey], data[bkey], STEREO_INTERIOR_R[name], first)
+        vi = valid & inner
+        rep[name] = (float((err[vi] <= 1).mean()) if vi.any() else 0.0,
+                     float(vi.sum() / max(inner.sum(), 1)),
+                     float((err[valid] <= 1).mean()) if valid.any() else 0.0)
     return rep
 
 

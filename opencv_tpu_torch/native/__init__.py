@@ -18,7 +18,8 @@ The functions take and return host numpy arrays:
 - :func:`flood_fill` — the u8 flood fill, in place;
 - :func:`maxflow_grid` — GrabCut's min cut on the 8-neighbour grid;
 - :func:`watershed` — the marker-controlled flood, in place;
-- :func:`mser_detect` — MSER's stable regions of one polarity.
+- :func:`mser_detect` — MSER's stable regions of one polarity;
+- :func:`filter_speckles` — filterSpeckles' small blobs of similar values.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["CXX_FLAGS", "library", "suzuki_contours", "flood_fill", "maxflow_grid",
-           "watershed", "mser_detect"]
+           "watershed", "mser_detect", "filter_speckles"]
 
 _DIR = Path(__file__).resolve().parent
 SOURCE = _DIR / "hosttails.cpp"
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "maxflow_grid": (ctypes.c_double, [_I, _I, _P, _P, _P, _P, _P, _P, _P]),
     "watershed_u8c3": (ctypes.c_int, [_P, _P, _I, _I]),
     "mser_detect": (_I, [_P, _I, _I, _I, _I, _I, ctypes.c_double, ctypes.c_double, _P, _P, _I]),
+    "filter_speckles_i32": (ctypes.c_int64, [_P, _I, _I, ctypes.c_int32, ctypes.c_int64,
+                                             ctypes.c_int64]),
 }
 
 _lock = threading.Lock()
@@ -193,3 +196,22 @@ def mser_detect(img: np.ndarray, delta=5, min_area=60, max_area=14400,
                               float(max_variation), float(min_diversity), seeds.ctypes.data,
                               levels.ctypes.data, max_out)
     return seeds[:n], levels[:n]
+
+
+def filter_speckles(img: np.ndarray, new_val, max_size: int, max_diff) -> np.ndarray:
+    """filterSpeckles of the (H, W) integer `img` (u8, i16 or i32): a new
+    array of its type, each 4-connected blob of pixels other than `new_val`
+    whose neighbours differ by at most `max_diff` set to `new_val` when it
+    has at most `max_size` pixels."""
+    a = np.asarray(img)
+    if a.ndim != 2 or a.dtype not in (np.uint8, np.int16, np.int32):
+        raise ValueError(f"filter_speckles: an (H, W) u8, i16 or i32 image, not "
+                         f"{a.shape} {a.dtype}")
+    buf = np.array(a, np.int32, order="C")
+    H, W = buf.shape
+    nv = int(new_val)
+    info = np.iinfo(a.dtype)
+    if not info.min <= nv <= info.max:
+        raise OverflowError(f"filter_speckles: new value {nv} out of {a.dtype}'s range")
+    library().filter_speckles_i32(buf.ctypes.data, H, W, nv, int(max_size), int(max_diff))
+    return buf.astype(a.dtype)

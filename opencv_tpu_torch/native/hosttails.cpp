@@ -9,11 +9,14 @@
 //   watershed_u8c3   marker-controlled watershed (imgproc/src/segmentation.cpp)
 //   mser_detect      MSER's component tree and stability selection
 //                    (features2d/src/mser.cpp)
+//   filter_speckles_i32  small blobs of similar disparity set to a value
+//                    (calib3d/src/stereosgbm.cpp filterSpecklesImpl)
 //
 // Built by opencv_tpu_torch/native/__init__.py (g++ -O3 -shared -fPIC
 // -std=c++17) at the first call and loaded with ctypes.  The Python twins in
-// opencv_tpu_torch/ops/contours.py, ops/segmentation.py, ops/grabcut.py and
-// features2d/mser.py are their plain versions, which the tests hold them to.
+// opencv_tpu_torch/ops/contours.py, ops/segmentation.py, ops/grabcut.py,
+// features2d/mser.py and calib3d/misc3d.py are their plain versions, which
+// the tests hold them to.
 
 #include <cstdint>
 #include <cstring>
@@ -556,4 +559,49 @@ extern "C" int mser_detect(const uint8_t* img, int H, int W,
         cnt++;
     }
     return cnt;
+}
+
+// filterSpeckles: every 4-connected blob of pixels that are not newVal and
+// whose neighbours differ by at most max_diff is set to newVal when it has
+// at most max_size pixels.  img: H*W int32, changed in place.  The blobs are
+// the connected components of a symmetric relation, so the raster order of
+// the seeds and the stack order of the flood (those of the Python twin,
+// calib3d/misc3d.py::_filter_speckles_py) do not change the result.
+// Returns the number of pixels set.
+extern "C" int64_t filter_speckles_i32(int32_t* img, int H, int W, int32_t new_val,
+                                       int64_t max_size, int64_t max_diff)
+{
+    const int64_t n = (int64_t)H * W;
+    std::vector<uint8_t> seen(n, 0);
+    std::vector<int64_t> stack, comp;
+    int64_t set = 0;
+    for (int64_t p0 = 0; p0 < n; ++p0) {
+        if (img[p0] == new_val || seen[p0]) continue;
+        seen[p0] = 1;
+        stack.assign(1, p0);
+        comp.clear();
+        while (!stack.empty()) {
+            const int64_t p = stack.back();
+            stack.pop_back();
+            comp.push_back(p);
+            const int64_t v = img[p];
+            const int y = (int)(p / W), x = (int)(p % W);
+            const int64_t nb[4] = {y + 1 < H ? p + W : -1, y > 0 ? p - W : -1,
+                                   x + 1 < W ? p + 1 : -1, x > 0 ? p - 1 : -1};
+            for (int k = 0; k < 4; ++k) {
+                const int64_t q = nb[k];
+                if (q < 0 || seen[q] || img[q] == new_val) continue;
+                const int64_t d = (int64_t)img[q] - v;
+                if (d <= max_diff && -d <= max_diff) {
+                    seen[q] = 1;
+                    stack.push_back(q);
+                }
+            }
+        }
+        if ((int64_t)comp.size() <= max_size) {
+            for (int64_t p : comp) img[p] = new_val;
+            set += (int64_t)comp.size();
+        }
+    }
+    return set;
 }

@@ -5,7 +5,7 @@
         [--sort COLUMN]
 
 PATH is one of flagship, cfg2, cfg3, cfg4, cfg5, decode, enhance, motion,
-lines, segment and photo.
+lines, segment, photo and stereo.
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
@@ -41,7 +41,11 @@ watershed, the cells and their triangles, frame 0's flood, its cut-out
 forward of seconds: run it with ``--repeats 3 --iters 1``); ``--path photo``
 the photo-finishing path (``entry.forward_photo``) on ``make_bracket()``'s
 (3, 1080, 1920, 3) bracket in its stages (``entry.PHOTO_STAGES``): align,
-fuse, denoise, detail, flatten, inpaint. Each runs under
+fuse, denoise, detail, flatten, inpaint; ``--path stereo`` the stereo-depth
+path (``entry.forward_stereo``) on ``make_stereo_rig()``'s scene pair with
+the rig ``entry.calibrate_rig`` calibrates first (not profiled), in its
+stages (``entry.STEREO_STAGES``): rectify, half, sgbm, bm, speckles, depth
+(run it with ``--repeats 3 --iters 1``). Each runs under
 ``torch.profiler`` with one ``record_function`` span per stage. Prints, per
 stage, the time between CUDA events around it (median of ``--repeats``,
 unprofiled) beside the device time of its torch-op kernels
@@ -237,10 +241,25 @@ def photo_stages():
     return [(name, step(fn)) for name, fn, _ in E.PHOTO_STAGES]
 
 
+def stereo_stages():
+    """``entry.forward_stereo`` stage by stage (``entry.STEREO_STAGES``) on
+    the scene pair, with the rig calibrated once from the views."""
+    _, (pair, rig) = E.entry_stereo("cuda")
+
+    def step(fn):
+        def run(st):
+            st = E.stereo_state(pair, rig) if st is None else st
+            fn(st)
+            return st
+        return run
+
+    return [(name, step(fn)) for name, fn, _ in E.STEREO_STAGES]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
          "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages,
          "enhance": enhance_stages, "motion": motion_stages, "lines": lines_stages,
-         "segment": segment_stages, "photo": photo_stages}
+         "segment": segment_stages, "photo": photo_stages, "stereo": stereo_stages}
 
 
 def staged(stages, marks=None):

@@ -514,3 +514,50 @@ def test_photo_and_utils_leave_nothing_out():
                       and n not in ("jnp", "jax", "annotations"))
         assert left == [], (jmod.__name__, left)
     assert len(PHOTO_NAMES) + len(PHOTO_VALUES) == 42 and len(SYSTEM_NAMES) == 19
+
+
+# calib3d's top-level names: those opencv_tpu/__init__.py imports from its
+# calib3d (the functions, classes and flags, the fisheye module), with the
+# binding's StereoMatcher alias and CirclesGridFinderParameters
+CALIB3D_MODULES = ("calibrate", "chessboard", "circlesgrid", "extended", "fisheye", "geometry",
+                   "handeye", "misc3d", "multiview", "pnp", "stereo", "usac")
+
+
+def _calib3d_top_level_names():
+    import importlib
+    names = set()
+    for m in CALIB3D_MODULES:
+        mod = importlib.import_module(f"opencv_tpu.calib3d.{m}")
+        names |= {n for n in dir(mod) if not n.startswith("_") and hasattr(jcv, n)
+                  and getattr(jcv, n) is getattr(mod, n)}
+    return sorted(names | {"fisheye", "StereoMatcher", "CirclesGridFinderParameters"})
+
+
+CALIB3D_NAMES = _calib3d_top_level_names()
+
+
+@pytest.mark.parametrize("name", CALIB3D_NAMES)
+def test_calib3d_name_is_exported(name):
+    got, want = getattr(tcv, name), getattr(jcv, name)
+    assert type(got) is type(want), name
+    if isinstance(want, (int, float)):
+        assert got == want
+        if hasattr(cv2, name):
+            assert got == getattr(cv2, name)
+    elif name == "fisheye":
+        assert got is tcv.calib3d.fisheye
+    else:
+        assert got.__name__ == want.__name__
+        assert getattr(tcv.calib3d, name, got) is got
+
+
+def test_calib3d_leaves_nothing_out():
+    import importlib
+    for m in CALIB3D_MODULES:
+        jmod = importlib.import_module(f"opencv_tpu.calib3d.{m}")
+        tmod = importlib.import_module(f"opencv_tpu_torch.calib3d.{m}")
+        left = sorted(n for n in dir(jmod) if not n.startswith("_") and not hasattr(tmod, n)
+                      and n not in ("jax", "jnp", "np", "annotations", "functools", "to_batched"))
+        assert left == [], (m, left)
+    assert tcv.StereoMatcher is tcv.StereoBM
+    assert len(CALIB3D_NAMES) == 143
