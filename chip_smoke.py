@@ -20,7 +20,10 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    u8 -> i16, dx and dy under BORDER_REPLICATE), and on edge cases
    (borders, channel counts, odd and tiny sizes, rows of every width and
    offset views for the K = 7 template, k = 9 and 31 for
-   the generic kernel);
+   the generic kernel; gauss5_down2's strip classes: 3W % 16 != 0, a base
+   one byte off, W of a strip and a strip -/+ 2, a ragged last strip, H = 2
+   and 4, N = 1 and 3, sigma 0, 0.1 (the identity taps), 1.5 and 20, plans
+   of 1 and 3 blocks, and asymmetric taps refused);
 4. main paths, each read with the launch counts set to 0 just before it:
    a. the flagship: ``entry("cuda")``'s forward and the fused forward on the
       (8, 1080, 1920, 3) batch; sep_filter and gauss5_down2 must have
@@ -273,6 +276,7 @@ The last two lines are a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -419,6 +423,15 @@ STEREO_HALF_BAND = (135, 405)
 STEREO_WALL_BUDGET_S = 60.0
 # gauss5_down2's shape on the stereo path: the rectified pair, N = 2
 GAUSS_STEREO_SHAPE = (2, 1080, 1920, 3)
+# the strip kernel's classes (BGR; the gray route on channel 1): rows of
+# 3W % 16 != 0 (the unaligned path), W of one strip (16), a strip -/+ 2, a
+# ragged last strip (512 + 6), H = 2 and 4, N = 1 and 3, the main width
+GAUSS_CLASS_SHAPES = ((3, 34, 1918, 3), (1, 2, 16, 3), (1, 4, 14, 3), (1, 6, 18, 3),
+                      (2, 10, 518, 3), (1, 8, 512, 3), (3, 12, 1920, 3), (1, 1080, 1920, 3))
+# shapes run under plans of 1 and 3 blocks: each warp's run ends at every
+# step of the unrolled loop and crosses column groups and images
+GAUSS_RUN_SHAPES = ((1, 2, 512, 3), (1, 6, 512, 3), (1, 10, 512, 3), (1, 14, 512, 3),
+                    (1, 26, 512, 3), (3, 50, 1030, 3))
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -942,8 +955,10 @@ def main() -> int:
     from opencv_tpu_torch import entry as E
     from opencv_tpu_torch.kernels import KERNELS, _build
     from opencv_tpu_torch.kernels.fused_preproc import (
-        fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
+        GAUSS5_DOWN2, fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain, gauss5_down2_u8,
         gauss5_down2_u8_plain)
+    from opencv_tpu_torch.kernels.fused_preproc import _launch as gauss5_launch
+    from opencv_tpu_torch.kernels.fused_preproc import _plan as gauss5_plan
     from opencv_tpu_torch.kernels.sepfilter import (
         SEP_FILTER, SEP_ROUTES, pyr_down_u8, pyr_down_u8_plain, sep_filter_int,
         sep_filter_int_plain, sep_filter_route)
@@ -1034,7 +1049,45 @@ def main() -> int:
         check_equal(f"gauss5_down2 gray {shape}", gauss5_down2_u8(x[..., 1].contiguous(), sigma),
                     gauss5_down2_u8_plain(x[..., 1].contiguous(), sigma))
         n += 2
-    log(f"gauss5_down2: {n} cases equal to the plain version")
+    for shape in GAUSS_CLASS_SHAPES:
+        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        g = x[..., 1].contiguous()
+        for sigma in (0.0, 0.1, 1.5, 20.0):
+            check_equal(f"gauss5_down2 {shape} sigma {sigma}", fused_gray_gauss5_down2(x, sigma),
+                        fused_gray_gauss5_down2_plain(x, sigma))
+            check_equal(f"gauss5_down2 gray {shape} sigma {sigma}", gauss5_down2_u8(g, sigma),
+                        gauss5_down2_u8_plain(g, sigma))
+            n += 2
+    # a contiguous input one byte into its storage: the unaligned path
+    for shape in ((2, 40, 64, 3), (1, 20, 1920, 3), (2, 40, 64)):
+        size = int(np.prod(shape))
+        x = torch.from_numpy(rng.integers(0, 256, size + 1, np.uint8)).to(dev)[1:].view(shape)
+        run, plain = ((fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain) if len(shape) == 4
+                      else (gauss5_down2_u8, gauss5_down2_u8_plain))
+        check_equal(f"gauss5_down2 {shape} at storage offset 1", run(x, 1.5), plain(x, 1.5))
+        n += 1
+    for shape in GAUSS_RUN_SHAPES:
+        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        for t, has_bgr, plain in ((x, True, fused_gray_gauss5_down2_plain),
+                                  (x[..., 1].contiguous(), False, gauss5_down2_u8_plain)):
+            for blocks in (1, 3):
+                plan = gauss5_plan(*shape[:3], has_bgr, t.data_ptr())._replace(blocks=blocks)
+                check_equal(f"gauss5_down2 {tuple(t.shape)} {plan}",
+                            gauss5_launch(t, 1.5, has_bgr, plan), plain(t, 1.5))
+                n += 1
+    # the entry refuses asymmetric taps, and the wrapper raises
+    x = torch.from_numpy(rng.integers(0, 256, (1, 8, 64, 3), np.uint8)).to(dev)
+    out = torch.empty((1, 4, 32), dtype=torch.uint8, device=dev)
+    plan = gauss5_plan(1, 8, 64, True, x.data_ptr())
+    try:
+        GAUSS5_DOWN2(dev, x.data_ptr(), out.data_ptr(), 1, 8, 64, 1,
+                     (ctypes.c_int * 9)(16, 64, 96, 60, 20, plan.px, plan.blocks, plan.gx,
+                                        int(plan.vec)), _build.stream_of(x))
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("gauss5_down2: the entry took asymmetric taps")
+    log(f"gauss5_down2: {n} cases equal to the plain version; asymmetric taps refused")
 
     cases = pyr_cases(cv)
     for name, shape, border in cases:

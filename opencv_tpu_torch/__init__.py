@@ -44,8 +44,9 @@ inpaint, the domain-transform filters, Poisson cloning, decolor) and
 stereo-depth path: calib3d (chessboards, calibrateCamera and
 stereoCalibrate, stereoRectify and the rectification maps, StereoBM and
 StereoSGBM, filterSpeckles (a native host tail), USAC, PnP, fisheye,
-hand-eye, multiview); and the top-level names ``opencv_tpu/__init__.py`` defines itself (RotatedRect,
-TickMeter, CV_MAKETYPE, FontFace, ...).
+hand-eye, multiview); and the top-level names ``opencv_tpu/__init__.py``
+defines itself (RotatedRect, TickMeter, CV_MAKETYPE, FontFace,
+ECCParameters, FarnebackOpticalFlow, AsyncArray, ANNIndex, ...).
 """
 
 from .constants import *  # noqa: F401,F403
@@ -449,6 +450,167 @@ Feature2D = type("Feature2D", (), {
     "empty": lambda self: True,
     "__doc__": "cv::Feature2D abstract base (features2d.hpp)",
 })
+
+
+class ECCParameters:
+    """Parameter struct for findTransformECCMultiScale."""
+
+    def __init__(self, motionType=2, numLevels=3, maxCount=50,
+                 epsilon=0.001, gaussFiltSize=5):
+        self.motionType = motionType
+        self.numLevels = numLevels
+        self.maxCount = maxCount
+        self.epsilon = epsilon
+        self.gaussFiltSize = gaussFiltSize
+
+
+Tracker = type("Tracker", (), {
+    "init": lambda self, *a, **k: None,
+    "update": lambda self, *a, **k: (False, (0, 0, 0, 0)),
+    "__doc__": "cv::Tracker abstract base (tracking.hpp)",
+})
+FarnebackOpticalFlow = type("FarnebackOpticalFlow", (), {
+    "calc": staticmethod(lambda prev, nxt, flow=None, **k:
+                         calcOpticalFlowFarneback(
+                             prev, nxt, flow, 0.5, 3, 15, 3, 5, 1.2, 0)),
+    "__doc__": "Algorithm wrapper over calcOpticalFlowFarneback",
+})
+
+
+class TrackerMIL_Params:
+    def __init__(self):
+        self.samplerInitInRadius = 3.0
+        self.samplerInitMaxNegNum = 65
+        self.samplerSearchWinSize = 25.0
+        self.samplerTrackInRadius = 4.0
+        self.samplerTrackMaxPosNum = 100000
+        self.samplerTrackMaxNegNum = 65
+        self.featureSetNumFeatures = 250
+
+
+class AsyncArray:
+    """cv::AsyncArray — results here are always ready (synchronous)."""
+
+    def __init__(self, value=None):
+        self._v = value
+
+    def get(self, timeoutNs=None):
+        return self._v
+
+    def wait_for(self, timeoutNs):
+        return True
+
+    def valid(self):
+        return self._v is not None
+
+    def release(self):
+        self._v = None
+
+
+class ANNIndex:
+    """Approximate NN index (the wheel's Annoy-backed cv::ANNIndex) —
+    backed by brute-force exact search (exact results are a valid ANN
+    answer; the distance definitions match Annoy's)."""
+
+    DIST_EUCLIDEAN = 0
+    DIST_MANHATTAN = 1
+    DIST_ANGULAR = 2
+    DIST_HAMMING = 3
+    DIST_DOTPRODUCT = 4
+
+    def __init__(self, dim=None, distType=0):
+        self._dim = dim
+        self._dist = distType
+        self._rows = []
+        self._data = None
+        self._trees = 0
+        self._seed = None
+
+    @classmethod
+    def create(cls, dim, distType=0):
+        return cls(dim, distType)
+
+    def addItems(self, features):
+        import numpy as _np
+        a = _np.asarray(features, _np.float32)
+        a = a.reshape(-1, self._dim) if self._dim else _np.atleast_2d(a)
+        self._rows.append(a)
+        self._data = None
+
+    # pre-5.x spellings kept for compatibility
+    addIndex = addItems
+
+    def build(self, trees: int = -1):
+        import numpy as _np
+        if self._rows:
+            self._data = _np.concatenate(self._rows, axis=0)
+        self._trees = trees if trees > 0 else 4
+
+    def getItemNumber(self):
+        if self._data is not None:
+            return int(self._data.shape[0])
+        return int(sum(r.shape[0] for r in self._rows))
+
+    def getTreeNumber(self):
+        return int(self._trees)
+
+    def setOnDiskBuild(self, filename):
+        self._disk = str(filename)
+        return True
+
+    def setSeed(self, seed):
+        self._seed = int(seed)
+
+    def save(self, filename, *a):
+        import numpy as _np
+        self.build(self._trees or -1)
+        _np.savez(str(filename), data=self._data,
+                  dist=self._dist, dim=self._dim or 0)
+        return True
+
+    def load(self, filename, *a):
+        import numpy as _np
+        z = _np.load(str(filename) if str(filename).endswith(".npz")
+                     else str(filename) + ".npz")
+        self._data = z["data"]
+        self._dist = int(z["dist"])
+        self._dim = int(z["dim"]) or None
+        self._rows = []
+        return True
+
+    def knnSearch(self, query, knn: int):
+        import numpy as _np
+        if self._data is None:
+            self.build(self._trees or -1)
+        base = self._data
+        q = _np.asarray(query, _np.float32).reshape(-1, base.shape[1])
+        t = self._dist
+        if t == self.DIST_MANHATTAN:
+            d = _np.abs(q[:, None, :] - base[None]).sum(-1)
+        elif t == self.DIST_ANGULAR:
+            qn = q / _np.maximum(_np.linalg.norm(q, axis=1,
+                                                 keepdims=True), 1e-12)
+            bn = base / _np.maximum(_np.linalg.norm(base, axis=1,
+                                                    keepdims=True), 1e-12)
+            # annoy angular distance = sqrt(2 - 2cos)
+            d = _np.sqrt(_np.maximum(2.0 - 2.0 * (qn @ bn.T), 0.0))
+        elif t == self.DIST_HAMMING:
+            d = (q[:, None, :] != base[None]).sum(-1).astype(_np.float32)
+        elif t == self.DIST_DOTPRODUCT:
+            d = -(q @ base.T)   # larger dot = closer
+        else:  # euclidean
+            d = _np.sqrt(((q[:, None, :] - base[None]) ** 2).sum(-1))
+        idx = _np.argsort(d, axis=1, kind="stable")[:, :knn]
+        dist = _np.take_along_axis(d, idx, 1)
+        if t == self.DIST_DOTPRODUCT:
+            dist = -dist        # report the dot product itself
+        return idx.astype(_np.int32), dist.astype(_np.float32)
+
+
+def ANNIndex_create(dim, distType=0):
+    """cv2.ANNIndex_create binding alias (gen2.py static-factory
+    convention, modules/python/src2/gen2.py:1331)."""
+    return ANNIndex.create(dim, distType)
 
 
 class FontFace:

@@ -11,11 +11,16 @@ round ``(v + 2^15) >> 16`` and saturate, then ``(a+b+c+d+2) >> 2``.
 A CPU tensor takes the plain version, a CUDA tensor the kernel, resolved
 through the dispatch registry as ``gauss5_down2_u8`` (u8, 1 or 3 channels,
 even H and W), which counts both in ``tier_stats()``.
+
+The launch plan (:func:`_plan`: strip width, blocks, column groups, the
+aligned path) is computed here, on the host, and handed to the C entry with
+the taps; the entry refuses a plan that does not cover the image.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +43,39 @@ GAUSS5_DOWN2 = Kernel("opencv_gauss5_down2",
 
 def _taps(sigma: float) -> list:
     return [int(v) for v in gaussian_kernel_fixedpoint_ed(gaussian_kernel_bitexact(5, sigma), 8)]
+
+
+# The grid is one wave: the kernel is built for 4 resident blocks of 4 warps
+# on each of the H100's 132 SMs (``__launch_bounds__(128, 4)``).
+SMS = 132
+WARPS = 4
+WAVE = 4 * SMS
+MIN_RUN = 2  # output rows a warp takes at least, where the image is small
+
+
+class Plan(NamedTuple):
+    px: int      # pixels of a lane's strip: 8 BGR, 16 gray (csrc's kStripBgr, kStripGray)
+    blocks: int  # blocks of WARPS warps
+    gx: int      # column groups: ceil(W / (32 px)); a warp's columns are one group
+    vec: bool    # the aligned path: 8- or 16-byte loads, one packed store a row
+    band: int    # output rows a warp takes, at most
+
+
+def _plan(N: int, H: int, W: int, has_bgr: bool, ptr: int) -> Plan:
+    """The launch of an (N, H, W[, 3]) image whose first byte is at `ptr`:
+    strips of 8 BGR pixels (24 bytes) or 16 gray ones a lane.
+
+    The kernel's units are the N * gx * H/2 output rows of the column
+    groups; warp i of the grid takes units [i * units / warps, (i + 1) *
+    units / warps) (the kernel's split), so every warp of the one wave has
+    the same share, whatever N is.  The aligned path needs the base and the
+    row pitch (3W or W bytes) 16-byte aligned."""
+    px = 8 if has_bgr else 16
+    gx = -(-W // (32 * px))
+    units = N * gx * (H // 2)
+    blocks = max(1, min(WAVE, -(-units // (WARPS * MIN_RUN))))
+    vec = ptr % 16 == 0 and W * (3 if has_bgr else 1) % 16 == 0
+    return Plan(px, blocks, gx, vec, -(-units // (WARPS * blocks)))
 
 
 def _check(x, ndim: int, what: str):
@@ -66,12 +104,15 @@ def fused_gray_gauss5_down2_plain(imgs, sigma: float = 0.0):
     return gauss5_down2_u8_plain(gray.to(torch.uint8), sigma)
 
 
-def _launch(x, sigma: float, has_bgr: bool):
+def _launch(x, sigma: float, has_bgr: bool, plan: Plan | None = None):
     N, H, W = x.shape[:3]
     x = x.contiguous()
+    if plan is None:
+        plan = _plan(N, H, W, has_bgr, x.data_ptr())
     out = torch.empty((N, H // 2, W // 2), dtype=torch.uint8, device=x.device)
+    args = (*_taps(sigma), plan.px, plan.blocks, plan.gx, int(plan.vec))
     GAUSS5_DOWN2(x.device, x.data_ptr(), out.data_ptr(), N, H, W, int(has_bgr),
-                 (ctypes.c_int * 5)(*_taps(sigma)), stream_of(x))
+                 (ctypes.c_int * len(args))(*args), stream_of(x))
     return out
 
 

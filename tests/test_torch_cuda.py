@@ -170,10 +170,18 @@ def test_sep_filter_kernel_sobel_and_box(cuda):
         assert torch.equal(got, sep_filter_int_plain(x, **kw))
 
 
-@pytest.mark.parametrize("shape", [(2, 98, 262, 3), (1, 4, 6, 3), (2, 192, 256, 3)])
+# the strip kernel's classes: rows of 3W % 16 != 0 (the unaligned path),
+# W of one strip (16), a strip -/+ 2 and a ragged last strip (512 + 6),
+# H = 2 and 4, N = 1 and 3, and the main paths' width
+GAUSS5_SHAPES = [(2, 98, 262, 3), (1, 4, 6, 3), (2, 192, 256, 3), (3, 34, 1918, 3),
+                 (1, 2, 16, 3), (1, 4, 14, 3), (1, 6, 18, 3), (2, 10, 518, 3), (1, 8, 512, 3),
+                 (3, 12, 1920, 3), (1, 1080, 1920, 3)]
+
+
+@pytest.mark.parametrize("shape", GAUSS5_SHAPES)
 def test_gauss5_down2_kernel_equals_plain(cuda, shape):
     x = _rand(shape, shape[1]).to(cuda)
-    for sigma in (0.0, 1.5):
+    for sigma in (0.0, 0.1, 1.5, 20.0):
         before = GAUSS5_DOWN2.launches
         got = fused_gray_gauss5_down2(x, sigma)
         torch.cuda.synchronize()
@@ -181,6 +189,69 @@ def test_gauss5_down2_kernel_equals_plain(cuda, shape):
         assert torch.equal(got, fused_gray_gauss5_down2_plain(x, sigma))
         g = x[..., 0].contiguous()
         assert torch.equal(gauss5_down2_u8(g, sigma), gauss5_down2_u8_plain(g, sigma))
+
+
+def test_gauss5_down2_kernel_at_a_storage_offset(cuda):
+    """A contiguous input one byte into its storage (aligned rows, unaligned
+    base) takes the unaligned path and stays exact."""
+    for shape in ((2, 40, 64, 3), (1, 20, 1920, 3), (2, 40, 64)):
+        n = int(np.prod(shape))
+        buf = _rand((n + 1,), n).to(cuda)
+        x = buf[1:].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 1
+        for sigma in (0.0, 0.1, 1.5, 20.0):
+            run, plain = ((fused_gray_gauss5_down2, fused_gray_gauss5_down2_plain)
+                          if len(shape) == 4 else (gauss5_down2_u8, gauss5_down2_u8_plain))
+            got, want = run(x, sigma), plain(x, sigma)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, sigma)
+
+
+def test_gauss5_down2_kernel_on_forced_plans(cuda):
+    """Plans of few blocks: each warp's run of rows ends at every step of the
+    unrolled loop, crosses column groups and images."""
+    from opencv_tpu_torch.kernels.fused_preproc import _launch, _plan
+    for shape in ((1, 2, 512, 3), (1, 4, 512, 3), (1, 6, 512, 3), (1, 10, 512, 3),
+                  (1, 14, 512, 3), (1, 22, 512, 3), (1, 26, 512, 3), (3, 50, 1030, 3),
+                  (2, 66, 512, 3)):
+        x = _rand(shape, shape[1]).to(cuda)
+        g = x[..., 2].contiguous()
+        for blocks in (1, 3):
+            for t, has_bgr, plain in ((x, True, fused_gray_gauss5_down2_plain),
+                                      (g, False, gauss5_down2_u8_plain)):
+                plan = _plan(*shape[:3], has_bgr, t.data_ptr())._replace(blocks=blocks)
+                got = _launch(t, 1.5, has_bgr, plan)
+                torch.cuda.synchronize()
+                assert torch.equal(got, plain(t, 1.5)), (shape, plan)
+
+
+def test_gauss5_down2_entry_refuses_taps_and_plans(cuda):
+    """The C entry refuses taps that are not symmetric, non-negative and of
+    sum 256, a plan that does not cover the image or has another strip width
+    (12; 16 with BGR), and an aligned path on an unaligned base; the wrapper
+    raises."""
+    from opencv_tpu_torch.kernels.fused_preproc import _plan, stream_of
+    x = _rand((1, 8, 64, 3), 5).to(cuda)
+    out = torch.empty((1, 4, 32), dtype=torch.uint8, device=cuda)
+    plan = _plan(1, 8, 64, True, x.data_ptr())
+    good = (16, 64, 96, 64, 16, plan.px, plan.blocks, plan.gx, int(plan.vec))
+    bad = [(16, 64, 96, 60, 20), (16, 64, 90, 64, 16), (-4, 68, 128, 68, -4)]
+    args = [t + good[5:] for t in bad] + [good[:7] + (plan.gx + 1,) + good[8:],
+                                           good[:5] + (12,) + good[6:],
+                                           good[:5] + (16, plan.blocks, 1) + good[8:]]
+    before = GAUSS5_DOWN2.launches
+    for a in args:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            GAUSS5_DOWN2(cuda, x.data_ptr(), out.data_ptr(), 1, 8, 64, 1,
+                         (ctypes.c_int * 9)(*a), stream_of(x))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        GAUSS5_DOWN2(cuda, x.data_ptr() + 1, out.data_ptr(), 1, 8, 62, 1,
+                     (ctypes.c_int * 9)(*good[:7], 1, 1), stream_of(x))
+    assert GAUSS5_DOWN2.launches == before
+    GAUSS5_DOWN2(cuda, x.data_ptr(), out.data_ptr(), 1, 8, 64, 1, (ctypes.c_int * 9)(*good),
+                 stream_of(x))
+    torch.cuda.synchronize()
+    assert torch.equal(out, fused_gray_gauss5_down2_plain(x))
 
 
 def test_gaussian_blur_dispatches_to_the_kernel(cuda):
