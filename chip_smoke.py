@@ -224,6 +224,34 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       the rectified and half pairs, StereoSGBM on a band of the half pair
       and StereoBM, filterSpeckles and the depth on a band of the full
       pair, each exactly; the phase prints its wall against its budget;
+   q. the detection path: ``entry.forward_detect`` on
+      ``make_detect_frames()``' (8, 1080, 1920, 3) frames with
+      ``make_detect_net(0)``'s full-width YOLOv3-tiny (Darknet's cfg, random
+      weights from the seed, written as .cfg/.weights and read by
+      ``readNetFromDarknet``): blobFromImages (1/255, 416x416, swapRB) →
+      the net → each frame's DetectionModel.detect decode → NMSBoxesBatched
+      (0.5, 0.4), which launches no kernel of csrc/ (its convolutions are
+      cuDNN's, without TF32); it asserts that ``opencv_tpu_torch.dnn``
+      imported without google.protobuf, that a box reaches NMS on every
+      frame, and holds the card to the CPU's net on the card's blob: the
+      heads within DETECT_HEAD_RTOL/ATOL, the kept boxes matched (corners
+      within a pixel), a box kept on one device only allowed where its
+      score or an IoU lies within DETECT_BAND of a threshold (counted and
+      printed); it prints the stages' times (blob and net by CUDA events,
+      decode and NMS on the host clock), the forward's busy share, host
+      syncs and peak memory beside its FLOP and bytes bounds, and its wall
+      against DETECT_WALL_BUDGET_S;
+   r. ml on the card against the CPU: KNearest, NormalBayes,
+      LogisticRegression and ANN_MLP at MNIST's shape (``ml_data()``:
+      60,000 x 784 f32 samples from the seed, 10 classes, 10,000 queries;
+      the card timed on all of it, and held to the CPU on the first
+      ML_CPU_TRAIN samples and ML_CPU_QUERIES queries, trained arrays
+      within ML_TRAIN_TOL, and a CPU model carried to the card by
+      ``ml.carry.from_reference``); SVM, SVMSGD, EM and the trees, whose
+      algorithms are host loops, at ML_HOST_N samples; and
+      tests/assets/tiny_cnn.onnx read through the port's codec, card
+      against CPU within 1e-5; no kernel of csrc/ launches; the phase's
+      wall against ML_WALL_BUDGET_S;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -432,6 +460,37 @@ GAUSS_CLASS_SHAPES = ((3, 34, 1918, 3), (1, 2, 16, 3), (1, 4, 14, 3), (1, 6, 18,
 # step of the unrolled loop and crosses column groups and images
 GAUSS_RUN_SHAPES = ((1, 2, 512, 3), (1, 6, 512, 3), (1, 10, 512, 3), (1, 14, 512, 3),
                     (1, 26, 512, 3), (3, 50, 1030, 3))
+
+
+# phase 4q (the detection path): the heads' agreement, card against CPU, and
+# the band around confThreshold and nmsThreshold inside which a box may be
+# kept on one device and not the other (f32 convolutions summed in cuDNN's
+# and the CPU's orders: the 13 layers' rounding reaches ~1e-5 of the heads'
+# values); a kept box's corner may sit one pixel apart where x * width lies
+# that close to an integer
+DETECT_HEAD_RTOL = 1e-3
+DETECT_HEAD_ATOL = 1e-3
+DETECT_BAND = 1e-3
+DETECT_WALL_BUDGET_S = 60.0
+# phase 4r (ml): MNIST's shape for the batched algorithms; the CPU repeats
+# the card's work on a subset (the first ML_CPU_TRAIN samples, the first
+# ML_CPU_QUERIES queries) to hold the card to it in the phase's budget
+ML_SHAPE = (60000, 784)
+ML_CLASSES = 10
+ML_QUERIES = 10000
+ML_CPU_TRAIN = 6000
+ML_CPU_QUERIES = 500
+ML_LR_ITERS = 100
+ML_MLP_LAYERS = (784, 64, 10)
+ML_MLP_ITERS = 20
+# the host-loop algorithms (SVM's SMO, SVMSGD, EM, the trees) at a size
+# their Python loops finish in seconds: 2,000 samples (SVM 784 features,
+# one-vs-one over the 10 classes; SVMSGD two classes; EM 16 features and 10
+# clusters; the trees 32 features)
+ML_HOST_N = 2000
+ML_WALL_BUDGET_S = 60.0
+ML_DIST_TOL = 1e-3      # KNearest's distances (|q|^2 + |t|^2 - 2 q.t, f32)
+ML_TRAIN_TOL = 1e-3     # trained f32 arrays, card against CPU, relative
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -937,6 +996,345 @@ def conv_yardstick(x, kx, ky, stride, dev):
     w = torch.outer(torch.tensor(ky, dtype=torch.float32), torch.tensor(kx, dtype=torch.float32))
     w = w.to(dev).expand(C, 1, kh, kw).contiguous()
     return lambda: F.conv2d(xp, w, stride=stride, groups=C)
+
+
+
+def _iou_row(box, boxes):
+    """IoU of one [x, y, w, h] box with each of `boxes`."""
+    b = np.asarray(boxes, np.float64).reshape(-1, 4)
+    x1, y1 = np.maximum(box[0], b[:, 0]), np.maximum(box[1], b[:, 1])
+    x2 = np.minimum(box[0] + box[2], b[:, 0] + b[:, 2])
+    y2 = np.minimum(box[1] + box[3], b[:, 1] + b[:, 3])
+    inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+    union = box[2] * box[3] + b[:, 2] * b[:, 3] - inter
+    return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
+
+
+def detect_compare(card, cpu, conf_t, nms_t, band):
+    """Hold the card's decoded and kept boxes of each frame to the CPU's.
+    A kept box matches one of the same class with its corners within a
+    pixel and its score within `band`; a box kept on one device only must
+    lie in the band: its score within `band` of conf_t, or its IoU with a
+    candidate of its class within `band` of nms_t.  Returns (matched, of
+    them off by a pixel, kept on one device only in the band, candidate
+    rows in the band of conf_t); raises on any other difference."""
+    matched = off = near = 0
+    cand_band = 0
+    for f, ((cdc, cds, cdb), (cc, cs, cb)), ((pdc, pds, pdb), (pc, ps, pb)) in zip(
+            range(len(card["nms"])), zip(card["decode"], card["nms"]),
+            zip(cpu["decode"], cpu["nms"])):
+        in_band_c = int((np.abs(cds - conf_t) <= band).sum())
+        in_band_p = int((np.abs(pds - conf_t) <= band).sum())
+        cand_band += max(in_band_c, in_band_p)
+        if abs(len(cds) - len(pds)) > max(in_band_c, in_band_p):
+            raise AssertionError(f"detect frame {f}: {len(cds)} candidate rows on the card, "
+                                 f"{len(pds)} on the CPU, {in_band_c}/{in_band_p} in the band")
+        used = np.zeros(len(pc), bool)
+        lonely = []
+        for cls, sc, bx in zip(cc, cs, cb):
+            hit = [k for k in range(len(pc)) if not used[k] and pc[k] == cls
+                   and np.abs(pb[k].astype(int) - bx.astype(int)).max() <= 1
+                   and abs(float(ps[k]) - float(sc)) <= band]
+            if hit:
+                used[hit[0]] = True
+                matched += 1
+                off += int(np.abs(pb[hit[0]].astype(int) - bx.astype(int)).max() == 1)
+            else:
+                lonely.append((cls, sc, bx, cdc, cdb))
+        lonely += [(pc[k], ps[k], pb[k], pdc, pdb) for k in range(len(pc)) if not used[k]]
+        for cls, sc, bx, dc, db in lonely:
+            same = db[dc == cls]
+            ious = _iou_row(bx.astype(np.float64), same)
+            if abs(float(sc) - conf_t) > band and not (np.abs(ious - nms_t) <= band).any():
+                raise AssertionError(f"detect frame {f}: box {bx.tolist()} class {cls} score "
+                                     f"{float(sc)} kept on one device only, outside the band")
+            near += 1
+    return matched, off, near, cand_band
+
+
+def phase_detect(E, run_counted, count_syncs, dev, card, kernel_syms):
+    """4q: the detection path at full width (see the module's note)."""
+    t_start = time.perf_counter()
+    import opencv_tpu_torch.dnn as tdnn
+    if "google.protobuf" in sys.modules:
+        raise AssertionError("opencv_tpu_torch.dnn imported google.protobuf")
+    log("dnn: opencv_tpu_torch.dnn imported; \"google.protobuf\" not in sys.modules: True "
+        "(the readers parse with the port's own codec, dnn/_proto.py)")
+    frames_np = E.make_detect_frames(E.SHAPE_DETECT, 0)
+    t0 = time.perf_counter()
+    net = E.make_detect_net(0, dev)
+    make_s = time.perf_counter() - t0
+    cfg = E.yolov3_tiny_cfg()
+    n_params = sum(c["params"] for c in E.darknet_convs(cfg))
+    frames = torch.from_numpy(frames_np).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    held = []
+    t0 = time.perf_counter()
+    n_sync, cnt = run_counted(
+        lambda: count_syncs(lambda: held.append(E.forward_detect(frames, net))))
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    st = held[0]
+    log(f"detect path launches: {cnt}")
+    if any(cnt[k] for k in kernel_syms):
+        raise AssertionError(f"detect path: no kernel of csrc/ may launch (its convolutions are "
+                             f"cuDNN's, as the JAX package's are XLA's); got {cnt}")
+    N = E.SHAPE_DETECT[0]
+    blob, heads = st["blob"], st["net_out"]
+    if tuple(blob.shape) != (N, 3, *E.DETECT_SIZE[::-1]) or blob.dtype != torch.float32 \
+            or blob.device != dev:
+        raise AssertionError(f"detect blob: {tuple(blob.shape)} {blob.dtype} {blob.device}")
+    for h, rows in zip(heads, (13 * 13 * 3, 26 * 26 * 3)):
+        if tuple(h.shape) != (N, rows, 85) or h.device != dev or not bool(torch.isfinite(h).all()):
+            raise AssertionError(f"detect head: {tuple(h.shape)} {h.device}, or not finite")
+    cands = [len(d[0]) for d in st["decode"]]
+    kept = [len(d[0]) for d in st["nms"]]
+    log(f"detect path: YOLOv3-tiny ({n_params:,} parameters, {n_params * 4 / 1e6:.2f} MB f32, "
+        f"{E.detect_flops(cfg) / 1e9:.4f} GFLOP an image) made and read in {make_s:.2f} s; "
+        f"candidate rows per frame {cands}, kept per frame {kept}")
+    if min(kept) < 1:
+        raise AssertionError(f"detect: a frame with no box reaching NMS: {kept}")
+    # the CPU from the card's blob: the heads, the decode and NMS
+    t0 = time.perf_counter()
+    stem = os.path.join(os.path.dirname(E.__file__), "_build", "yolov3-tiny_w1_s416_seed0")
+    net_c = tdnn.readNetFromDarknet(stem + ".cfg", stem + ".weights", device="cpu")
+    st_c = E.forward_detect(frames.cpu(), net_c, stages=("net", "decode", "nms"),
+                            state={"blob": blob.cpu()})
+    err = 0.0
+    for g, c in zip(heads, st_c["net_out"]):
+        g = g.cpu()
+        err = max(err, float((g - c).abs().max()))
+        if not torch.allclose(g, c, rtol=DETECT_HEAD_RTOL, atol=DETECT_HEAD_ATOL):
+            raise AssertionError(f"detect heads: card against CPU max |d| "
+                                 f"{float((g - c).abs().max())}")
+    matched, off, near, band_rows = detect_compare(st, st_c, E.DETECT_CONF, E.DETECT_NMS,
+                                                   DETECT_BAND)
+    cpu_s = time.perf_counter() - t0
+    log(f"detect against the CPU (its net on the card's blob, {cpu_s:.1f} s): heads max |d| "
+        f"{err:.3e} (within rtol {DETECT_HEAD_RTOL}, atol {DETECT_HEAD_ATOL}); kept boxes "
+        f"matched {matched} (of them {off} a pixel apart), kept on one device only within "
+        f"{DETECT_BAND} of a threshold: {near}; candidate rows within {DETECT_BAND} of "
+        f"confThreshold: {band_rows}")
+    # timing: the device stages by CUDA events, the host stages on the host clock
+    timer = Timer(dev)
+    blob_ms = timer(lambda: E.forward_detect(frames, net, stages=("blob",)), iters=10)
+    net_ms = timer(lambda: E.forward_detect(frames, net, stages=("net",), state={"blob": blob}),
+                   iters=10)
+    del timer
+    dec_ms = host_median(lambda: E.forward_detect(frames, net, stages=("decode",),
+                                                  state={"net_out": heads}), iters=5)
+    nms_ms = host_median(lambda: E.forward_detect(frames, net, stages=("nms",),
+                                                  state={"decode": st["decode"]}), iters=5)
+    busy, k_ms, f_ms = busy_share(lambda: E.forward_detect(frames, net), iters=3)
+    flops = E.detect_flops(cfg) * N
+    bytes_moved = frames.numel() + n_params * 4 + sum(h.numel() * 4 for h in heads)
+    b_flop, b_bytes = flops / F32_OPS_PER_S * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
+    log(f"time detect stages on {tuple(frames.shape)}: blob {blob_ms:.4f} ms, net "
+        f"{net_ms:.4f} ms (CUDA events, median of 10), decode {dec_ms:.4f} ms, NMS "
+        f"{nms_ms:.4f} ms (host clock, median of 5)  [{card}]")
+    log(f"detect forward: {f_ms:.4f} ms a batch on the host clock (profiled), device busy share "
+        f"{busy:.4f} (kernels {k_ms:.4f} ms), {n_sync} host syncs; the 4q run {wall:.1f} ms; "
+        f"peak device memory over the frames {peak:.3f} GiB; FLOP bound {b_flop:.4f} ms "
+        f"({flops / 1e9:.2f} GFLOP at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s f32), bytes bound "
+        f"{b_bytes:.4f} ms ({bytes_moved / 1e6:.1f} MB); net share of its FLOP bound "
+        f"{b_flop / net_ms:.4f}  [{card}]")
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4q wall: {wall_s:.1f} s (budget {DETECT_WALL_BUDGET_S:.0f} s)")
+    if wall_s > DETECT_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4q took {wall_s:.1f} s, over its budget")
+    return cnt
+
+
+def ml_data(seed=0, shape=ML_SHAPE, classes=ML_CLASSES, queries=ML_QUERIES):
+    """MNIST's shape from the seed: (samples, labels, queries, their labels),
+    f32 pixels in [0, 1] around a mean image per class."""
+    rng = np.random.default_rng(seed)
+    n, d = shape
+    means = rng.uniform(0.1, 0.9, (classes, d))
+    y = rng.integers(0, classes, n)
+    yq = rng.integers(0, classes, queries)
+    X = np.clip(means[y] + rng.normal(0, 0.3, (n, d)), 0, 1).astype(np.float32)
+    Q = np.clip(means[yq] + rng.normal(0, 0.3, (queries, d)), 0, 1).astype(np.float32)
+    return X, y.astype(np.int32), Q, yq.astype(np.int32)
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def phase_ml(dev, card, data=None):
+    """4r: ml on the card against the CPU (see the module's note).  Returns
+    the log lines' numbers by name."""
+    from opencv_tpu_torch import ml
+    from opencv_tpu_torch.ml.carry import arrays_of, from_reference
+    t_start = time.perf_counter()
+    X, y, Q, yq = data if data is not None else ml_data()
+    n = ML_CPU_TRAIN
+    nq = ML_CPU_QUERIES
+    Xt, Qt = torch.from_numpy(X).to(dev), torch.from_numpy(Q).to(dev)
+    out = {}
+    # KNearest: the card on every query, the CPU on the first nq
+    knn = ml.KNearest_create(dev)
+    knn.train(Xt, ml.ROW_SAMPLE, y)
+    (_, res, nb, dist), ms = _sync_ms(lambda: knn.findNearest(Qt, 3))
+    knn_c = ml.KNearest_create("cpu")
+    knn_c.train(X, ml.ROW_SAMPLE, y)
+    _, res_c, nb_c, dist_c = knn_c.findNearest(Q[:nq], 3)
+    agree = float((res[:nq].cpu().numpy() == res_c).mean())
+    nb_same = float((nb[:nq].cpu().numpy() == nb_c).all(1).mean())
+    derr = _rel(dist[:nq].cpu().numpy(), dist_c)
+    acc = float((res.cpu().numpy().ravel() == yq).mean())
+    log(f"ml KNearest k=3 on {X.shape} x {Q.shape}: {ms:.1f} ms on the card (host clock, one "
+        f"call); against the CPU on {nq} queries: results agree {agree:.4f}, neighbour labels "
+        f"{nb_same:.4f}, distances rel {derr:.2e}; accuracy {acc:.4f}  [{card}]")
+    if agree < 0.995 or derr > ML_DIST_TOL:
+        raise AssertionError("ml KNearest: the card differs from the CPU")
+    out["knn_ms"] = ms
+    # NormalBayes, LogisticRegression, ANN_MLP: the card on the whole set
+    # (timed), then card and CPU on the first n samples, held together
+    for name, make, fit in (
+            ("NormalBayes", lambda d: ml.NormalBayesClassifier_create(d),
+             lambda m, A, b: m.train(A, ml.ROW_SAMPLE, b)),
+            ("LogisticRegression", lambda d: _lr(ml, d),
+             lambda m, A, b: m.train(A, ml.ROW_SAMPLE, b.astype(np.float32))),
+            ("ANN_MLP", lambda d: _mlp(ml, d),
+             lambda m, A, b: m.train(A, 0, _onehot(b)))):
+        m = make(dev)
+        _, t_ms = _sync_ms(lambda: fit(m, Xt, y))
+        (_, pred), p_ms = _sync_ms(lambda: m.predict(Qt))
+        pred = pred.cpu().numpy()
+        acc = float(((pred.argmax(1) if name == "ANN_MLP" else pred.ravel()) == yq).mean())
+        mg, mc = make(dev), make("cpu")
+        fit(mg, torch.from_numpy(X[:n]).to(dev), y[:n])
+        fit(mc, X[:n], y[:n])
+        pg = mg.predict(Qt[:nq])[1].cpu().numpy()
+        pc = mc.predict(Q[:nq])[1]
+        ag = arrays_of(mg)
+        ac = arrays_of(mc)
+        if name == "ANN_MLP":
+            terr = max(_rel(a, b) for (w, bb), (w2, bb2) in zip(ag["params"], ac["params"])
+                       for a, b in ((w, w2), (bb, bb2)))
+            same = float((pg.argmax(1) == pc.argmax(1)).mean())
+        elif name == "LogisticRegression":
+            terr = _rel(ag["theta"], ac["theta"])
+            same = float((pg == pc).mean())
+        else:
+            terr = max(_rel(ag["means"], ac["means"]), _rel(ag["invcov"], ac["invcov"]))
+            same = float((pg == pc).mean())
+        carried = from_reference(ac, dev)
+        pcar = carried.predict(Qt[:nq])[1].cpu().numpy()
+        car = float((pcar.argmax(1) == pc.argmax(1)).mean() if name == "ANN_MLP"
+                    else (pcar == pc).mean())
+        log(f"ml {name}: train {t_ms:.1f} ms, predict {p_ms:.1f} ms on the card at "
+            f"{X.shape} / {Q.shape[0]} queries (host clock), accuracy {acc:.4f}; card against "
+            f"CPU on {n} samples: trained arrays rel {terr:.2e}, predictions agree {same:.4f}; "
+            f"the CPU model carried to the card agrees {car:.4f}  [{card}]")
+        if terr > ML_TRAIN_TOL or same < 0.99 or car < 0.999:
+            raise AssertionError(f"ml {name}: the card differs from the CPU")
+        out[name] = (t_ms, p_ms)
+    # the host-loop algorithms at ML_HOST_N samples
+    h = ML_HOST_N
+    svm_g, svm_c = (ml.SVM_create(d) for d in (dev, "cpu"))
+    for s in (svm_g, svm_c):
+        s.setKernel(ml.SVM.RBF)
+        s.setC(1.0)
+        s.setGamma(1.0 / X.shape[1])
+        s.setTermCriteria((3, 300, 1e-3))
+    _, svm_ms = _sync_ms(lambda: svm_g.train(X[:h], 0, y[:h]))
+    svm_c.train(X[:h], 0, y[:h])
+    pg = svm_g.predict(Q[:nq])[1]
+    pc = svm_c.predict(Q[:nq])[1]
+    svm_agree = float((pg == pc).mean())
+    svm_acc = float((pg.ravel() == yq[:nq]).mean())
+    sd = ml.SVMSGD_create()
+    yb = np.where(y[:h] % 2 == 0, 1.0, -1.0).astype(np.float32)
+    t0 = time.perf_counter()
+    sd.train(X[:h], 0, yb)
+    sgd_ms = (time.perf_counter() - t0) * 1e3
+    sgd_acc = float((sd.predict(X[:h])[1].ravel() == yb).mean())
+    em = ml.EM_create()
+    em.setClustersNumber(ML_CLASSES)
+    t0 = time.perf_counter()
+    ok, _, lbl, _ = em.trainEM(X[:h, :16].astype(np.float64))
+    em_ms = (time.perf_counter() - t0) * 1e3
+    purity = sum(np.bincount(y[:h][lbl.ravel() == c]).max() for c in np.unique(lbl)) / h
+    trees = {}
+    for name, mk in (("DTrees", ml.DTrees_create), ("RTrees", ml.RTrees_create),
+                     ("Boost", ml.Boost_create)):
+        m = mk()
+        if name == "RTrees":
+            m.setTermCriteria((3, 10, 0))
+        yy = (y[:h] % 2) if name == "Boost" else y[:h]
+        t0 = time.perf_counter()
+        m.train(X[:h, :32].astype(np.float64), 0, yy)
+        ms_ = (time.perf_counter() - t0) * 1e3
+        yt = (yq[:nq] % 2) if name == "Boost" else yq[:nq]
+        trees[name] = (ms_, float((m.predict(Q[:nq, :32])[1].ravel() == yt).mean()))
+    log(f"ml host loops at {h} samples: SVM (RBF, 10 classes one-vs-one, the Gram matrix on the "
+        f"card) train {svm_ms:.0f} ms, accuracy {svm_acc:.4f}, agrees with the CPU's "
+        f"{svm_agree:.4f}; SVMSGD train {sgd_ms:.0f} ms, training accuracy {sgd_acc:.4f}; EM "
+        f"(16 features, 10 clusters) {em_ms:.0f} ms, purity {purity:.4f}; "
+        + ", ".join(f"{k} {v[0]:.0f} ms accuracy {v[1]:.4f}" for k, v in trees.items())
+        + f" (32 features)  [{card}]")
+    if svm_agree < 0.99 or not ok:
+        raise AssertionError("ml: SVM differs from the CPU's, or EM failed")
+    # tests/assets/tiny_cnn.onnx through the port's codec, card against CPU
+    import opencv_tpu_torch.dnn as tdnn
+    asset = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "assets",
+                         "tiny_cnn.onnx")
+    net_g, net_c = (tdnn.readNetFromONNX(asset, device=d) for d in (dev, "cpu"))
+    rng = np.random.default_rng(0)
+    err = 0.0
+    for _ in range(4):
+        x = rng.normal(0, 1, (1, 1, 16, 16)).astype(np.float32)
+        net_g.setInput(torch.from_numpy(x).to(dev))
+        net_c.setInput(x)
+        err = max(err, float(np.abs(net_g.forward().cpu().numpy() - net_c.forward()).max()))
+    img = (rng.random((16, 16)) * 255).astype(np.uint8)
+    cls = []
+    for d in (dev, "cpu"):
+        m = tdnn.ClassificationModel(asset, device=d)
+        m.setInputParams(scale=1.0 / 255, size=(16, 16))
+        cls.append(m.classify(img))
+    log(f"tiny_cnn.onnx (the port's codec) on the card against the CPU: max |d| {err:.2e}; "
+        f"ClassificationModel {cls[0]} / {cls[1]}")
+    if err > 1e-5 or cls[0][0] != cls[1][0] or abs(cls[0][1] - cls[1][1]) > 1e-5:
+        raise AssertionError("tiny_cnn.onnx: the card differs from the CPU")
+    wall = time.perf_counter() - t_start
+    log(f"phase 4r wall: {wall:.1f} s (budget {ML_WALL_BUDGET_S:.0f} s)")
+    if wall > ML_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4r took {wall:.1f} s, over its budget")
+    return out
+
+
+def _lr(ml, device):
+    m = ml.LogisticRegression_create(device)
+    m.setLearningRate(0.1)
+    m.setIterations(ML_LR_ITERS)
+    return m
+
+
+def _mlp(ml, device):
+    m = ml.ANN_MLP_create(device)
+    m.setLayerSizes(list(ML_MLP_LAYERS))
+    m.setTrainMethod(0, 0.1)
+    m.setTermCriteria((3, ML_MLP_ITERS, 0))
+    return m
+
+
+def _onehot(y):
+    return (np.eye(ML_CLASSES, dtype=np.float32)[y] * 2 - 1).astype(np.float32)
 
 
 def main() -> int:
@@ -2278,6 +2676,20 @@ def main() -> int:
         f"the card's forward, the truth, the CPU's corners and bands {cpu_s16:.1f} s; budget "
         f"{STEREO_WALL_BUDGET_S:.0f} s)")
 
+    # -- 4q. the detection path: blobFromImages (1/255, 416x416, swapRB) ->
+    # YOLOv3-tiny read by readNetFromDarknet (cuDNN convolutions, no TF32)
+    # -> DetectionModel.detect's decode -> NMSBoxesBatched; no kernel of csrc/
+    kernel_syms = [k.symbol for k in KERNELS]
+    cfg17 = phase_detect(E, run_counted, count_syncs, dev, card, kernel_syms)
+
+    # -- 4r. ml on the card against the CPU (KNearest, NormalBayes,
+    # LogisticRegression and ANN_MLP at MNIST's shape; SVM, SVMSGD, EM and
+    # the trees at ML_HOST_N), and tests/assets/tiny_cnn.onnx
+    _, cfg18 = run_counted(lambda: phase_ml(dev, card))
+    log(f"ml launches: {cfg18}")
+    if any(cfg18[k] for k in kernel_syms):
+        raise AssertionError(f"ml: no kernel of csrc/ may launch; got {cfg18}")
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -3054,7 +3466,7 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4p); the
+    # launches: the kernel's count over the main paths (4a to 4r); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
@@ -3066,7 +3478,7 @@ def main() -> int:
                            *(f"pyr_down video {n}x{h}x{w}" for n, h, w, _ in
                              PYR_VIDEO_SHAPES[:3]))}
     main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
-                  cfg13, cfg14, cfg15, cfg16)
+                  cfg13, cfg14, cfg15, cfg16, cfg17, cfg18)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]

@@ -46,7 +46,9 @@ stereoCalibrate, stereoRectify and the rectification maps, StereoBM and
 StereoSGBM, filterSpeckles (a native host tail), USAC, PnP, fisheye,
 hand-eye, multiview); and the top-level names ``opencv_tpu/__init__.py``
 defines itself (RotatedRect, TickMeter, CV_MAKETYPE, FontFace,
-ECCParameters, FarnebackOpticalFlow, AsyncArray, ANNIndex, ...).
+ECCParameters, FarnebackOpticalFlow, AsyncArray, ANNIndex, ...); and dnn (the
+ONNX executor, the Darknet, Caffe, TensorFlow and TFLite readers over the
+port's own protobuf codec, NMS, the Model classes) and ml.
 """
 
 from .constants import *  # noqa: F401,F403
@@ -666,3 +668,27 @@ CV_32UC = _make_typec(12)
 
 def BFMatcher_create(normType=4, crossCheck=False):
     return BFMatcher.create(normType, crossCheck)
+
+
+# ---------------------------------------------------------------------------
+# dnn and ml, and the binding's flattened dnn names
+# ---------------------------------------------------------------------------
+
+from . import dnn  # noqa: F401,E402
+from . import ml  # noqa: F401,E402
+from .dnn import dnn_registerLayer, dnn_unregisterLayer  # noqa: F401,E402
+from .dnn.models import TextDetectionModel as dnn_TextDetectionModel  # noqa: F401,E402
+
+dnn_Net = dnn.Net
+dnn_Model = dnn.Model
+dnn_ClassificationModel = dnn.ClassificationModel
+dnn_DetectionModel = dnn.DetectionModel
+dnn_SegmentationModel = dnn.SegmentationModel
+dnn_KeypointsModel = dnn.KeypointsModel
+dnn_TextDetectionModel_DB = dnn.TextDetectionModel_DB
+dnn_TextDetectionModel_EAST = dnn.TextDetectionModel_EAST
+dnn_TextRecognitionModel = dnn.TextRecognitionModel
+dnn_DictValue = dnn.DictValue
+dnn_Layer = dnn.Layer
+dnn_Tokenizer = dnn.Tokenizer
+dnn_Image2BlobParams = dnn.Image2BlobParams

@@ -135,6 +135,15 @@ the path its calibrated rig and the scene pair, and
 ``stereo_truth_report`` checks the calibration, the rectification and both
 disparities against the truth.
 
+``forward_detect`` finds objects in camera frames in front of a detector,
+as OpenCV's samples/dnn/object_detection.py runs YOLO: blobFromImages
+(1/255, 416×416, swapRB) → the net's forward (both YOLO heads) → each
+frame's DetectionModel.detect decode at confThreshold 0.5 → NMSBoxesBatched
+at 0.4 (:data:`DETECT_STAGES`).  ``make_detect_net`` writes Darknet's
+yolov3-tiny.cfg and random weights made from a seed as a ``.weights`` file
+and reads them with ``readNetFromDarknet``; ``make_detect_frames`` draws
+shapes on gradient backgrounds; ``entry_detect`` gives the path both.
+
 ``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
 on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
 CUDA devices) run the batch-DP step and the spatial filters of
@@ -231,7 +240,12 @@ __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHA
            "PHOTO_NLM", "PHOTO_DETAIL", "PHOTO_FLATTEN", "PHOTO_INPAINT_RADIUS", "make_bracket",
            "fuse", "photo_state", "forward_photo", "entry_photo", "photo_truth_report",
            "MESH_BORDERS", "MESH_TIMEOUT_S", "dryrun_multichip", "make_mesh_batch",
-           "run_mesh_scenarios"]
+           "run_mesh_scenarios",
+           "SHAPE_DETECT", "DETECT_SIZE", "DETECT_CONF", "DETECT_NMS", "DETECT_OBJ_BIAS",
+           "DETECT_PRIOR_BIAS", "DETECT_OBJECTS",
+           "DETECT_STAGES", "YOLOV3_TINY_CFG", "yolov3_tiny_cfg", "darknet_convs",
+           "detect_flops", "write_darknet_weights", "make_detect_net", "make_detect_frames",
+           "forward_detect", "entry_detect"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -2872,3 +2886,388 @@ def run_mesh_scenarios(n_data: int, n_sp: int, out_path: str) -> dict:
         _spawn(_mesh_rank, world, (world, f"{d}/store", _backend(world), n_data, n_sp, out_path))
     with np.load(out_path) as z:
         return {k: z[k] for k in z.files}
+
+
+# ------------------------------------------------------------ detection
+
+SHAPE_DETECT = (8, 1080, 1920, 3)
+DETECT_SIZE = (416, 416)
+# confThreshold and nmsThreshold as OpenCV's samples/dnn/object_detection.py
+# sets them
+DETECT_CONF = 0.5
+DETECT_NMS = 0.4
+# the head biases of the random weights: every anchor's objectness logit at
+# DETECT_OBJ_BIAS (a detector's prior that most anchors hold nothing), but
+# the first anchor of the 13x13 head, whose objectness and class-0 logits
+# are at DETECT_PRIOR_BIAS; untrained, the heads then give about one row
+# per cell of that anchor over confThreshold, whatever the features' scale
+DETECT_OBJ_BIAS = -4.0
+DETECT_PRIOR_BIAS = 2.0
+DETECT_OBJECTS = 10         # shapes drawn on each of make_detect_frames' frames
+
+# Darknet's published cfg/yolov3-tiny.cfg (github.com/pjreddie/darknet),
+# its training keys left out: 416x416x3, 13 convolutions with batch norm
+# and leaky ReLU, six max-pools (the last at stride 1), the 1x1 route, the
+# 2x upsample and the concat with layer 8, two [yolo] heads of 80 classes
+YOLOV3_TINY_CFG = """[net]
+batch=1
+subdivisions=1
+width=416
+height=416
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=512
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=1
+
+[convolutional]
+batch_normalize=1
+filters=1024
+size=3
+stride=1
+pad=1
+activation=leaky
+
+###########
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=512
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=255
+activation=linear
+
+
+
+[yolo]
+mask = 3,4,5
+anchors = 10,14,  23,27,  37,58,  81,82,  135,169,  344,319
+classes=80
+num=6
+jitter=.3
+ignore_thresh = .7
+truth_thresh = 1
+random=1
+
+[route]
+layers = -4
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[upsample]
+stride=2
+
+[route]
+layers = -1, 8
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=255
+activation=linear
+
+[yolo]
+mask = 0,1,2
+anchors = 10,14,  23,27,  37,58,  81,82,  135,169,  344,319
+classes=80
+num=6
+jitter=.3
+ignore_thresh = .7
+truth_thresh = 1
+random=1
+"""
+
+# forward_detect's stages, in order
+DETECT_STAGES = ("blob", "net", "decode", "nms")
+
+
+def yolov3_tiny_cfg(width_div: int = 1, size: int = 416) -> str:
+    """YOLOV3_TINY_CFG with every hidden layer's filters divided by
+    `width_div` and the input `size` square (the heads keep their 255 =
+    3 x (5 + 80) channels): the tests' cut of the model."""
+    out = []
+    for line in YOLOV3_TINY_CFG.splitlines():
+        if line.startswith("filters=") and line != "filters=255":
+            line = f"filters={int(line.split('=')[1]) // width_div}"
+        elif line.startswith(("width=", "height=")):
+            line = f"{line.split('=')[0]}={size}"
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def darknet_convs(cfg: str) -> list:
+    """Each [convolutional] layer of a cfg, in order, as a dict of
+    filters, size, stride, groups, the input channels ``c_in``, whether it
+    has batch norm, its output size ``hw`` (H, W) and its parameter count
+    as the .weights file stores it (bias, the batch norm's scale, mean and
+    variance, the kernel)."""
+    from .dnn.darknet import _ints, _parse_cfg
+
+    secs = _parse_cfg(cfg)
+    net = secs[0][1]
+    c, h, w = int(net.get("channels", 3)), int(net.get("height", 416)), int(net.get("width", 416))
+    chans, sizes, convs = [], [], []
+    for li, (kind, p) in enumerate(secs[1:]):
+        if kind == "convolutional":
+            k, s = int(p.get("size", 1)), int(p.get("stride", 1))
+            f, g = int(p["filters"]), int(p.get("groups", 1))
+            pad = k // 2 if int(p.get("pad", 0)) else 0
+            h, w = (h + 2 * pad - k) // s + 1, (w + 2 * pad - k) // s + 1
+            bn = int(p.get("batch_normalize", 0)) == 1
+            convs.append(dict(filters=f, size=k, stride=s, groups=g, c_in=c, bn=bn, hw=(h, w),
+                              params=f * (4 if bn else 1) + f * (c // g) * k * k))
+            c = f
+        elif kind == "maxpool":
+            k, s = int(p.get("size", 2)), int(p.get("stride", 2))
+            pd = int(p.get("padding", k - 1))
+            h, w = (h + pd - k) // s + 1, (w + pd - k) // s + 1
+        elif kind == "route":
+            refs = [v if v >= 0 else li + v for v in _ints(p["layers"])]
+            c = sum(chans[r] for r in refs)
+            h, w = sizes[refs[0]]
+        elif kind == "upsample":
+            s = int(p.get("stride", 2))
+            h, w = h * s, w * s
+        chans.append(c)
+        sizes.append((h, w))
+    return convs
+
+
+def detect_flops(cfg: str) -> int:
+    """The convolutions' operations of one image, a multiply-add counting
+    two (Darknet's count)."""
+    return sum(2 * v["filters"] * (v["c_in"] // v["groups"]) * v["size"] ** 2
+               * v["hw"][0] * v["hw"][1] for v in darknet_convs(cfg))
+
+
+def write_darknet_weights(cfg: str, path, seed: int = 0) -> int:
+    """Write random weights for `cfg` as a Darknet .weights file (header
+    major 0, minor 2, revision 0, a 64-bit seen count; then per
+    convolution its bias, [batch norm scale, mean, variance], kernel) made
+    from numpy's default_rng(seed): He-scaled kernels, batch norm near the
+    identity, the heads' biases as DETECT_OBJ_BIAS and DETECT_PRIOR_BIAS
+    say.  Returns the count of floats written."""
+    rng = np.random.default_rng(seed)
+    parts = [np.asarray([0, 2, 0], np.int32).tobytes(), np.asarray([0], np.int64).tobytes()]
+    n = 0
+    heads = 0
+    for v in darknet_convs(cfg):
+        f, fan_in = v["filters"], (v["c_in"] // v["groups"]) * v["size"] ** 2
+        kern = rng.normal(0, np.sqrt((2.0 if v["bn"] else 1.0) / fan_in),
+                          (f, v["c_in"] // v["groups"], v["size"], v["size"]))
+        if v["bn"]:
+            bias = rng.normal(0, 0.05, f)
+            bn = [rng.uniform(0.9, 1.1, f), rng.normal(0, 0.05, f), rng.uniform(0.9, 1.1, f)]
+        else:
+            bias = np.zeros(f)
+            bias[4::85] = DETECT_OBJ_BIAS   # each anchor's objectness (5 + 80 per anchor)
+            if heads == 0:
+                bias[4] = bias[5] = DETECT_PRIOR_BIAS
+            heads += 1
+            bn = []
+        for a in [bias, *bn, kern]:
+            a = np.asarray(a, np.float32).ravel()
+            parts.append(a.tobytes())
+            n += a.size
+    with open(path, "wb") as fh:
+        fh.write(b"".join(parts))
+    return n
+
+
+def make_detect_net(seed: int = 0, device="cuda", width_div: int = 1, size: int = 416):
+    """YOLOv3-tiny (:func:`yolov3_tiny_cfg`) with random weights from
+    `seed` (:func:`write_darknet_weights`), written as a Darknet cfg and
+    .weights under ``opencv_tpu_torch/_build/`` and read back by
+    ``readNetFromDarknet`` onto `device`."""
+    import os
+    from .dnn import readNetFromDarknet
+
+    cfg = yolov3_tiny_cfg(width_div, size)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+    os.makedirs(build, exist_ok=True)
+    stem = os.path.join(build, f"yolov3-tiny_w{width_div}_s{size}_seed{seed}")
+    with open(stem + ".cfg", "w") as fh:
+        fh.write(cfg)
+    write_darknet_weights(cfg, stem + ".weights", seed)
+    return readNetFromDarknet(stem + ".cfg", stem + ".weights", device=device)
+
+
+def make_detect_frames(shape=SHAPE_DETECT, seed: int = 0) -> np.ndarray:
+    """(N, H, W, 3) u8 BGR frames from numpy's default_rng(seed): a
+    gradient background with noise, and DETECT_OBJECTS filled rectangles
+    and ellipses of random colours and sizes on each."""
+    rng = np.random.default_rng(seed)
+    N, H, W, _ = shape
+    yy = np.linspace(0, 1, H, dtype=np.float32)[:, None, None]
+    xx = np.linspace(0, 1, W, dtype=np.float32)[None, :, None]
+    out = np.empty(shape, np.uint8)
+    for i in range(N):
+        c0, c1, c2 = rng.uniform(30, 220, (3, 3)).astype(np.float32)
+        f = c0 + (c1 - c0) * yy + (c2 - c0) * xx * 0.5
+        f = f + rng.normal(0, 6, (H, W, 1)).astype(np.float32)
+        for _ in range(DETECT_OBJECTS):
+            h = int(rng.integers(max(H // 27, 2), max(H // 2, 3)))
+            w = int(rng.integers(max(W // 48, 2), max(W // 3, 3)))
+            y0, x0 = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
+            col = rng.uniform(0, 255, 3).astype(np.float32)
+            if rng.random() < 0.5:
+                f[y0:y0 + h, x0:x0 + w] = col
+            else:
+                ry = (np.arange(h, dtype=np.float32)[:, None] - h / 2) / (h / 2)
+                rx = (np.arange(w, dtype=np.float32)[None, :] - w / 2) / (w / 2)
+                f[y0:y0 + h, x0:x0 + w][(ry * ry + rx * rx) <= 1] = col
+        out[i] = np.clip(f, 0, 255).astype(np.uint8)
+    return out
+
+
+def _d_blob(st):
+    from .dnn import blobFromImages
+    size = st["size"]
+    return blobFromImages(st["frames"], 1 / 255.0, size, swapRB=True)
+
+
+def _d_net(st):
+    net = st["net"]
+    net.setInput(st["blob"])
+    return net.forward(net.getUnconnectedOutLayersNames())
+
+
+def _d_decode(st):
+    from .dnn.models import decode_yolo_batch
+    N, fh, fw = st["frames"].shape[:3]
+    heads = [h if N > 1 else h[None] for h in st["net_out"]]
+    return decode_yolo_batch(heads, fh, fw, DETECT_CONF)
+
+
+def _d_nms(st):
+    from .dnn.nms import NMSBoxesBatched
+    out = []
+    for cids, confs, boxes in st["decode"]:
+        keep = NMSBoxesBatched(boxes, confs, cids, DETECT_CONF, DETECT_NMS)
+        out.append((cids[keep], confs[keep], boxes[keep]))
+    return out
+
+
+_DETECT_FNS = {"blob": _d_blob, "net": _d_net, "decode": _d_decode, "nms": _d_nms}
+
+
+def forward_detect(frames, net, size=DETECT_SIZE, stages=DETECT_STAGES, state=None) -> dict:
+    """Objects in a batch of BGR u8 frames, as a detector in front of a
+    camera runs it: ``blobFromImages(frames, 1/255, size, swapRB=True)`` →
+    the net's forward (both YOLO heads) → each frame's
+    ``DetectionModel.detect`` decode (the rows whose best class score is
+    at least DETECT_CONF, their boxes in frame pixels) →
+    ``NMSBoxesBatched`` at DETECT_NMS.  Returns the state: "blob", "net_out"
+    (the heads), "decode" and "nms" (per frame: class ids, scores, boxes
+    [x, y, w, h]).  `stages` and `state` run a part of the chain from a
+    given state."""
+    st = dict(state or {}, frames=frames, net=net, size=size)
+    for name in stages:
+        st["net_out" if name == "net" else name] = _DETECT_FNS[name](st)
+    return st
+
+
+def entry_detect(device="cuda", shape=SHAPE_DETECT, seed: int = 0):
+    """``(forward_detect, (frames, net))``: make_detect_frames()' frames and
+    :func:`make_detect_net`'s full-width YOLOv3-tiny on `device`."""
+    frames = torch.from_numpy(make_detect_frames(shape, seed)).to(device)
+    return forward_detect, (frames, make_detect_net(seed, device))

@@ -646,12 +646,6 @@ def test_ann_index_equals_opencv_tpu(dist, tmp_path):
 # counts whether or not a test has imported it (an import makes it an
 # attribute of its package).
 STILL_TO_PORT = {
-    "ml": ("ml",),
-    "dnn": ("dnn", "dnn_ClassificationModel", "dnn_DetectionModel", "dnn_DictValue",
-            "dnn_Image2BlobParams", "dnn_KeypointsModel", "dnn_Layer", "dnn_Model", "dnn_Net",
-            "dnn_SegmentationModel", "dnn_TextDetectionModel", "dnn_TextDetectionModel_DB",
-            "dnn_TextDetectionModel_EAST", "dnn_TextRecognitionModel", "dnn_Tokenizer",
-            "dnn_registerLayer", "dnn_unregisterLayer"),
     "dnn_trackers": ("TrackerDaSiamRPN", "TrackerDaSiamRPN_Params", "TrackerDaSiamRPN_create",
                      "TrackerGOTURN", "TrackerGOTURN_create", "TrackerNano", "TrackerNano_Params",
                      "TrackerNano_create", "TrackerVit", "TrackerVit_Params", "TrackerVit_create"),
@@ -736,7 +730,7 @@ STILL_TO_PORT = {
 def test_only_the_modules_still_to_port_are_missing():
     import pkgutil
     listed = [n for names in STILL_TO_PORT.values() for n in names]
-    assert len(listed) == len(set(listed)) == 262
+    assert len(listed) == len(set(listed)) == 244
     theirs = set(dir(jcv)) | {m.name for m in pkgutil.iter_modules(jcv.__path__)}
     ours = set(dir(tcv)) | {m.name for m in pkgutil.iter_modules(tcv.__path__)}
     missing = {n for n in theirs - ours if not n.startswith("_")}
