@@ -252,6 +252,40 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       tests/assets/tiny_cnn.onnx read through the port's codec, card
       against CPU within 1e-5; no kernel of csrc/ launches; the phase's
       wall against ML_WALL_BUDGET_S;
+   s. the stitching path: ``entry.forward_stitch`` (``Stitcher.create()
+      .stitch``) over ``make_pan_video()``'s (8, 1080, 1920, 3) pan, 7 pairs
+      chained into one panorama about 3,070 px wide; sep_filter must launch
+      2 x 7 x 8 times on route k7 (ORB's blur of each level) and nothing
+      else; the panorama's width within STITCH_WIDTH_TOL of the extent the
+      pan's truth implies (``entry.pan_extent``); on the card's own
+      panorama so far, each pair's homography from the CPU's ORB, matches
+      and RANSAC equal to the card's exactly, and the first and last pair's
+      panoramas within the warp bound; sep_filter k7 equal to its plain
+      version at every level shape of the wider panoramas; the stages'
+      times (ORB, match, homography, warp, distance, blend), busy share,
+      host syncs and peak memory beside the path's bytes bound; the wall
+      against PATH_WALL_BUDGET_S;
+   t. G-API: ``entry.gapi_flagship()`` (the flagship chain with pyrDown of
+      the gray frame as a second output) through ``gapi.Stream`` over
+      GAPI_BATCHES batches of ``make_batch()``, then through
+      ``deserialize_compiled(serialize_compiled(...))`` (``torch.export``;
+      the kernels are custom ops); both outputs equal ``entry.forward`` and
+      the eager pyrDown, live and loaded, and each run launches sep_filter
+      k5 and pyr_down once a batch and nothing else; the Stream's wall
+      against its copies and compute back to back; the wall against
+      PATH_WALL_BUDGET_S;
+   u. the DNN trackers: GOTURN at its published widths
+      (``entry.goturn_files``: 113,748,740 parameters written as a
+      .caffemodel by the port's codec), six trackers on
+      ``make_motion_video()``'s frame 0 at its boxes, updated over frames
+      1-7 (``entry.forward_track_dnn``, 42 updates); no kernel of csrc/
+      launches; each update's output against the CPU's net on the card's
+      blobs within GOTURN_RTOL of its largest value and each box within 1
+      px of the CPU's; Nano, DaSiamRPN, Vit, DISK and ALIKED on
+      ``entry.small_dnn_models()``, card against CPU, and LightGlue's raise
+      (``entry.dnn_sweep``); the net's time by CUDA events beside its bytes
+      and FLOP bounds, the path's busy share, host syncs and peak memory;
+      the wall against PATH_WALL_BUDGET_S;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -295,7 +329,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    with 4o's wall, and sep_filter k3 at the photo path's C = 3 shape beside
    its bound and F.conv2d; the stereo forward's six stages the same way,
    with SGBM's kernel launches in one stage (``torch.profiler``), 4p's
-   wall, and gauss5_down2 at the stereo shape (2, 1080, 1920, 3).  A kernel's share of its bound is
+   wall, and gauss5_down2 at the stereo shape (2, 1080, 1920, 3); phases
+   4s, 4t and 4u time their own stages beside their bounds inside their
+   budgets.  A kernel's share of its bound is
    bound_ms / ms.
 
 The last two lines are a JSON summary of the kernels and
@@ -491,6 +527,27 @@ ML_HOST_N = 2000
 ML_WALL_BUDGET_S = 60.0
 ML_DIST_TOL = 1e-3      # KNearest's distances (|q|^2 + |t|^2 - 2 q.t, f32)
 ML_TRAIN_TOL = 1e-3     # trained f32 arrays, card against CPU, relative
+
+
+# phases 4s, 4t and 4u (stitching, G-API, the DNN trackers): each path's
+# wall budget, s (the inputs, the counted run, the CPU's check and the
+# timing)
+PATH_WALL_BUDGET_S = 60.0
+# (stitching path) the panorama's width against the extent the pan's truth
+# implies, relative: 1%, the width of about 30 px at 3,000 px (each pair's
+# canvas rounds its corners up to a pixel; the homographies are estimates)
+STITCH_WIDTH_TOL = 0.01
+# (G-API) the batches of make_batch() the Stream runs
+GAPI_BATCHES = 4
+# (DNN trackers) six GOTURN trackers over frames 1-7; the card's output
+# against the CPU's net on the card's blobs, relative to the largest value
+# (f32 convolutions and products summed in cuDNN's, cuBLAS's and oneDNN's
+# orders over 113.75 M weights: the net's rounding reaches ~1e-6 of its
+# outputs, which sit near the prior box, 57-170)
+GOTURN_UPDATES = 42
+GOTURN_RTOL = 1e-4
+# the other trackers' frames in the card-against-CPU sweep
+SWEEP_FRAMES = 4
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -1144,6 +1201,321 @@ def phase_detect(E, run_counted, count_syncs, dev, card, kernel_syms):
     log(f"phase 4q wall: {wall_s:.1f} s (budget {DETECT_WALL_BUDGET_S:.0f} s)")
     if wall_s > DETECT_WALL_BUDGET_S:
         raise AssertionError(f"phase 4q took {wall_s:.1f} s, over its budget")
+    return cnt
+
+
+def _host_ms(fn, iters: int = 3) -> float:
+    """Median host-clock ms of fn followed by a synchronize."""
+    def run():
+        fn()
+        torch.cuda.synchronize()
+    return host_median(run, iters=iters, warmup=1)
+
+
+def phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7):
+    """4s: the stitching path at full size (see the module's note); `k7`
+    are ORB's 7x7 blur taps.  Returns the launch counts of its counted
+    run."""
+    t_start = time.perf_counter()
+    import opencv_tpu_torch as cv
+    from opencv_tpu_torch.features2d.orb import level_sizes
+    from opencv_tpu_torch.kernels.sepfilter import sep_filter_int, sep_filter_int_plain
+    from opencv_tpu_torch.stitching import Stitcher
+    from opencv_tpu_torch.blenders import blend_multiband
+    from opencv_tpu_torch.calib3d.geometry import RANSAC, findHomography
+    frames_np, truth = E.make_pan_video(E.SHAPE_STITCH)
+    make_s = time.perf_counter() - t_start
+    frames = torch.from_numpy(frames_np).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    held = []
+    t0 = time.perf_counter()
+    n_sync, cnt = run_counted(lambda: count_syncs(lambda: held.append(E.forward_stitch(frames))))
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    st = held[0]
+    log(f"stitch path launches: {cnt}")
+    N = E.SHAPE_STITCH[0]
+    orb_calls = 2 * (N - 1)
+    want = orb_calls * st["stitcher"].orb.nlevels
+    if (cnt["opencv_sep_filter"] != want or cnt["sep_filter routes"]["k7"] != want
+            or any(cnt[k] for k in kernel_syms if k != "opencv_sep_filter")):
+        raise AssertionError(f"stitch path: sep_filter must launch {want} times on route k7 (the "
+                             f"7x7 blur of each level of {orb_calls} ORB calls) and nothing else; "
+                             f"got {cnt}")
+    pano = st["pano"]
+    if st["status"] != Stitcher.OK or pano.dtype != torch.uint8 or pano.device != dev \
+            or pano.ndim != 3 or len(st["homographies"]) != N - 1:
+        raise AssertionError(f"stitch: status {st['status']}, panorama "
+                             f"{None if pano is None else (tuple(pano.shape), pano.dtype)}")
+    x0, x1, y0, y1 = E.pan_extent(truth, E.SHAPE_STITCH)
+    width_err = abs(pano.shape[1] - (x1 - x0)) / (x1 - x0)
+    log(f"stitch: panorama {tuple(pano.shape)} from {N} frames {E.SHAPE_STITCH[1:3]} (made in "
+        f"{make_s:.1f} s); the pan's truth implies {x1 - x0:.1f} x {y1 - y0:.1f} px; width off "
+        f"by {width_err:.5f} (gate {STITCH_WIDTH_TOL})")
+    if width_err > STITCH_WIDTH_TOL:
+        raise AssertionError("stitch: the panorama's width is off the pan's truth")
+    # card against CPU, pair by pair on the card's own panorama so far: the
+    # card's bases rebuilt from the run's homographies, the CPU's features,
+    # matches and homography of each pair on those bases, and the CPU's
+    # composition of the first and the last pair (the CPU's chamfer
+    # distance transform takes seconds a panorama)
+    t0 = time.perf_counter()
+    sg, sc = Stitcher.create(), Stitcher.create()
+    bases = [frames[0]]
+    h_exact, worst = 0, (0, 0.0)
+    for i, H in enumerate(st["homographies"]):
+        base = bases[-1]
+        nxt = sg.compose(base, frames[i + 1], H)
+        src, dst = sc.match_points(base.cpu(), frames[i + 1].cpu())
+        Hc, _ = findHomography(src, dst, RANSAC, 3.0)
+        if not np.array_equal(Hc, H):
+            raise AssertionError(f"stitch pair {i}: the CPU's homography differs: "
+                                 f"max |d| {np.abs(Hc - H).max()}")
+        h_exact += 1
+        bases.append(nxt)
+        if i not in (0, N - 2):
+            continue
+        d = (nxt.cpu().to(torch.int32) - sc.compose(base.cpu(), frames[i + 1].cpu(), H)
+             .to(torch.int32)).abs()
+        share = int(d.count_nonzero()) / d.numel()
+        worst = max(worst, (int(d.max()), share))
+        if int(d.max()) > WARP_ATOL or share > WARP_MAX_FRACTION:
+            raise AssertionError(f"stitch pair {i}: composition max |d| {int(d.max())}, share "
+                                 f"{share}")
+    if not torch.equal(bases[-1], pano):
+        raise AssertionError("stitch: the pairs rebuilt from the homographies differ from the run")
+    # sep_filter at the shapes the path gave it past 1080p: the levels of
+    # every panorama so far, against the plain version on the card
+    rng = np.random.default_rng(19)
+    shapes = sorted({(1, h, w, 1) for p_ in bases[1:-1]
+                     for w, h in level_sizes(p_.shape[0], p_.shape[1])})
+    for shape in shapes:
+        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        kw = dict(kx=k7, ky=k7, shift=16, border=cv.BORDER_REFLECT_101)
+        check_equal(f"sep_filter k7 {shape}", sep_filter_int(x, **kw), sep_filter_int_plain(x, **kw))
+    cpu_s = time.perf_counter() - t0
+    log(f"stitch: sep_filter k7 equal to the plain version at the {len(shapes)} level shapes of "
+        f"the panoramas so far ({shapes[0][1:3]} to {shapes[-1][1:3]})")
+    log(f"stitch against the CPU (with the k7 checks, {cpu_s:.1f} s): {h_exact} of {N - 1} "
+        f"homographies equal "
+        f"exactly (ORB and the Hamming matches exact on both devices, RANSAC on the host); the "
+        f"first and the last pair's panoramas within the warp bound (max |d| {worst[0]}, share "
+        f"{worst[1]:.2e}; bound {WARP_ATOL}, {WARP_MAX_FRACTION})")
+    # stage times on the last pair (the widest panorama), host clock with a
+    # synchronize, median of 3
+    last, b, H = bases[-2], frames[-1], st["homographies"][-1]
+    orb = sg.orb
+    _, d1 = orb.detectAndCompute(last, None)
+    _, d2 = orb.detectAndCompute(b, None)
+    t_d1, t_d2 = torch.from_numpy(d1).to(dev), torch.from_numpy(d2).to(dev)
+    src, dst = sg.match_points(last, b)
+    canvas, warped, ma, mb = sg.canvas(last, b, H)
+    wa, wb = sg.seam_weights(ma, mb)
+    stages = {
+        "orb": _host_ms(lambda: (orb.detectAndCompute(last, None), orb.detectAndCompute(b, None))),
+        "match": _host_ms(lambda: sg.matcher.match(t_d2, t_d1)),
+        "homography": _host_ms(lambda: findHomography(src, dst, RANSAC, 3.0)),
+        "warp": _host_ms(lambda: sg.canvas(last, b, H)),
+        "distance": _host_ms(lambda: sg.seam_weights(ma, mb)),
+        "blend": _host_ms(lambda: blend_multiband([canvas, warped], [wa, wb], num_bands=4)),
+    }
+    # the busy share of the last pair alone: the profiler's summary of the
+    # whole forward's ~80,000 kernels takes longer than the phase's budget
+    busy, k_ms, f_ms = busy_share(lambda: sg._stitch_pair(last, b), iters=1, warmup=False,
+                                  host_ops=False)
+    nbytes = frames.numel() + pano.numel()
+    b_ms = bound(nbytes, 0)[0]
+    log(f"time stitch stages of the last pair (panorama so far {tuple(last.shape)} + a frame): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+        + f" (host clock with a synchronize, median of 3)  [{card}]")
+    log(f"stitch forward: {wall:.1f} ms (the 4s run) on the host clock, {n_sync} host syncs, "
+        f"peak device memory over the frames {peak:.3f} GiB; bytes bound {b_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB: the frames read once, the panorama written once), share of "
+        f"bound {b_ms / wall:.8f}; the last pair {f_ms:.1f} ms profiled, device busy share "
+        f"{busy:.4f} (kernels {k_ms:.2f} ms)  [{card}]")
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4s wall: {wall_s:.1f} s (budget {PATH_WALL_BUDGET_S:.0f} s)")
+    if wall_s > PATH_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4s took {wall_s:.1f} s, over its budget")
+    return cnt
+
+
+def phase_gapi(E, run_counted, dev, card):
+    """4t: the flagship chain as a G-API graph through Stream and through
+    its exported form (see the module's note).  Returns the launch counts of
+    the live run and of the loaded program's."""
+    import io
+    from opencv_tpu_torch import gapi
+    import opencv_tpu_torch as cv
+    t_start = time.perf_counter()
+    batches = [E.make_batch(E.SHAPE, seed) for seed in range(GAPI_BATCHES)]
+    comp = E.gapi_flagship(E.SHAPE)
+    outs, live = run_counted(lambda: E.forward_gapi(batches, comp, dev))
+    log(f"gapi (Stream over {GAPI_BATCHES} batches) launches: {live}")
+    xs = [torch.from_numpy(b).to(dev) for b in batches]
+    refs = [(E.forward(x), cv.pyrDown(cv.cvtColor(x, cv.COLOR_BGR2GRAY))) for x in xs]
+    for i, ((w, half), (rw, rhalf)) in enumerate(zip(outs, refs)):
+        if w.device != dev or not torch.equal(w, rw) or not torch.equal(half, rhalf):
+            raise AssertionError(f"gapi batch {i}: the graph's outputs differ from entry.forward "
+                                 f"and the eager pyrDown")
+    t0 = time.perf_counter()
+    blob = gapi.serialize_compiled(comp.apply, xs[0])
+    export_s = time.perf_counter() - t0
+    called = sorted({str(n.target) for n in torch.export.load(io.BytesIO(blob)).graph.nodes
+                     if n.op == "call_function" and "opencv_tpu_torch" in str(n.target)})
+    fn = gapi.deserialize_compiled(blob)
+    couts, compiled = run_counted(lambda: [fn(x) for x in xs])
+    log(f"gapi (the loaded program over {GAPI_BATCHES} batches) launches: {compiled}; the "
+        f"exported graph calls {called}; export {export_s:.1f} s, {len(blob) / 1e6:.2f} MB")
+    for i, ((w, half), (rw, rhalf)) in enumerate(zip(couts, refs)):
+        if not torch.equal(w, rw) or not torch.equal(half, rhalf):
+            raise AssertionError(f"gapi batch {i}: the loaded program's outputs differ")
+    for name, c in (("live", live), ("loaded", compiled)):
+        if c["opencv_sep_filter"] != GAPI_BATCHES or c["sep_filter routes"]["k5"] != GAPI_BATCHES \
+                or c["opencv_pyr_down"] != GAPI_BATCHES or c["opencv_gauss5_down2"]:
+            raise AssertionError(f"gapi {name}: sep_filter k5 and pyr_down must launch once a "
+                                 f"batch and nothing else; got {c}")
+    if called != ["opencv_tpu_torch.pyr_down.default", "opencv_tpu_torch.sep_filter.default"]:
+        raise AssertionError(f"gapi: the exported graph's kernel calls are {called}")
+    log(f"gapi: {GAPI_BATCHES} batches of {E.SHAPE}, both outputs equal to entry.forward and the "
+        f"eager pyrDown, live and through the loaded program")
+    # the Stream's wall against its copies and its compute back to back
+    pinned = [torch.from_numpy(b).pin_memory() for b in batches]
+
+    def copies():
+        for p in pinned:
+            p.to(dev, non_blocking=True)
+
+    stream_ms = _host_ms(lambda: E.forward_gapi(batches, comp, dev))
+    copy_ms = _host_ms(copies)
+    compute_ms = _host_ms(lambda: [comp.apply(x) for x in xs])
+    loaded_ms = _host_ms(lambda: [fn(x) for x in xs])
+    nbytes = sum(b.nbytes for b in batches) + sum(w.numel() + h.numel() for w, h in outs)
+    log(f"time gapi over {GAPI_BATCHES} batches: Stream {stream_ms:.3f} ms (pinned copies, a "
+        f"side stream, the graph), the pinned copies alone {copy_ms:.3f} ms + the graph on "
+        f"resident batches {compute_ms:.3f} ms = {copy_ms + compute_ms:.3f} ms back to back; the "
+        f"loaded program on resident batches {loaded_ms:.3f} ms; bytes bound of the graph "
+        f"{bound(nbytes, 0)[0]:.4f} ms (host clock with a synchronize, median of 3)  [{card}]")
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4t wall: {wall_s:.1f} s (budget {PATH_WALL_BUDGET_S:.0f} s)")
+    if wall_s > PATH_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4t took {wall_s:.1f} s, over its budget")
+    return live, compiled
+
+
+def phase_track_dnn(E, run_counted, count_syncs, dev, card, kernel_syms):
+    """4u: GOTURN at its published widths and the other DNN trackers and
+    features (see the module's note).  Returns the launch counts of the
+    counted run."""
+    import tempfile
+    import opencv_tpu_torch.dnn as tdnn
+    t_start = time.perf_counter()
+    frames_np, _, boxes = E.make_motion_video(E.SHAPE_TRACK_DNN)
+    frames = torch.from_numpy(frames_np).to(dev)
+    t0 = time.perf_counter()
+    files = E.goturn_files(0)
+    net = tdnn.readNetFromCaffe(*files, device=dev)
+    make_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(s)) + s[0] for _, s in E.goturn_layers())
+    trackers = E.make_goturn_trackers(net, frames[0], boxes[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    held = []
+    t0 = time.perf_counter()
+    n_sync, cnt = run_counted(
+        lambda: count_syncs(lambda: held.append(E.forward_track_dnn(frames, trackers))))
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    out = held[0]
+    log(f"track_dnn path launches: {cnt}")
+    if any(cnt[k] for k in kernel_syms):
+        raise AssertionError(f"track_dnn path: no kernel of csrc/ may launch (its convolutions "
+                             f"are cuDNN's, as the JAX package's are XLA's); got {cnt}")
+    ups = out["updates"]
+    if len(ups) != GOTURN_UPDATES:
+        raise AssertionError(f"track_dnn: {len(ups)} updates, not {GOTURN_UPDATES}")
+    log(f"track_dnn: GOTURN ({n_params:,} parameters, {n_params * 4 / 1e6:.2f} MB f32, "
+        f"{E.goturn_flops() / 1e9:.3f} GFLOP a forward) written and read in {make_s:.1f} s; "
+        f"{len(trackers)} trackers over {len(frames) - 1} frames: {len(ups)} updates; last boxes "
+        f"{out['boxes'][-1].tolist()}")
+    # the CPU's net on the card's blobs, all updates as one batch
+    t0 = time.perf_counter()
+    net_c = tdnn.readNetFromCaffe(*files, device="cpu")
+    net_c.setInput(torch.cat([u[3] for u in ups]).cpu(), "data1")
+    net_c.setInput(torch.cat([u[4] for u in ups]).cpu(), "data2")
+    res_c = net_c.forward("scale").numpy()
+    err, moved = 0.0, 0
+    for (i, k, region, _, _, res), rc in zip(ups, res_c):
+        e = float(np.abs(res - rc).max() / np.abs(rc).max())
+        err = max(err, e)
+        if e > GOTURN_RTOL:
+            raise AssertionError(f"track_dnn frame {i} tracker {k}: the card's output {res} "
+                                 f"against the CPU's {rc}")
+        got, want = trackers[k].box(res, region), trackers[k].box(rc, region)
+        if max(abs(g - w) for g, w in zip(got, want)) > 1:
+            raise AssertionError(f"track_dnn frame {i} tracker {k}: box {got} against the "
+                                 f"CPU's {want}")
+        moved += got != want
+    cpu_s = time.perf_counter() - t0
+    log(f"track_dnn against the CPU's net on the card's blobs ({cpu_s:.1f} s): outputs within "
+        f"{err:.2e} of the largest (gate {GOTURN_RTOL}), every box within 1 px ({moved} of "
+        f"{len(ups)} a pixel apart)")
+    # the other models, card against CPU
+    t0 = time.perf_counter()
+    models = E.small_dnn_models()
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep_g = E.dnn_sweep(models, frames[:SWEEP_FRAMES], boxes[0][0], tmp, dev)
+        sweep_c = E.dnn_sweep(models, frames[:SWEEP_FRAMES].cpu(), boxes[0][0], tmp, "cpu")
+    for key in ("nano", "dasiam", "vit"):
+        for (ok, b, sco), (okc, bc, scc) in zip(sweep_g[key], sweep_c[key]):
+            if ok != okc or max(abs(x - y) for x, y in zip(b, bc)) > 1 or abs(sco - scc) > 1e-4:
+                raise AssertionError(f"{key}: card ({ok}, {b}, {sco}) against CPU ({okc}, {bc}, "
+                                     f"{scc})")
+    for key in ("disk", "aliked"):
+        for g, c in zip(sweep_g[key], sweep_c[key]):
+            if g.shape != c.shape or not np.allclose(g, c, rtol=1e-6, atol=1e-6):
+                raise AssertionError(f"{key}: the card differs from the CPU")
+    if sweep_g["lightglue"] != "NotImplementedError":
+        raise AssertionError("LightGlue's match did not raise NotImplementedError")
+    log(f"track_dnn sweep ({time.perf_counter() - t0:.1f} s, frames {SWEEP_FRAMES} of "
+        f"{E.SHAPE_TRACK_DNN[1:3]}): Nano {[b for _, b, _ in sweep_g['nano']]}, DaSiamRPN "
+        f"{[b for _, b, _ in sweep_g['dasiam']]}, Vit {[b for _, b, _ in sweep_g['vit']]}; DISK "
+        f"{len(sweep_g['disk'][0])} and ALIKED {len(sweep_g['aliked'][0])} keypoints; each equal "
+        f"to the CPU's (boxes within 1 px, scores 1e-4); LightGlue raises NotImplementedError")
+    # the net's time by CUDA events against its bounds
+    _, _, _, target, search, _ = ups[0]
+    timer = Timer(dev)
+
+    def forward():
+        net.setInput(target, "data1")
+        net.setInput(search, "data2")
+        return net.forward("scale")
+
+    net_ms = timer(forward, iters=20)
+    net_dev_ms = timer(forward, iters=20, device_only=True)
+    del timer
+    upd_ms = _host_ms(lambda: E.forward_track_dnn(frames[:2], trackers), iters=3) / len(trackers)
+    nbytes = n_params * 4 + 2 * target.numel() * 4 + 16
+    b_bytes, b_flop = nbytes / HBM_BYTES_PER_S * 1e3, E.goturn_flops() / F32_OPS_PER_S * 1e3
+    busy, k_ms, f_ms = busy_share(lambda: E.forward_track_dnn(frames, trackers), iters=1,
+                                  warmup=False, host_ops=False)
+    log(f"time GOTURN forward (1 x 2 x 3 x 227 x 227): {net_ms:.4f} ms as the caller sees it, "
+        f"{net_dev_ms:.4f} ms device (CUDA events, median of 20, L2 flushed); bytes bound "
+        f"{b_bytes:.4f} ms ({nbytes / 1e6:.1f} MB: the weights read once), FLOP bound "
+        f"{b_flop:.4f} ms ({E.goturn_flops() / 1e9:.3f} GFLOP at {F32_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s f32); share of the bytes bound {b_bytes / net_dev_ms:.4f}; for "
+        f"{GOTURN_UPDATES} updates the bytes bound is {b_bytes * GOTURN_UPDATES:.3f} ms  [{card}]")
+    log(f"track_dnn forward: {f_ms:.1f} ms for {GOTURN_UPDATES} updates (profiled; the 4u run "
+        f"{wall:.1f} ms; one update {upd_ms:.3f} ms on the host clock), device busy share "
+        f"{busy:.4f} (kernels {k_ms:.2f} ms), {n_sync} host syncs, peak device memory "
+        f"{peak:.3f} GiB over the frames and the net  [{card}]")
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4u wall: {wall_s:.1f} s (budget {PATH_WALL_BUDGET_S:.0f} s)")
+    if wall_s > PATH_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4u took {wall_s:.1f} s, over its budget")
     return cnt
 
 
@@ -2690,6 +3062,18 @@ def main() -> int:
     if any(cfg18[k] for k in kernel_syms):
         raise AssertionError(f"ml: no kernel of csrc/ may launch; got {cfg18}")
 
+    # -- 4s. the stitching path: Stitcher.create().stitch over the pan (ORB,
+    # BFMatcher, RANSAC findHomography, warpPerspective, the seam, the blend)
+    cfg19 = phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7)
+
+    # -- 4t. the flagship chain as a G-API graph through Stream, live and
+    # through its torch.export bytes
+    cfg20, cfg21 = phase_gapi(E, run_counted, dev, card)
+
+    # -- 4u. GOTURN at its published widths, six trackers over the motion
+    # video, and the other DNN trackers and features
+    cfg22 = phase_track_dnn(E, run_counted, count_syncs, dev, card, kernel_syms)
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -3466,7 +3850,7 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4r); the
+    # launches: the kernel's count over the main paths (4a to 4u); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
@@ -3478,7 +3862,7 @@ def main() -> int:
                            *(f"pyr_down video {n}x{h}x{w}" for n, h, w, _ in
                              PYR_VIDEO_SHAPES[:3]))}
     main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
-                  cfg13, cfg14, cfg15, cfg16, cfg17, cfg18)
+                  cfg13, cfg14, cfg15, cfg16, cfg17, cfg18, cfg19, cfg20, cfg21, cfg22)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]
@@ -3488,6 +3872,11 @@ def main() -> int:
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
                         "cases": [times[s] for s in shapes[name]]})
+    # each kernel's launches by path: 4a-4r, and this slice's three
+    by_path = {"4a-4r": main_paths[:18], "4s stitch": (cfg19,), "4t gapi live": (cfg20,),
+               "4t gapi loaded": (cfg21,), "4u track_dnn": (cfg22,)}
+    for k, (_, _, sym) in zip(kernels, meta.values()):
+        k["launches_by_path"] = {p: sum(c[sym] for c in cs) for p, cs in by_path.items()}
     # sep_filter's launches on the main paths by route
     kernels[0]["launches_by_route"] = {
         r: sum(c["sep_filter routes"][r] for c in main_paths)

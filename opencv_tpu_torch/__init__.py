@@ -692,3 +692,174 @@ dnn_DictValue = dnn.DictValue
 dnn_Layer = dnn.Layer
 dnn_Tokenizer = dnn.Tokenizer
 dnn_Image2BlobParams = dnn.Image2BlobParams
+
+
+# ---------------------------------------------------------------------------
+# the DNN trackers and features, LightGlue, G-API, the blenders and stitching
+# ---------------------------------------------------------------------------
+
+from .video import (  # noqa: F401,E402
+    TrackerNano, TrackerNano_create, TrackerDaSiamRPN, TrackerDaSiamRPN_create, TrackerGOTURN,
+    TrackerGOTURN_create, TrackerVit, TrackerVit_create,
+)
+from .features2d import (  # noqa: F401,E402
+    ALIKED, ALIKED_Params, DISK, LightGlueMatcher, LightGlueMatcher_create,
+    LightGlueMatcher_createFromMemory,
+)
+
+
+class TrackerDaSiamRPN_Params:
+    def __init__(self):
+        self.model = ""
+        self.kernel_cls1 = ""
+        self.kernel_r1 = ""
+        self.backend = 0
+        self.target = 0
+
+
+class TrackerNano_Params:
+    def __init__(self):
+        self.backbone = ""
+        self.neckhead = ""
+        self.backend = 0
+        self.target = 0
+
+
+class TrackerVit_Params:
+    def __init__(self):
+        self.net = ""
+        self.meanvalue = (0.485, 0.456, 0.406)
+        self.stdvalue = (0.229, 0.224, 0.225)
+        self.backend = 0
+        self.target = 0
+        self.tracking_score_threshold = 0.0
+
+
+def ALIKED_create(modelPath="", params=None, device=None):
+    return ALIKED.create(modelPath, params, device)
+
+
+def DISK_create(modelPath="", maxKeypoints=1024, scoreThreshold=0.0,
+                imageSize=(1024, 1024), backendId=0, targetId=0, device=None):
+    return DISK.create(modelPath, maxKeypoints, scoreThreshold, imageSize, backendId, targetId,
+                       device)
+
+
+def DISK_createFromMemory(bufferModel, maxKeypoints=1024, scoreThreshold=0.0,
+                          imageSize=(1024, 1024), backendId=0, targetId=0, device=None):
+    return DISK.createFromMemory(bufferModel, maxKeypoints, scoreThreshold, imageSize, backendId,
+                                 targetId, device)
+
+
+from . import gapi  # noqa: F401,E402
+from .gapi import pipeline, Stream  # noqa: F401,E402
+from . import blenders, stitching, stitch_warpers  # noqa: F401,E402
+from .stitching import Stitcher, Stitcher_create  # noqa: F401,E402
+from .blenders import MultiBandBlender, FeatherBlender  # noqa: F401,E402
+from .stitch_warpers import PyRotationWarper  # noqa: F401,E402
+from . import stitch_detail as detail  # noqa: E402
+
+detail_GainCompensator = detail.GainCompensator
+detail_ChannelsCompensator = detail.ChannelsCompensator
+detail_BlocksGainCompensator = detail.BlocksGainCompensator
+detail_VoronoiSeamFinder = detail.VoronoiSeamFinder
+detail_GraphCutSeamFinder = detail.GraphCutSeamFinder
+detail_DpSeamFinder = detail.DpSeamFinder
+detail_BestOf2NearestMatcher = detail.BestOf2NearestMatcher
+detail_HomographyBasedEstimator = detail.HomographyBasedEstimator
+detail_BundleAdjusterRay = detail.BundleAdjusterRay
+detail_BundleAdjusterReproj = detail.BundleAdjusterReproj
+detail_CameraParams = detail.CameraParams
+detail_ImageFeatures = detail.ImageFeatures
+detail_MatchesInfo = detail.MatchesInfo
+# the binding's base-class and variant names, as the JAX package maps them
+detail_FeaturesMatcher = detail.BestOf2NearestMatcher
+detail_AffineBestOf2NearestMatcher = detail.BestOf2NearestMatcher
+detail_BestOf2NearestRangeMatcher = detail.BestOf2NearestMatcher
+detail_Estimator = detail.HomographyBasedEstimator
+detail_AffineBasedEstimator = detail.HomographyBasedEstimator
+detail_BundleAdjusterBase = detail._BundleBase
+detail_BundleAdjusterAffine = detail.BundleAdjusterRay
+detail_BundleAdjusterAffinePartial = detail.BundleAdjusterReproj
+detail_ExposureCompensator = detail.GainCompensator
+detail_BlocksChannelsCompensator = detail.ChannelsCompensator
+detail_BlocksCompensator = detail.BlocksGainCompensator
+detail_SeamFinder = detail.VoronoiSeamFinder
+detail_PairwiseSeamFinder = detail.VoronoiSeamFinder
+detail_NoSeamFinder = detail.DpSeamFinder
+detail_Blender = FeatherBlender
+detail_FeatherBlender = FeatherBlender
+detail_MultiBandBlender = MultiBandBlender
+detail_ProjectorBase = stitch_warpers._Projector
+detail_SphericalProjector = stitch_warpers._Spherical
+WarperCreator = PyRotationWarper
+
+
+class detail_NoBundleAdjuster:
+    """Pass-through bundle adjuster (stitching detail surface)."""
+
+    def apply(self, features, pairwise_matches, cameras):
+        return True, cameras
+
+
+class detail_NoExposureCompensator:
+    def feed(self, corners, images, masks):
+        pass
+
+    def apply(self, index, corner, image, mask):
+        return image
+
+
+class detail_Timelapser:
+    """Pastes each image at its corner on one host canvas (numpy u8)."""
+
+    AS_IS, CROP = 0, 1
+
+    @staticmethod
+    def createDefault(type):
+        return detail_TimelapserCrop() if type == 1 else detail_Timelapser()
+
+    def initialize(self, corners, sizes):
+        import numpy as _np
+        xs = [c[0] for c in corners]
+        ys = [c[1] for c in corners]
+        ws = [s[0] for s in sizes]
+        hs = [s[1] for s in sizes]
+        self._off = (min(xs), min(ys))
+        W = max(x + w for x, w in zip(xs, ws)) - self._off[0]
+        H = max(y + h for y, h in zip(ys, hs)) - self._off[1]
+        self._dst = _np.zeros((H, W, 3), _np.uint8)
+
+    def process(self, img, mask, tl):
+        from .core.arrays import to_host
+        a = to_host(img)
+        y0 = tl[1] - self._off[1]
+        x0 = tl[0] - self._off[0]
+        self._dst[y0:y0 + a.shape[0], x0:x0 + a.shape[1]] = a
+
+    def getDst(self):
+        return self._dst
+
+
+class detail_TimelapserCrop(detail_Timelapser):
+    pass
+
+
+class detail_PoseGraph:
+    """Pose-graph optimization placeholder (3d module detail)."""
+
+    def __init__(self):
+        self._nodes = {}
+
+    def addNode(self, i, pose, fixed=False):
+        self._nodes[i] = pose
+
+    def getNodePose(self, i):
+        return self._nodes.get(i)
+
+
+class detail_LightGlueFeaturesMatcher:
+    def __init__(self, *a, **k):
+        raise NotImplementedError(
+            "requires the LightGlue ONNX export; use "
+            "LightGlueMatcher_create")

@@ -35,10 +35,12 @@ def to_host(a) -> np.ndarray:
 def to_device(table, device) -> torch.Tensor:
     """A host array (numpy or a CPU tensor) on `device`, without making the
     host wait: a copy to the card goes through pinned memory, queued on the
-    current stream (a copy from pageable memory would wait for the queue)."""
+    current stream (a copy from pageable memory would wait for the queue).
+    Under ``torch.export`` the table is a constant of the program and is
+    copied plainly."""
     t = torch.from_numpy(np.ascontiguousarray(table)) if isinstance(table, np.ndarray) else table
     device = torch.device(device)
-    if device.type != "cuda" or t.device.type != "cpu":
+    if device.type != "cuda" or t.device.type != "cpu" or torch.compiler.is_exporting():
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 

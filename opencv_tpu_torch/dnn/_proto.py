@@ -494,6 +494,95 @@ class _Repeated(list):
         raise AttributeError("add() on a repeated scalar field")
 
 
+class _RepeatedFloats:
+    """A repeated float or double field, held as one numpy array of its
+    wire type (little-endian f4 or f8): a packed field decodes with one
+    ``frombuffer`` and encodes with one ``tobytes``, and a reader takes it
+    with ``np.asarray`` (``__array__``), so a weight blob never becomes a
+    Python float per value.  It reads as a list of Python floats (len,
+    iteration, indexing, ==); writes convert their values to the field's
+    type and mark the owning message present."""
+
+    __slots__ = ("_owner", "_field", "_dt", "_arr", "_tail")
+    __hash__ = None
+
+    def __init__(self, owner, field):
+        self._owner = owner
+        self._field = field
+        self._dt = np.dtype(_PACKED_NP[field.type])
+        self._arr = np.zeros(0, self._dt)
+        self._tail = []     # single values appended since the last read
+
+    def _array(self) -> np.ndarray:
+        if self._tail:
+            self._arr = np.concatenate([self._arr, np.asarray(self._tail, self._dt)])
+            self._tail = []
+        return self._arr
+
+    def _load(self, a: np.ndarray) -> None:
+        """Append the values `a` (already of the field's dtype)."""
+        cur = self._array()
+        self._arr = a if not len(cur) else np.concatenate([cur, a])
+
+    def __array__(self, dtype=None, copy=None):
+        a = self._array()
+        return a.astype(dtype) if dtype is not None and a.dtype != dtype else a
+
+    def __len__(self):
+        return len(self._arr) + len(self._tail)
+
+    def __iter__(self):
+        return iter(self._array().tolist())
+
+    def __getitem__(self, i):
+        return self._array()[i].tolist()
+
+    def __eq__(self, other):
+        if isinstance(other, _RepeatedFloats):
+            other = other._array()
+        elif not isinstance(other, (list, tuple, np.ndarray)):
+            return NotImplemented
+        return list(self) == list(other)
+
+    def __repr__(self):
+        return repr(list(self))
+
+    def append(self, v):
+        self._tail.append(_coerce(self._field, v))
+        self._owner._mark()
+
+    def extend(self, vs):
+        if isinstance(vs, (np.ndarray, _RepeatedFloats)):
+            a = np.asarray(vs)
+            if a.dtype.kind not in "biuf":
+                raise TypeError(f"{self._field.name}: expected numbers, got {a.dtype}")
+            self._load(a.ravel().astype(self._dt))
+        else:
+            self._tail.extend(_coerce(self._field, v) for v in vs)
+        self._owner._mark()
+
+    def _replace(self, values):
+        self._arr = np.asarray(values, self._dt)
+        self._tail = []
+        self._owner._mark()
+
+    def insert(self, i, v):
+        vals = list(self)
+        vals.insert(i, _coerce(self._field, v))
+        self._replace(vals)
+
+    def __setitem__(self, i, v):
+        vals = list(self)
+        if isinstance(i, slice):
+            vals[i] = [_coerce(self._field, x) for x in v]
+        else:
+            vals[i] = _coerce(self._field, v)
+        self._replace(vals)
+
+    def add(self):
+        raise AttributeError("add() on a repeated scalar field")
+
+
 class _RepeatedMessage(list):
     __slots__ = ("_owner", "_field")
 
@@ -605,6 +694,8 @@ class Message:
                 v = _Map(self, f)
             elif f.type in (T_MESSAGE, T_GROUP):
                 v = _RepeatedMessage(self, f)
+            elif f.type in (T_FLOAT, T_DOUBLE):
+                v = _RepeatedFloats(self, f)
             else:
                 v = _Repeated(self, f)
             self._v[name] = v
@@ -787,7 +878,10 @@ def _decode_into(msg, buf):
                 vals[name] = v
         elif f.repeated:
             rep = getattr(msg, name)
-            if wt == _LEN:
+            if isinstance(rep, _RepeatedFloats):
+                rep._load(np.frombuffer(bytes(raw), rep._dt) if wt == _LEN
+                          else np.asarray([_scalar_from_wire(t, wt, raw)], rep._dt))
+            elif wt == _LEN:
                 list.extend(rep, _unpack(t, raw))
             else:
                 list.append(rep, _scalar_from_wire(t, wt, raw))
@@ -822,7 +916,8 @@ def _encode(msg):
                 sub = _encode(x)
                 out += _tag(f.number, _LEN) + _varint(len(sub)) + sub
         elif f.repeated and f.packs():
-            body = b"".join(_scalar_to_wire(t, x) for x in v)
+            body = (v._array().tobytes() if isinstance(v, _RepeatedFloats)
+                    else b"".join(_scalar_to_wire(t, x) for x in v))
             out += _tag(f.number, _LEN) + _varint(len(body)) + body
         else:
             wt = _wire_type(t)

@@ -144,6 +144,18 @@ yolov3-tiny.cfg and random weights made from a seed as a ``.weights`` file
 and reads them with ``readNetFromDarknet``; ``make_detect_frames`` draws
 shapes on gradient backgrounds; ``entry_detect`` gives the path both.
 
+``forward_stitch`` stitches a panning camera's frames into one panorama
+through ``Stitcher.create().stitch`` (ORB, BFMatcher, RANSAC findHomography,
+warpPerspective, the distance-transform seam, multi-band blending);
+``pan_extent`` gives the extent ``make_pan_video``'s truth implies.
+``gapi_flagship`` is the flagship chain as a G-API ``GComputation`` with
+pyrDown of the gray frame as a second output, and ``forward_gapi`` runs it
+over host batches through ``gapi.Stream``.  ``forward_track_dnn`` updates
+GOTURN trackers (``make_goturn_net``: GOTURN's published CaffeNet towers
+with random weights made from a seed, written as a ``.caffemodel`` by the
+port's codec) on ``make_motion_video``'s frames; ``small_dnn_models``
+builds the small ONNX graphs of the other DNN trackers and features.
+
 ``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
 on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
 CUDA devices) run the batch-DP step and the spatial filters of
@@ -245,7 +257,12 @@ __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHA
            "DETECT_PRIOR_BIAS", "DETECT_OBJECTS",
            "DETECT_STAGES", "YOLOV3_TINY_CFG", "yolov3_tiny_cfg", "darknet_convs",
            "detect_flops", "write_darknet_weights", "make_detect_net", "make_detect_frames",
-           "forward_detect", "entry_detect"]
+           "forward_detect", "entry_detect",
+           "SHAPE_STITCH", "forward_stitch", "pan_extent", "gapi_flagship", "forward_gapi",
+           "SHAPE_TRACK_DNN", "GOTURN_INPUT", "GOTURN_PRIOR", "GOTURN_FC8_GAIN",
+           "goturn_prototxt", "goturn_layers", "goturn_flops", "write_goturn_caffemodel",
+           "goturn_files", "make_goturn_net", "make_goturn_trackers", "forward_track_dnn",
+           "small_dnn_models", "dnn_sweep"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -3271,3 +3288,453 @@ def entry_detect(device="cuda", shape=SHAPE_DETECT, seed: int = 0):
     :func:`make_detect_net`'s full-width YOLOv3-tiny on `device`."""
     frames = torch.from_numpy(make_detect_frames(shape, seed)).to(device)
     return forward_detect, (frames, make_detect_net(seed, device))
+
+
+# ---------------------------------------------------------------------------
+# stitching: cv::Stitcher over a panning camera
+# ---------------------------------------------------------------------------
+
+SHAPE_STITCH = (8, 1080, 1920, 3)
+
+
+def forward_stitch(frames) -> dict:
+    """The frames of a panning camera stitched into one panorama, as
+    OpenCV's samples/python/stitching.py runs ``Stitcher.create().stitch``:
+    each next frame onto the panorama so far (ORB 1000 on both, the
+    cross-checked Hamming matches, the best 200, RANSAC findHomography at
+    3 px, warpPerspective onto the canvas, the L1 distance-transform seam
+    and the 4-band blend).  Returns {"status", "pano", "homographies" (each
+    frame into the panorama before it), "stitcher"}."""
+    from .stitching import Stitcher
+    st = Stitcher.create()
+    status, pano = st.stitch(frames)
+    return {"status": status, "pano": pano, "homographies": list(st.homographies),
+            "stitcher": st}
+
+
+def pan_extent(truth, shape) -> tuple:
+    """The panorama's extent that the pan's truth implies: every frame's
+    corners taken into frame 0 through the inverse of the chained
+    frame-to-next maps; ``(min x, max x, min y, max y)``."""
+    N, H, W = shape[:3]
+    corners = np.array([[0, 0, 1], [W, 0, 1], [W, H, 1], [0, H, 1]], np.float64).T
+    to0 = np.eye(3)          # frame k -> frame 0
+    pts = [corners[:2]]
+    for i in range(N - 1):
+        A = np.vstack([truth[i], [0, 0, 1]])   # frame i -> frame i+1
+        to0 = to0 @ np.linalg.inv(A)
+        pts.append((to0 @ corners)[:2])
+    p = np.hstack(pts)
+    return float(p[0].min()), float(p[0].max()), float(p[1].min()), float(p[1].max())
+
+
+# ---------------------------------------------------------------------------
+# G-API: the flagship chain as a GComputation
+# ---------------------------------------------------------------------------
+
+def gapi_flagship(shape=SHAPE):
+    """The flagship chain (:func:`forward`) as a ``gapi.GComputation`` of
+    (N, H, W, 3) u8 BGR input: cvtColor BGR2GRAY → gaussianBlur 5×5 →
+    resize to half size → warpAffine (15°, 0.9 about the centre), with
+    pyrDown of the gray frame as a second output."""
+    from . import gapi
+    H, W = shape[1], shape[2]
+    w, h = W // 2, H // 2
+    M = np.asarray(getRotationMatrix2D((w / 2, h / 2), 15.0, 0.9), np.float64)
+    gin = gapi.GMat()
+    g = gapi.g_op("cvtColor", gin, code=K.COLOR_BGR2GRAY)
+    b = gapi.g_op("gaussianBlur", g, ksize=(5, 5), sigmaX=0.0)
+    r = gapi.g_op("resize", b, dsize=(w, h))
+    out = gapi.g_op("warpAffine", r, M=M.tolist(), dsize=(w, h))
+    return gapi.GComputation(gin, [out, gapi.g_op("pyrDown", g)])
+
+
+def forward_gapi(batches, comp=None, device="cuda") -> list:
+    """:func:`gapi_flagship`'s graph over host batches through
+    ``gapi.Stream`` on `device`: the list of each batch's (warped, half)."""
+    from . import gapi
+    comp = comp or gapi_flagship(np.shape(batches[0]))
+    return list(gapi.Stream(comp.apply, device=device).run(batches))
+
+
+# ---------------------------------------------------------------------------
+# the DNN trackers: GOTURN at CaffeNet's published widths
+# ---------------------------------------------------------------------------
+
+SHAPE_TRACK_DNN = (8, 1080, 1920, 3)   # make_motion_video's frames
+GOTURN_INPUT = 227
+# the box GOTURN's net gives for a target that did not move, in its 227-px
+# search region (the region is twice the box, centred on it), over the
+# Power layer's scale of 10: fc8's bias, an untrained tracker's prior
+GOTURN_PRIOR = (56.75 / 10, 56.75 / 10, 170.25 / 10, 170.25 / 10)
+# fc8's kernel is He-scaled times this, so that the random features move
+# the prior box by a few pixels of the search region at most
+GOTURN_FC8_GAIN = 3e-3
+
+
+def _goturn_tower(t: str, bottom: str, d: int) -> str:
+    """CaffeNet's five convolutions of one tower (suffix `t`), widths / d."""
+    def conv(name, bot, n, k, s=1, p=0, g=1):
+        return (f'layer {{ name: "{name}" type: "Convolution" bottom: "{bot}" top: "{name}" '
+                f'convolution_param {{ num_output: {n // d} kernel_size: {k} stride: {s} pad: {p} '
+                f'group: {g} }} }}\n'
+                f'layer {{ name: "relu{name[4:]}" type: "ReLU" bottom: "{name}" top: "{name}" }}\n')
+
+    def pool(name, bot):
+        return (f'layer {{ name: "{name}" type: "Pooling" bottom: "{bot}" top: "{name}" '
+                f'pooling_param {{ pool: MAX kernel_size: 3 stride: 2 }} }}\n')
+
+    def norm(name, bot):
+        return (f'layer {{ name: "{name}" type: "LRN" bottom: "{bot}" top: "{name}" '
+                f'lrn_param {{ local_size: 5 alpha: 0.0001 beta: 0.75 }} }}\n')
+
+    return (conv(f"conv1{t}", bottom, 96, 11, s=4) + pool(f"pool1{t}", f"conv1{t}")
+            + norm(f"norm1{t}", f"pool1{t}")
+            + conv(f"conv2{t}", f"norm1{t}", 256, 5, p=2, g=2) + pool(f"pool2{t}", f"conv2{t}")
+            + norm(f"norm2{t}", f"pool2{t}")
+            + conv(f"conv3{t}", f"norm2{t}", 384, 3, p=1)
+            + conv(f"conv4{t}", f"conv3{t}", 384, 3, p=1, g=2)
+            + conv(f"conv5{t}", f"conv4{t}", 256, 3, p=1, g=2) + pool(f"pool5{t}", f"conv5{t}"))
+
+
+def goturn_prototxt(width_div: int = 1) -> str:
+    """GOTURN's network as its published deploy prototxt defines it
+    (github.com/davheld/GOTURN nets/tracker.prototxt, as opencv_extra's
+    testdata/dnn/gsoc2016-goturn/goturn.prototxt deploys it for
+    cv::TrackerGOTURN): two CaffeNet towers of 1×3×227×227 ("data1", the
+    previous frame's crop; "data2", the current one), each conv1 96 k11 s4,
+    ReLU, pool 3/2, LRN (5, 1e-4, 0.75), conv2 256 k5 p2 g2, ReLU, pool,
+    LRN, conv3 384 k3 p1, conv4 384 k3 p1 g2, conv5 256 k3 p1 g2 (each
+    with ReLU), pool5 3/2 (6×6×256); their concat (18,432 values); fc6,
+    fc7 and fc7b of 4096 with ReLU and Dropout; fc8 of 4; a Power layer of
+    scale 10, whose top is named ``scale`` (the name OpenCV's tracker
+    reads) so that the executor's top names reach it.  Every hidden width
+    is divided by `width_div` (the tests' cut)."""
+    d = width_div
+    head = ('name: "GOTURN"\n'
+            'input: "data1"\ninput_shape { dim: 1 dim: 3 dim: 227 dim: 227 }\n'
+            'input: "data2"\ninput_shape { dim: 1 dim: 3 dim: 227 dim: 227 }\n')
+    fc = ""
+    bot = "concat"
+    for name in ("fc6", "fc7", "fc7b"):
+        fc += (f'layer {{ name: "{name}" type: "InnerProduct" bottom: "{bot}" top: "{name}" '
+               f'inner_product_param {{ num_output: {4096 // d} }} }}\n'
+               f'layer {{ name: "relu{name[2:]}" type: "ReLU" bottom: "{name}" top: "{name}" }}\n'
+               f'layer {{ name: "drop{name[2:]}" type: "Dropout" bottom: "{name}" top: "{name}" '
+               f'dropout_param {{ dropout_ratio: 0.5 }} }}\n')
+        bot = name
+    return (head + _goturn_tower("1", "data1", d) + _goturn_tower("2", "data2", d)
+            + 'layer { name: "concat" type: "Concat" bottom: "pool51" bottom: "pool52" '
+              'top: "concat" concat_param { axis: 1 } }\n'
+            + fc
+            + 'layer { name: "fc8" type: "InnerProduct" bottom: "fc7b" top: "fc8" '
+              'inner_product_param { num_output: 4 } }\n'
+            + 'layer { name: "scale" type: "Power" bottom: "fc8" top: "scale" '
+              'power_param { scale: 10 } }\n')
+
+
+def goturn_layers(width_div: int = 1) -> list:
+    """(name, kernel shape) of each learned layer of :func:`goturn_prototxt`,
+    in order, with a bias of the kernel's first dimension each."""
+    d = width_div
+    out = []
+    for t in ("1", "2"):
+        c = 3
+        for name, n, k, g in (("conv1", 96, 11, 1), ("conv2", 256, 5, 2), ("conv3", 384, 3, 1),
+                              ("conv4", 384, 3, 2), ("conv5", 256, 3, 2)):
+            out.append((name + t, (n // d, c // g, k, k)))
+            c = n // d
+    fan = 2 * (256 // d) * 6 * 6
+    for name in ("fc6", "fc7", "fc7b"):
+        out.append((name, (4096 // d, fan)))
+        fan = 4096 // d
+    out.append(("fc8", (4, fan)))
+    return out
+
+
+def goturn_flops(width_div: int = 1) -> int:
+    """The operations of one forward (both towers, a multiply-add counting
+    two): the convolutions at 55, 27, 13, 13 and 13 px, and the products."""
+    hw = {"conv1": 55, "conv2": 27, "conv3": 13, "conv4": 13, "conv5": 13}
+    total = 0
+    for name, shape in goturn_layers(width_div):
+        per_out = int(np.prod(shape[1:]))
+        n_out = shape[0] * (hw[name[:5]] ** 2 if name.startswith("conv") else 1)
+        total += 2 * per_out * n_out
+    return total
+
+
+def write_goturn_caffemodel(path, seed: int = 0, width_div: int = 1) -> int:
+    """Random weights for :func:`goturn_prototxt` as a ``.caffemodel``,
+    written by the port's protobuf codec: each kernel a He-scaled normal
+    (fc8's times GOTURN_FC8_GAIN) from numpy's default_rng(seed), the
+    hidden biases 0 and fc8's GOTURN_PRIOR.  Returns the count of
+    parameters."""
+    from .dnn import _proto
+    caffe = _proto.schema("opencv_caffe")
+    rng = np.random.default_rng(seed)
+    net = caffe.NetParameter()
+    net.name = "GOTURN"
+    n = 0
+    for name, shape in goturn_layers(width_div):
+        fan_in = int(np.prod(shape[1:]))
+        std = np.sqrt(2.0 / fan_in) * (GOTURN_FC8_GAIN if name == "fc8" else 1.0)
+        kern = rng.standard_normal(shape, np.float32) * np.float32(std)
+        bias = (np.asarray(GOTURN_PRIOR, np.float32) if name == "fc8"
+                else np.zeros(shape[0], np.float32))
+        layer = net.layer.add()
+        layer.name = name
+        layer.type = "InnerProduct" if name.startswith("fc") else "Convolution"
+        for a in (kern, bias):
+            blob = layer.blobs.add()
+            blob.shape.dim.extend(a.shape)
+            blob.data.extend(a)
+            n += a.size
+    with open(path, "wb") as fh:
+        fh.write(net.SerializeToString())
+    return n
+
+
+def goturn_files(seed: int = 0, width_div: int = 1) -> tuple:
+    """:func:`goturn_prototxt` and :func:`write_goturn_caffemodel`'s weights
+    written under ``opencv_tpu_torch/_build/``: (prototxt path, caffemodel
+    path).  Each is written to a name of this process and moved into place,
+    so processes that write them at once never read a half-written file."""
+    import os
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+    os.makedirs(build, exist_ok=True)
+    stem = os.path.join(build, f"goturn_w{width_div}_seed{seed}")
+    tmp = f"{stem}.{os.getpid()}.tmp"
+    with open(tmp, "w") as fh:
+        fh.write(goturn_prototxt(width_div))
+    os.replace(tmp, stem + ".prototxt")
+    write_goturn_caffemodel(tmp, seed, width_div)
+    os.replace(tmp, stem + ".caffemodel")
+    return stem + ".prototxt", stem + ".caffemodel"
+
+
+def make_goturn_net(seed: int = 0, device="cuda", width_div: int = 1):
+    """GOTURN (:func:`goturn_files`) read by ``readNetFromCaffe`` onto
+    `device`."""
+    from .dnn import readNetFromCaffe
+    return readNetFromCaffe(*goturn_files(seed, width_div), device=device)
+
+
+def make_goturn_trackers(net, frame, boxes) -> list:
+    """One ``TrackerGOTURN`` per box (x, y, w, h), all reading the one
+    `net`, each initialised on `frame`."""
+    from .video.dnn_trackers import TrackerGOTURN
+    out = []
+    for box in boxes:
+        t = TrackerGOTURN(device=net.device, net=net)
+        t.init(frame, tuple(int(v) for v in box))
+        out.append(t)
+    return out
+
+
+def forward_track_dnn(frames, trackers) -> dict:
+    """Each tracker updated on frames 1.. in turn, as a multi-object
+    tracker runs its single-object trackers: {"boxes": (N-1, T, 4) int64
+    host array, "updates": per update (frame, tracker, region, target blob,
+    search blob, the net's output)}."""
+    boxes = np.zeros((len(frames) - 1, len(trackers), 4), np.int64)
+    updates = []
+    for i in range(1, len(frames)):
+        for k, t in enumerate(trackers):
+            _, boxes[i - 1, k] = t.update(frames[i])
+            updates.append((i, k, *t.last))
+    return {"boxes": boxes, "updates": updates}
+
+
+# The synthetic models of the other DNN trackers and features, built with the
+# port's codec: the graphs tests/test_dnn_trackers.py and test_dl_features.py
+# build with google.protobuf, from the same seeds
+
+def _onnx_tensor(S, name, arr):
+    t = S.TensorProto()
+    t.name = name
+    arr = np.asarray(arr)
+    t.data_type = 7 if arr.dtype == np.int64 else 1
+    t.dims.extend(arr.shape)
+    t.raw_data = np.ascontiguousarray(arr).tobytes()
+    return t
+
+
+def _onnx_node(S, op, inputs, outputs, **attrs):
+    n = S.NodeProto()
+    n.op_type = op
+    n.name = ""
+    n.input.extend(inputs)
+    n.output.extend(outputs)
+    for k, v in attrs.items():
+        a = n.attribute.add()
+        a.name = k
+        if isinstance(v, int):
+            a.type = S.AttributeProto.INT
+            a.i = v
+        else:
+            a.type = S.AttributeProto.INTS
+            a.ints.extend(v)
+    return n
+
+
+def _onnx_model(S, inputs, outputs, nodes, inits):
+    m = S.ModelProto()
+    m.ir_version = 7
+    m.opset_import.add().version = 13
+    g = m.graph
+    g.name = "t"
+    for io, specs in ((g.input, inputs), (g.output, outputs)):
+        for name, shape in specs:
+            vi = io.add()
+            vi.name = name
+            vi.type.tensor_type.elem_type = 1
+            for d in shape:
+                dim = vi.type.tensor_type.shape.dim.add()
+                if d:
+                    dim.dim_value = d
+                else:
+                    dim.dim_param = "d"
+    g.node.extend(nodes)
+    g.initializer.extend(inits)
+    return m
+
+
+def small_dnn_models() -> dict:
+    """The small ONNX graphs of the Nano, DaSiamRPN and Vit trackers and of
+    DISK and ALIKED, as {name: bytes}: "nano_backbone", "nano_neckhead",
+    "dasiam", "dasiam_cls1", "dasiam_r1", "vit", "disk", "aliked"."""
+    from .dnn import _proto
+    S = _proto.schema("onnx_schema")
+    T = functools.partial(_onnx_tensor, S)
+    N = functools.partial(_onnx_node, S)
+    M = functools.partial(_onnx_model, S)
+    out = {}
+    rng = np.random.default_rng(5)
+    wb = rng.normal(0, 0.1, (4, 3, 3, 3)).astype(np.float32)
+    bb = rng.normal(0, 0.1, 4).astype(np.float32)
+    out["nano_backbone"] = M(
+        [("input", (1, 3, 0, 0))], [("feat", (1, 4, 0, 0))],
+        [N("Conv", ["input", "wb", "bb"], ["feat"], kernel_shape=[3, 3], strides=[16, 16],
+           pads=[1, 1, 1, 1])], [T("wb", wb), T("bb", bb)])
+    wc = rng.normal(0, 0.4, (2, 4, 1, 1)).astype(np.float32)
+    bc = rng.normal(0, 0.2, 2).astype(np.float32)
+    wr = rng.normal(0, 0.4, (4, 4, 1, 1)).astype(np.float32)
+    br = rng.normal(0, 0.2, 4).astype(np.float32)
+    out["nano_neckhead"] = M(
+        [("input1", (1, 4, 8, 8)), ("input2", (1, 4, 16, 16))],
+        [("output1", (1, 2, 16, 16)), ("output2", (1, 4, 16, 16))],
+        [N("GlobalAveragePool", ["input1"], ["ga"]), N("Add", ["input2", "ga"], ["t"]),
+         N("Conv", ["t", "wc", "bc"], ["output1"], kernel_shape=[1, 1]),
+         N("Conv", ["t", "wr", "br"], ["bx"], kernel_shape=[1, 1]),
+         N("Sigmoid", ["bx"], ["bxs"]), N("Mul", ["bxs", "sc30"], ["output2"])],
+        [T("wc", wc), T("bc", bc), T("wr", wr), T("br", br),
+         T("sc30", np.float32(30.0).reshape(()))])
+    rng = np.random.default_rng(7)
+    ws = {k: rng.normal(0, s, shape).astype(np.float32) for k, s, shape in (
+        ("w1", 0.2, (8, 3, 7, 7)), ("b1", 0.1, 8), ("w2", 0.05, (256, 8, 13, 13)),
+        ("b2", 0.05, 256), ("w65", 0.02, (20, 256, 4, 4)), ("b65", 0.02, 20),
+        ("w68", 0.02, (10, 256, 4, 4)), ("b68", 0.02, 10))}
+    out["dasiam"] = M(
+        [("input", (1, 3, 0, 0))], [("65", (1, 20, 0, 0)), ("68", (1, 10, 0, 0))],
+        [N("Conv", ["input", "w1", "b1"], ["c1"], kernel_shape=[7, 7], strides=[8, 8]),
+         N("Relu", ["c1"], ["62"]),
+         N("Conv", ["62", "w2", "b2"], ["63"], kernel_shape=[13, 13]),
+         N("Conv", ["63", "w65", "b65"], ["65"], kernel_shape=[4, 4]),
+         N("Conv", ["63", "w68", "b68"], ["68"], kernel_shape=[4, 4])],
+        [T(k, a) for k, a in ws.items()])
+    for key, reps in (("dasiam_r1", 20), ("dasiam_cls1", 10)):
+        out[key] = M([("input", (1, 256, 4, 4))], [("out", (reps, 256, 4, 4))],
+                     [N("Tile", ["input", f"r{reps}"], ["out"])],
+                     [T(f"r{reps}", np.asarray([reps, 1, 1, 1], np.int64))])
+    rng = np.random.default_rng(9)
+    vw = {}
+    for k, s, shape in (("ws", 0.05, (4, 3, 16, 16)), ("bs", 0.05, 4), ("wt", 0.05, (4, 3, 16, 16)),
+                        ("bt", 0.05, 4), ("wconf", 0.5, (1, 4, 1, 1))):
+        vw[k] = rng.normal(0, s, shape).astype(np.float32)
+    vw["bconf"] = np.asarray([0.3], np.float32)
+    vw["wsz"] = rng.normal(0, 0.3, (2, 4, 1, 1)).astype(np.float32)
+    vw["bsz"] = np.asarray([-1.0, -1.0], np.float32)
+    vw["woff"] = rng.normal(0, 0.3, (2, 4, 1, 1)).astype(np.float32)
+    vw["boff"] = np.asarray([0.0, 0.0], np.float32)
+    out["vit"] = M(
+        [("template", (1, 3, 128, 128)), ("search", (1, 3, 256, 256))],
+        [("output1", (1, 1, 16, 16)), ("output2", (1, 2, 16, 16)), ("output3", (1, 2, 16, 16))],
+        [N("Conv", ["search", "ws", "bs"], ["fs"], kernel_shape=[16, 16], strides=[16, 16]),
+         N("Conv", ["template", "wt", "bt"], ["ft"], kernel_shape=[16, 16], strides=[16, 16]),
+         N("GlobalAveragePool", ["ft"], ["ga"]), N("Add", ["fs", "ga"], ["t"]),
+         N("Conv", ["t", "wconf", "bconf"], ["cf"], kernel_shape=[1, 1]),
+         N("Sigmoid", ["cf"], ["output1"]),
+         N("Conv", ["t", "wsz", "bsz"], ["sz"], kernel_shape=[1, 1]),
+         N("Sigmoid", ["sz"], ["output2"]),
+         N("Conv", ["t", "woff", "boff"], ["of"], kernel_shape=[1, 1]),
+         N("Sigmoid", ["of"], ["output3"])],
+        [T(k, a) for k, a in vw.items()])
+    kp = np.array([[0, 0], [100, 40], [200, 80], [631, 479], [300, 300], [50, 400]], np.float32)
+    scores = np.array([1.0, 0.9, 0.8, 0.7, 0.6, 0.5], np.float32)
+    desc = np.random.default_rng(4).normal(0, 1, (6, 128)).astype(np.float32)
+    for key, kp0, sc0, de0, outs in (
+            ("disk", kp[None], scores[None], desc[None],
+             [("keypoints", (1, 6, 2)), ("scores", (1, 6)), ("descriptors", (1, 6, 128))]),
+            ("aliked", kp / np.array([640, 480], np.float32) * 2 - 1, scores, desc,
+             [("keypoints", (6, 2)), ("scores", (6,)), ("descriptors", (6, 128))])):
+        nodes = [N("ReduceMean", ["image"], ["gm"], keepdims=0), N("Mul", ["gm", "zero"], ["z"])]
+        if key == "disk":
+            nodes += [N("Add", ["kp0", "z"], ["kpf"]), N("Cast", ["kpf"], ["keypoints"], to=7)]
+        else:
+            nodes += [N("Add", ["kp0", "z"], ["keypoints"])]
+        nodes += [N("Add", ["sc0", "z"], ["scores"]), N("Add", ["de0", "z"], ["descriptors"])]
+        m = M([("image", (1, 3, 0, 0))], outs, nodes,
+              [T("kp0", kp0), T("sc0", sc0), T("de0", de0), T("zero", np.zeros((), np.float32))])
+        if key == "disk":
+            m.graph.output[0].type.tensor_type.elem_type = 7   # int64 keypoints
+        out[key] = m
+    return {k: m.SerializeToString() for k, m in out.items()}
+
+
+def dnn_sweep(models: dict, frames, box, workdir: str, device="cuda") -> dict:
+    """The other DNN trackers and features on `device` over
+    :func:`small_dnn_models`' graphs (written to `workdir`): Nano,
+    DaSiamRPN and Vit initialised on frames[0] at `box` and updated on the
+    rest, DISK (at most 5 keypoints of score >= 0.75, 320×240) and ALIKED
+    on frames[0], and LightGlue's match.  Returns {"nano", "dasiam", "vit":
+    per update (ok, box, score); "disk", "aliked": (points, scores,
+    descriptors); "lightglue": the name of the exception its match
+    raised}."""
+    import os
+    from . import video
+    from .features2d import DISK, ALIKED
+    from .features2d.matchers import LightGlueMatcher
+    paths = {}
+    for k, b in models.items():
+        paths[k] = os.path.join(workdir, k + ".onnx")
+        with open(paths[k], "wb") as fh:
+            fh.write(b)
+    out = {}
+    nano = video.TrackerNano.Params()
+    nano.backbone, nano.neckhead = paths["nano_backbone"], paths["nano_neckhead"]
+    dasiam = video.TrackerDaSiamRPN.Params()
+    dasiam.model, dasiam.kernel_cls1, dasiam.kernel_r1 = (paths["dasiam"], paths["dasiam_cls1"],
+                                                          paths["dasiam_r1"])
+    vit = video.TrackerVit.Params()
+    vit.net = paths["vit"]
+    for key, make, params in (("nano", video.TrackerNano, nano),
+                              ("dasiam", video.TrackerDaSiamRPN, dasiam),
+                              ("vit", video.TrackerVit, vit)):
+        t = make(params, device)
+        t.init(frames[0], tuple(int(v) for v in box))
+        res = []
+        for f in frames[1:]:
+            ok, b = t.update(f)
+            res.append((ok, tuple(int(v) for v in b), t.getTrackingScore()))
+        out[key] = res
+    for key, det in (("disk", DISK(paths["disk"], 5, 0.75, (320, 240), device=device)),
+                     ("aliked", ALIKED(paths["aliked"], device=device))):
+        kps, desc = det.detectAndCompute(frames[0], None)
+        out[key] = (np.array([k.pt for k in kps]), np.array([k.response for k in kps]), desc)
+    lg = LightGlueMatcher(paths["aliked"], device=device)
+    try:
+        lg.match(None, out["aliked"][2], None, out["aliked"][2], (1, 1), (1, 1))
+    except NotImplementedError as e:
+        out["lightglue"] = type(e).__name__
+    return out

@@ -1,9 +1,9 @@
 """features2d of the port: the KeyPoint API, GFTTDetector, FAST, AGAST,
 ORB, SIFT, BRISK, AKAZE, KAZE, MSER, SimpleBlobDetector, BFMatcher and
 FlannBasedMatcher, BOWKMeansTrainer and BOWImgDescriptorExtractor,
-AffineFeature, and the detector evaluation (twin of
-``opencv_tpu/features2d``; the DNN features and LightGlue wait for ``dnn``,
-ROADMAP.md queue A)."""
+AffineFeature, the detector evaluation, and the DNN features (DISK,
+ALIKED) and LightGlueMatcher over the port's dnn (twin of
+``opencv_tpu/features2d``)."""
 
 from .keypoint import (  # noqa: F401
     KeyPoint, KeyPoint_convert, KeyPoint_overlap, retain_best, run_by_image_border,
@@ -13,6 +13,7 @@ from .fast import FAST, FastFeatureDetector, FastFeatureDetector_create  # noqa:
 from .orb import ORB, ORB_create  # noqa: F401
 from .matchers import (  # noqa: F401
     BFMatcher, DMatch, DescriptorMatcher_create, FlannBasedMatcher, FlannBasedMatcher_create,
+    LightGlueMatcher, LightGlueMatcher_create, LightGlueMatcher_createFromMemory,
     hamming_distance_matrix,
 )
 from .sift import SIFT, SIFT_create  # noqa: F401
@@ -34,6 +35,7 @@ from .affine_feature import AffineFeature, AffineFeature_create  # noqa: F401
 from .evaluation import (  # noqa: F401
     evaluateFeatureDetector, computeRecallPrecisionCurve, getRecall, getNearestPoint,
 )
+from .dl_features import ALIKED, ALIKED_Params, DISK  # noqa: F401
 
 # cv2-style flat constant aliases
 AKAZE_DESCRIPTOR_KAZE_UPRIGHT = DESCRIPTOR_KAZE_UPRIGHT

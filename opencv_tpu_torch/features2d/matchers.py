@@ -1,6 +1,7 @@
 """Descriptor matchers (features2d/src/matchers.cpp), twin of
-``opencv_tpu/features2d/matchers.py``: BFMatcher, FlannBasedMatcher and
-the factories (LightGlue waits for the dnn module).
+``opencv_tpu/features2d/matchers.py``: BFMatcher, FlannBasedMatcher,
+LightGlueMatcher (its net read by the port's dnn; ``match`` raises, as the
+JAX package's does) and the factories.
 
 The distance matrix is computed on the descriptors' device: Hamming and
 Hamming2 by XOR and a bit-trick popcount on u8 (exact), L1 by broadcasting
@@ -25,7 +26,9 @@ from ..core.arrays import as_tensor
 from ..flann.index import FLANN_INDEX_KDTREE, FLANN_INDEX_LSH, Index, _host
 
 __all__ = ["DMatch", "BFMatcher", "FlannBasedMatcher", "DescriptorMatcher_create",
-           "FlannBasedMatcher_create", "hamming_distance_matrix", "hamming2_distance_matrix"]
+           "FlannBasedMatcher_create", "LightGlueMatcher", "LightGlueMatcher_create",
+           "LightGlueMatcher_createFromMemory", "hamming_distance_matrix",
+           "hamming2_distance_matrix"]
 
 
 class DMatch:
@@ -235,3 +238,37 @@ def DescriptorMatcher_create(matcherType):
 
 def FlannBasedMatcher_create():
     return FlannBasedMatcher()
+
+
+class LightGlueMatcher:
+    """cv::LightGlueMatcher — transformer-based matcher driven by an ONNX
+    model through the port's dnn reader, on `device` ("cuda" unless
+    asked).  Requires the user-supplied LightGlue ONNX export (no weights
+    are bundled, same as the reference)."""
+
+    def __init__(self, modelPath=None, modelBuffer=None,
+                 scoreThreshold: float = 0.0, device=None):
+        from ..dnn import readNetFromONNX
+        self._thr = float(scoreThreshold)
+        if modelPath is not None:
+            self._net = readNetFromONNX(modelPath, device)
+        elif modelBuffer is not None:
+            self._net = readNetFromONNX(modelBuffer, device)
+        else:
+            raise ValueError("a model path or buffer is required")
+
+    def match(self, kpts0, desc0, kpts1, desc1, imageSize0, imageSize1):
+        self._net.setInput(np.asarray(desc0, np.float32), "desc0")
+        raise NotImplementedError(
+            "run the LightGlue ONNX graph via cv.dnn directly; the "
+            "fused matcher entry point needs the official export")
+
+
+def LightGlueMatcher_create(modelPath, scoreThreshold: float = 0.0,
+                            backend: int = 0, target: int = 0, device=None):
+    return LightGlueMatcher(modelPath=modelPath, scoreThreshold=scoreThreshold, device=device)
+
+
+def LightGlueMatcher_createFromMemory(buffer, scoreThreshold: float = 0.0,
+                                      backend: int = 0, target: int = 0, device=None):
+    return LightGlueMatcher(modelBuffer=buffer, scoreThreshold=scoreThreshold, device=device)

@@ -14,7 +14,10 @@ even H and W), which counts both in ``tier_stats()``.
 
 The launch plan (:func:`_plan`: strip width, blocks, column groups, the
 aligned path) is computed here, on the host, and handed to the C entry with
-the taps; the entry refuses a plan that does not cover the image.
+the taps; the entry refuses a plan that does not cover the image.  The
+launch is also the custom op ``opencv_tpu_torch::gauss5_down2`` (CUDA only,
+with a fake implementation), which the wrapper calls under
+``torch.export``; an empty plan is made from the real input's address.
 """
 
 from __future__ import annotations
@@ -104,16 +107,37 @@ def fused_gray_gauss5_down2_plain(imgs, sigma: float = 0.0):
     return gauss5_down2_u8_plain(gray.to(torch.uint8), sigma)
 
 
-def _launch(x, sigma: float, has_bgr: bool, plan: Plan | None = None):
+def _gauss5_down2_launch(x, taps, has_bgr, plan):
+    """One launch of ``csrc/fused_preproc.cu``, counted in
+    ``GAUSS5_DOWN2``; an empty `plan` is :func:`_plan`'s for this input."""
     N, H, W = x.shape[:3]
     x = x.contiguous()
-    if plan is None:
-        plan = _plan(N, H, W, has_bgr, x.data_ptr())
+    p = (Plan(*plan[:3], bool(plan[3]), plan[4]) if plan
+         else _plan(N, H, W, has_bgr, x.data_ptr()))
     out = torch.empty((N, H // 2, W // 2), dtype=torch.uint8, device=x.device)
-    args = (*_taps(sigma), plan.px, plan.blocks, plan.gx, int(plan.vec))
+    args = (*taps, p.px, p.blocks, p.gx, int(p.vec))
     GAUSS5_DOWN2(x.device, x.data_ptr(), out.data_ptr(), N, H, W, int(has_bgr),
                  (ctypes.c_int * len(args))(*args), stream_of(x))
     return out
+
+
+_gauss5_down2_op = torch.library.custom_op(
+    "opencv_tpu_torch::gauss5_down2", _gauss5_down2_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor x, int[] taps, bool has_bgr, int[] plan) -> Tensor")
+
+
+@_gauss5_down2_op.register_fake
+def _(x, taps, has_bgr, plan):
+    N, H, W = x.shape[:3]
+    return x.new_empty((N, H // 2, W // 2))
+
+
+def _launch(x, sigma: float, has_bgr: bool, plan: Plan | None = None):
+    """The kernel on CUDA `x`, under `plan` (default :func:`_plan`'s)."""
+    launch = _gauss5_down2_op if torch.compiler.is_exporting() else _gauss5_down2_launch
+    return launch(x, _taps(sigma), has_bgr,
+                  [] if plan is None else [plan.px, plan.blocks, plan.gx, int(plan.vec),
+                                           plan.band])
 
 
 def _gauss5_down2_pred(ctx):

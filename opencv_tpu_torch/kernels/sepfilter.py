@@ -11,7 +11,14 @@ Twin of ``opencv_tpu/kernels/sepfilter.py``:
   ``pyr_down_u8``.
 
 Each wrapper takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; it never falls back from one to the other.
+kernel for a CUDA tensor; it never falls back from one to the other.  Each
+launch is also a custom op (``opencv_tpu_torch::sep_filter``,
+``opencv_tpu_torch::pyr_down``) registered for CUDA only, with a fake
+implementation that gives its output's shape and dtype: under
+``torch.export`` the wrapper calls the op, so the exported program holds
+the launch as an op call and launches the same kernel once loaded; eagerly
+it calls the launch itself (the dispatcher's round trip through Python
+costs about 0.1 ms of host time a call).
 """
 
 from __future__ import annotations
@@ -99,6 +106,35 @@ def _check(x):
         raise ValueError(f"sep_filter: expected (N,H,W,C) uint8, got {tuple(x.shape)} {x.dtype}")
 
 
+def _sep_filter_launch(x, kx, ky, shift, delta, scale, out_int16, border, bval):
+    """One launch of ``csrc/sepfilter.cu`` on (N,H,W,C) u8 `x` (the checks
+    are the wrapper's), counted in ``SEP_FILTER``."""
+    N, H, W, C = x.shape
+    x = x.contiguous()
+    out = torch.empty((N, H, W, C), dtype=torch.int16 if out_int16 else torch.uint8,
+                      device=x.device)
+    k = sep_filter_route(kx, ky)
+    SEP_FILTER(
+        x.device, x.data_ptr(), out.data_ptr(), N, H, W, C,
+        (ctypes.c_int * len(kx))(*kx), len(kx), (ctypes.c_int * len(ky))(*ky), len(ky),
+        shift, delta, int(scale is not None), scale if scale is not None else 0.0,
+        border, (ctypes.c_int * 4)(*bval), int(out_int16), k, stream_of(x),
+        route=SEP_ROUTES[k])
+    return out
+
+
+_sep_filter_op = torch.library.custom_op(
+    "opencv_tpu_torch::sep_filter", _sep_filter_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor x, int[] kx, int[] ky, int shift, int delta, float? scale, bool out_int16, "
+           "int border, int[] bval) -> Tensor")
+
+
+@_sep_filter_op.register_fake
+def _(x, kx, ky, shift, delta, scale, out_int16, border, bval):
+    return torch.empty_like(x, dtype=torch.int16 if out_int16 else torch.uint8,
+                            memory_format=torch.contiguous_format)
+
+
 def sep_filter_int(x, kx, ky, shift: int = 0, delta: int = 0, scale=None,
                    out_dtype=torch.uint8, border: int = K.BORDER_DEFAULT,
                    border_value=0):
@@ -117,21 +153,12 @@ def sep_filter_int(x, kx, ky, shift: int = 0, delta: int = 0, scale=None,
         raise RuntimeError(f"sep_filter: no kernel for device {x.device}")
     if out_dtype not in (torch.uint8, torch.int16):
         raise ValueError(f"sep_filter: out_dtype {out_dtype} is not uint8 or int16")
-    kx = [int(v) for v in kx]
-    ky = [int(v) for v in ky]
-    N, H, W, C = x.shape
-    x = x.contiguous()
-    out = torch.empty((N, H, W, C), dtype=out_dtype, device=x.device)
+    C = x.shape[3]
     bval = [int(v) for v in constant_vector(border_value, C)] + [0] * (4 - C)
-    k = sep_filter_route(kx, ky)
-    SEP_FILTER(
-        x.device, x.data_ptr(), out.data_ptr(), N, H, W, C,
-        (ctypes.c_int * len(kx))(*kx), len(kx), (ctypes.c_int * len(ky))(*ky), len(ky),
-        int(shift), int(delta), int(scale is not None),
-        float(scale) if scale is not None else 0.0,
-        border & ~K.BORDER_ISOLATED, (ctypes.c_int * 4)(*bval),
-        int(out_dtype == torch.int16), k, stream_of(x), route=SEP_ROUTES[k])
-    return out
+    launch = _sep_filter_op if torch.compiler.is_exporting() else _sep_filter_launch
+    return launch(x, [int(v) for v in kx], [int(v) for v in ky], int(shift), int(delta),
+                  None if scale is None else float(scale), out_dtype == torch.int16,
+                  border & ~K.BORDER_ISOLATED, bval)
 
 
 def sep_filter_u8(x, kx, ky, shift: int, border: int = K.BORDER_DEFAULT, border_value=0):
@@ -194,6 +221,27 @@ def pyr_down_u8_plain(x, border: int = K.BORDER_DEFAULT):
     return pyr_down_int_plain(x, _check_pyr(x, border))
 
 
+def _pyr_down_launch(x, border):
+    """One launch of ``csrc/pyrdown.cu`` on (N,H,W,C) u8 `x`, counted in
+    ``PYR_DOWN``."""
+    N, H, W, C = x.shape
+    x = x.contiguous()
+    out = torch.empty((N, (H + 1) // 2, (W + 1) // 2, C), dtype=torch.uint8, device=x.device)
+    PYR_DOWN(x.device, x.data_ptr(), out.data_ptr(), N, H, W, C, border, stream_of(x))
+    return out
+
+
+_pyr_down_op = torch.library.custom_op(
+    "opencv_tpu_torch::pyr_down", _pyr_down_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor x, int border) -> Tensor")
+
+
+@_pyr_down_op.register_fake
+def _(x, border):
+    N, H, W, C = x.shape
+    return x.new_empty((N, (H + 1) // 2, (W + 1) // 2, C))
+
+
 def pyr_down_u8(x, border: int = K.BORDER_DEFAULT):
     """`cv::pyrDown` 8U: (N,H,W,C) u8 → (N,(H+1)/2,(W+1)/2,C) u8,
     {1,4,6,4,1}⊗{1,4,6,4,1} with 2:1 decimation and ``(v + 128) >> 8``
@@ -203,11 +251,7 @@ def pyr_down_u8(x, border: int = K.BORDER_DEFAULT):
         return pyr_down_u8_plain(x, bt)
     if x.device.type != "cuda":
         raise RuntimeError(f"pyr_down: no kernel for device {x.device}")
-    N, H, W, C = x.shape
-    x = x.contiguous()
-    out = torch.empty((N, (H + 1) // 2, (W + 1) // 2, C), dtype=torch.uint8, device=x.device)
-    PYR_DOWN(x.device, x.data_ptr(), out.data_ptr(), N, H, W, C, bt, stream_of(x))
-    return out
+    return (_pyr_down_op if torch.compiler.is_exporting() else _pyr_down_launch)(x, bt)
 
 
 # ---------------------------------------------------------------------------

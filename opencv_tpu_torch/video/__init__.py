@@ -1,8 +1,8 @@
 """video of the port: background subtraction (MOG2, KNN), pyramidal
 Lucas-Kanade, Farnebäck, DIS and variational refinement, the flow
-pyramid and .flo IO, Kalman, meanShift / CamShift, ECC and TrackerMIL
-(twin of ``opencv_tpu/video``; the DNN trackers wait for ``dnn``, ROADMAP.md
-queue A)."""
+pyramid and .flo IO, Kalman, meanShift / CamShift, ECC, TrackerMIL and
+the DNN trackers (Nano, DaSiamRPN, GOTURN, Vit) over the port's dnn (twin
+of ``opencv_tpu/video``)."""
 
 from .bgsub import (  # noqa: F401
     BackgroundSubtractorMOG2,
@@ -30,6 +30,12 @@ from .ecc import (  # noqa: F401
 )
 from .dis import DISOpticalFlow, DISOpticalFlow_create  # noqa: F401
 from .trackers import TrackerMIL, TrackerMIL_create  # noqa: F401
+from .dnn_trackers import (  # noqa: F401
+    TrackerNano, TrackerNano_create,
+    TrackerDaSiamRPN, TrackerDaSiamRPN_create,
+    TrackerGOTURN, TrackerGOTURN_create,
+    TrackerVit, TrackerVit_create,
+)
 from .variational import (  # noqa: F401
     VariationalRefinement, VariationalRefinement_create,
 )

@@ -22,8 +22,10 @@ TB/s) and its share of it.  CUDA events around each call, the 50 MB L2
 flushed before it, median and quartiles of ``--iters`` calls (default 200;
 20 after 3 warm-ups for gauss5, ``chip_smoke.Timer``'s protocol), as the
 caller sees it and with the host part held out of the window (the card
-spins first, so the whole call is queued when the window opens).  Prints
-one line per process and the card's name and power limit.
+spins first, so the whole call is queued when the window opens), and the
+host's enqueue time of the call in that second run (``... host``: the
+host clock around the call while the card spins, so nothing waits for
+it).  Prints one line per process and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 HBM_BYTES_PER_S = 3.35e12  # as chip_smoke.py: the H100 SXM's memory rate
 # gauss5: bytes in + out of each timed call
@@ -97,10 +100,14 @@ def child(root: str, iters: int, path: str) -> None:
 
     warmup = 3 if path == "gauss5" else 5
 
+    def quartiles(times):
+        q1, med, q3 = statistics.quantiles(times, n=4)
+        return {"median": med, "q1": q1, "q3": q3}
+
     def timed(fn, device_only):
         for _ in range(warmup):
             fn()
-        times = []
+        times, host = [], []
         for _ in range(iters):
             flush.zero_()
             if device_only:
@@ -108,17 +115,18 @@ def child(root: str, iters: int, path: str) -> None:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
+            t0 = time.perf_counter()
             fn()
+            host.append((time.perf_counter() - t0) * 1e3)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
-        q1, med, q3 = statistics.quantiles(times, n=4)
-        return {"median": med, "q1": q1, "q3": q3}
+        return quartiles(times), quartiles(host)
 
     out = {"root": root}
     for name, fn in fns:
-        out[name] = timed(fn, False)
-        out[name + " device"] = timed(fn, True)
+        out[name] = timed(fn, False)[0]
+        out[name + " device"], out[name + " host"] = timed(fn, True)
     syncs = {name: count_syncs(torch, fn) for name, fn in fns}
     print(json.dumps({**out, "host syncs": syncs}), flush=True)
 

@@ -5,7 +5,7 @@
         [--sort COLUMN]
 
 PATH is one of flagship, cfg2, cfg3, cfg4, cfg5, decode, enhance, motion,
-lines, segment, photo and stereo.
+lines, segment, photo, stereo, stitch, gapi and trackdnn.
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
@@ -45,7 +45,17 @@ fuse, denoise, detail, flatten, inpaint; ``--path stereo`` the stereo-depth
 path (``entry.forward_stereo``) on ``make_stereo_rig()``'s scene pair with
 the rig ``entry.calibrate_rig`` calibrates first (not profiled), in its
 stages (``entry.STEREO_STAGES``): rectify, half, sgbm, bm, speckles, depth
-(run it with ``--repeats 3 --iters 1``). Each runs under
+(run it with ``--repeats 3 --iters 1``); ``--path stitch`` the stitching
+path's stages on its last pair (``entry.forward_stitch`` on
+``make_pan_video()``'s pan, run once first to give the panorama so far and
+the homography): orb (both images), match (the Hamming matches on the
+card), homography (RANSAC on the host), warp (the canvas), distance (the
+seam weights) and blend; ``--path gapi`` ``entry.gapi_flagship()``'s graph
+through ``gapi.Stream`` over four host batches of ``make_batch()``, on one
+resident batch, and its ``torch.export`` program loaded back; ``--path
+trackdnn`` GOTURN at its published widths (``entry.make_goturn_net``) on
+``make_motion_video()``'s frames: one tracker's crops and blobs, the net's
+forward, and an update of all six trackers. Each runs under
 ``torch.profiler`` with one ``record_function`` span per stage. Prints, per
 stage, the time between CUDA events around it (median of ``--repeats``,
 unprofiled) beside the device time of its torch-op kernels
@@ -256,10 +266,64 @@ def stereo_stages():
     return [(name, step(fn)) for name, fn, _ in E.STEREO_STAGES]
 
 
+def stitch_stages():
+    """The stitching path's six stages on its last pair."""
+    from opencv_tpu_torch.blenders import blend_multiband
+    from opencv_tpu_torch.calib3d.geometry import RANSAC, findHomography
+    frames_np, _ = E.make_pan_video(E.SHAPE_STITCH)
+    frames = torch.from_numpy(frames_np).cuda()
+    st = E.forward_stitch(frames)
+    s, Hs = st["stitcher"], st["homographies"]
+    base = frames[0]
+    for i, H in enumerate(Hs[:-1]):
+        base = s.compose(base, frames[i + 1], H)
+    b, H = frames[-1], Hs[-1]
+    (_, d1), (_, d2) = s.orb.detectAndCompute(base, None), s.orb.detectAndCompute(b, None)
+    d1, d2 = torch.from_numpy(d1).cuda(), torch.from_numpy(d2).cuda()
+    src, dst = s.match_points(base, b)
+    canvas, warped, ma, mb = s.canvas(base, b, H)
+    wa, wb = s.seam_weights(ma, mb)
+    return [("orb", lambda _: (s.orb.detectAndCompute(base, None),
+                               s.orb.detectAndCompute(b, None))),
+            ("match", lambda _: s.matcher.match(d2, d1)),
+            ("homography", lambda _: findHomography(src, dst, RANSAC, 3.0)),
+            ("warp", lambda _: s.canvas(base, b, H)),
+            ("distance", lambda _: s.seam_weights(ma, mb)),
+            ("blend", lambda _: blend_multiband([canvas, warped], [wa, wb], num_bands=4))]
+
+
+def gapi_stages():
+    """The flagship graph through Stream, on a resident batch, and loaded
+    back from its exported bytes."""
+    from opencv_tpu_torch import gapi
+    batches = [E.make_batch(E.SHAPE, seed) for seed in range(4)]
+    comp = E.gapi_flagship(E.SHAPE)
+    x = torch.from_numpy(batches[0]).cuda()
+    fn = gapi.deserialize_compiled(gapi.serialize_compiled(comp.apply, x))
+    return [("stream4", lambda _: E.forward_gapi(batches, comp, "cuda")),
+            ("graph", lambda _: comp.apply(x)),
+            ("loaded", lambda _: fn(x))]
+
+
+def trackdnn_stages():
+    """GOTURN at its published widths: one tracker's crops, the net, and an
+    update of the six trackers on frame 1."""
+    frames_np, _, boxes = E.make_motion_video(E.SHAPE_TRACK_DNN)
+    frames = torch.from_numpy(frames_np).cuda()
+    trackers = E.make_goturn_trackers(E.make_goturn_net(0, "cuda"), frames[0], boxes[0])
+    t = trackers[0]
+    region = t.search_region()
+    target, search = t.blobs(frames[1], region)
+    return [("crops", lambda _: t.blobs(frames[1], region)),
+            ("net", lambda _: t.forward(target, search)),
+            ("update6", lambda _: [k.update(frames[1]) for k in trackers])]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
          "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages,
          "enhance": enhance_stages, "motion": motion_stages, "lines": lines_stages,
-         "segment": segment_stages, "photo": photo_stages, "stereo": stereo_stages}
+         "segment": segment_stages, "photo": photo_stages, "stereo": stereo_stages,
+         "stitch": stitch_stages, "gapi": gapi_stages, "trackdnn": trackdnn_stages}
 
 
 def staged(stages, marks=None):

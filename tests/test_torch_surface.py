@@ -444,13 +444,11 @@ def test_motion_value_equals_opencv_tpu(name):
     assert getattr(tcv, name) == getattr(cv2, name)
 
 
-def test_video_leaves_out_only_the_dnn_trackers():
+def test_video_leaves_nothing_out():
     import opencv_tpu.video as jvideo
     left = sorted(n for n in dir(jvideo) if not n.startswith("_") and not hasattr(tcv.video, n)
                   and not n.islower())
-    assert left == ["TrackerDaSiamRPN", "TrackerDaSiamRPN_create", "TrackerGOTURN",
-                    "TrackerGOTURN_create", "TrackerNano", "TrackerNano_create", "TrackerVit",
-                    "TrackerVit_create"]
+    assert left == []
 
 
 # the photo module's top-level names (classes, factories, functions), with
@@ -646,16 +644,6 @@ def test_ann_index_equals_opencv_tpu(dist, tmp_path):
 # counts whether or not a test has imported it (an import makes it an
 # attribute of its package).
 STILL_TO_PORT = {
-    "dnn_trackers": ("TrackerDaSiamRPN", "TrackerDaSiamRPN_Params", "TrackerDaSiamRPN_create",
-                     "TrackerGOTURN", "TrackerGOTURN_create", "TrackerNano", "TrackerNano_Params",
-                     "TrackerNano_create", "TrackerVit", "TrackerVit_Params", "TrackerVit_create"),
-    "dl_features": ("ALIKED", "ALIKED_Params", "ALIKED_create", "DISK", "DISK_create",
-                    "DISK_createFromMemory"),
-    "LightGlue": ("LightGlueMatcher", "LightGlueMatcher_create",
-                  "LightGlueMatcher_createFromMemory"),
-    "gapi": ("Stream", "gapi", "pipeline"),
-    "blenders": ("FeatherBlender", "MultiBandBlender", "blenders", "detail_Blender",
-                 "detail_FeatherBlender", "detail_MultiBandBlender"),
     "cuda": ("cuda",),
     "threed": ("threed", "RASTERIZE_COMPAT_DISABLED", "RASTERIZE_COMPAT_INVDEPTH",
                "RASTERIZE_CULLING_CCW", "RASTERIZE_CULLING_CW", "RASTERIZE_CULLING_NONE",
@@ -676,24 +664,6 @@ STILL_TO_PORT = {
                   "mcc_DetectorParametersMCC", "QRCodeEncoder", "QRCodeEncoder_Params",
                   "QRCodeEncoder_create", "GraphicalCodeDetector", "QRCodeDetector",
                   "QRCodeDetectorAruco", "QRCodeDetectorAruco_Params"),
-    "stitching": ("stitching", "Stitcher", "Stitcher_create", "stitch_warpers",
-                  "PyRotationWarper", "WarperCreator", "detail_ProjectorBase",
-                  "detail_SphericalProjector", "stitch_detail", "detail",
-                  "detail_AffineBasedEstimator", "detail_AffineBestOf2NearestMatcher",
-                  "detail_BestOf2NearestMatcher", "detail_BestOf2NearestRangeMatcher",
-                  "detail_BlocksChannelsCompensator", "detail_BlocksCompensator",
-                  "detail_BlocksGainCompensator", "detail_BundleAdjusterAffine",
-                  "detail_BundleAdjusterAffinePartial", "detail_BundleAdjusterBase",
-                  "detail_BundleAdjusterRay", "detail_BundleAdjusterReproj",
-                  "detail_CameraParams", "detail_ChannelsCompensator", "detail_DpSeamFinder",
-                  "detail_Estimator", "detail_ExposureCompensator", "detail_FeaturesMatcher",
-                  "detail_GainCompensator", "detail_GraphCutSeamFinder",
-                  "detail_HomographyBasedEstimator", "detail_ImageFeatures",
-                  "detail_LightGlueFeaturesMatcher", "detail_MatchesInfo",
-                  "detail_NoBundleAdjuster", "detail_NoExposureCompensator",
-                  "detail_NoSeamFinder", "detail_PairwiseSeamFinder", "detail_PoseGraph",
-                  "detail_SeamFinder", "detail_Timelapser", "detail_TimelapserCrop",
-                  "detail_VoronoiSeamFinder"),
     "videostab": ("videostab",),
     "imgcodecs": ("imgcodecs", "IMREAD_ANYCOLOR", "IMREAD_ANYDEPTH", "IMREAD_COLOR",
                   "IMREAD_GRAYSCALE", "IMREAD_UNCHANGED", "Animation", "haveImageReader",
@@ -730,7 +700,7 @@ STILL_TO_PORT = {
 def test_only_the_modules_still_to_port_are_missing():
     import pkgutil
     listed = [n for names in STILL_TO_PORT.values() for n in names]
-    assert len(listed) == len(set(listed)) == 244
+    assert len(listed) == len(set(listed)) == 172
     theirs = set(dir(jcv)) | {m.name for m in pkgutil.iter_modules(jcv.__path__)}
     ours = set(dir(tcv)) | {m.name for m in pkgutil.iter_modules(tcv.__path__)}
     missing = {n for n in theirs - ours if not n.startswith("_")}
