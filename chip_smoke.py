@@ -17,7 +17,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    video path's: N = 2 at 1080p and its three LK levels, N = 8 at 1080p;
    gauss5_down2 at the stereo path's rectified pair, (2, 1080, 1920, 3);
    sep_filter's route k3 with C = 3 at the photo path's (1, 1071, 1911, 3),
-   u8 -> i16, dx and dy under BORDER_REPLICATE), and on edge cases
+   u8 -> i16, dx and dy under BORDER_REPLICATE; ArUco's normalised boxes of
+   windows 3, 13 and 23 at (1, 1080, 1920, 1) under BORDER_REPLICATE |
+   BORDER_ISOLATED, route k3 and the generic kernel), and on edge cases
    (borders, channel counts, odd and tiny sizes, rows of every width and
    offset views for the K = 7 template, k = 9 and 31 for
    the generic kernel; gauss5_down2's strip classes: 3W % 16 != 0, a base
@@ -286,14 +288,50 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       (``entry.dnn_sweep``); the net's time by CUDA events beside its bytes
       and FLOP bounds, the path's busy share, host syncs and peak memory;
       the wall against PATH_WALL_BUDGET_S;
+   v. object detection: ``entry.make_marker_scene()``'s (8, 1080, 1920, 3)
+      frames (12 free DICT_6X6_250 markers under mild homographies, the 5 x
+      7 ChArUco board, a QR code and an EAN-13 code; numpy from the seed)
+      and its colour chart through ``entry.forward_objdetect``:
+      ArucoDetector.detectMarkers, CharucoDetector.detectBoard,
+      QRCodeDetector.detectAndDecode (on the codes' band, entry.QR_ROI),
+      BarcodeDetector.detectAndDecode, HOGDescriptor.detectMultiScale with
+      the INRIA SVM at samples/python/peopledetect.py's settings (44 scales)
+      and CCheckerDetector.process; sep_filter must launch on route k3 2 x 8
+      times and on the generic kernel 4 x 8 times (ArUco's windows 3, 13 and
+      23 in each frame's two marker passes) and nothing else; the truth
+      gates of ``entry.objdetect_truth_report``; on frame 0 the thresholded
+      planes and the markers equal the CPU's, HOG's window scores within
+      HOG_SCORE_ATOL at every scale the CPU reaches in HOG_CPU_BUDGET_S (a
+      window found on one device only must score within HOG_SCORE_ATOL of
+      hitThreshold); the seeded Haar cascade (``entry.haar_cascade_xml``:
+      24 x 24, tilted features) equal to the CPU's, YuNet's faces within
+      FACE_ATOL and SFace's embedding within FACE_EMB_RTOL; the stage times,
+      host syncs, peak memory, a 2-frame profiled run's busy share and the
+      inputs' bytes bound; the wall against PATH_WALL_BUDGET_S;
+   w. RGB-D fusion at ``cv::kinfu::Params::defaultParams()``: the room of
+      ``entry.make_rgbd_scene()`` rendered on the card by
+      triangleRasterizeDepth over a 30-frame trajectory (640 x 480, fx = fy
+      = 525) and sent as u16 millimetres, Odometry.compute frame to frame
+      (ICP {10, 5, 4}), Volume.integrate of each frame at its chained pose
+      in a 512³ f32 TSDF and weight volume of 3 m (1,073.7 MB on the card),
+      raycast at the last pose and fetchPointsNormals
+      (``entry.forward_fusion``); no kernel of csrc/ launches; the gates of
+      ``entry.fusion_truth_report``; against the CPU the 30 rendered frames
+      equal, each ICP pose within FUSION_ODO_ATOL, frame 0's integration of
+      the x-slab FUSION_SLAB and the raycast of every FUSION_RAY_ROW_STEP-th
+      row equal; the stage times, host syncs, peak memory, a profiled run's
+      busy share and the bytes bound (each integration reads and writes the
+      volume, the raycast reads it once, each render writes its frame); the
+      wall against PATH_WALL_BUDGET_S;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
    the f32 rate if larger) and, where one PyTorch call computes the same
    multiply-accumulate, that call (``library_ms``: ``F.conv2d`` on a
    pre-padded f32 copy, timed only here), and for sep_filter the route each
-   shape takes (the generic kernel timed at k = 9 on ORB's level-2 shape,
-   as no main path launches it); each op of config 3; the whole
+   shape takes (the generic kernel at ArUco's windows 13 and 23, beside
+   route k3 at its window 3, at the 1080p frame of the objdetect path, 4v);
+   each op of config 3; the whole
    forwards; config 4's forward and ops; the pad inside one erode, whole and
    its device work alone; goodFeaturesToTrack's device part and host
    tail apart; config 5's forward on the host clock, its host syncs, and its
@@ -330,7 +368,7 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    its bound and F.conv2d; the stereo forward's six stages the same way,
    with SGBM's kernel launches in one stage (``torch.profiler``), 4p's
    wall, and gauss5_down2 at the stereo shape (2, 1080, 1920, 3); phases
-   4s, 4t and 4u time their own stages beside their bounds inside their
+   4s to 4w time their own stages beside their bounds inside their
    budgets.  A kernel's share of its bound is
    bound_ms / ms.
 
@@ -548,6 +586,32 @@ GOTURN_UPDATES = 42
 GOTURN_RTOL = 1e-4
 # the other trackers' frames in the card-against-CPU sweep
 SWEEP_FRAMES = 4
+
+# phase 4v (object detection): ArUco's adaptive-threshold windows (MEAN_C,
+# boxFilter under BORDER_REPLICATE | BORDER_ISOLATED: route k3 at 3, the
+# generic kernel at 13 and 23) at the frame's shape, (1, 1080, 1920, 1)
+ARUCO_WINDOWS = (3, 13, 23)
+ARUCO_SHAPE = (1, 1080, 1920, 1)
+# HOG's window scores, card against CPU: F.conv2d sums the products in
+# cuDNN's and oneDNN's orders (tests/test_torch_objdetect_hog.py holds the
+# port to the JAX package within the same bound); a window found on one
+# device only is allowed where its score lies within this of hitThreshold
+HOG_SCORE_ATOL = 5e-5
+# the CPU's share of 4v's budget for HOG's scales, s: the check covers the
+# scales it reaches (all 44 at 1080p where the CPU keeps pace)
+HOG_CPU_BUDGET_S = 15.0
+# the face models (entry.face_models, the tests' shapes), card against CPU:
+# boxes, landmarks and scores; the embeddings relative to their largest value
+FACE_ATOL = 1e-4
+FACE_EMB_RTOL = 1e-5
+# phase 4w (RGB-D fusion): each ICP pose, card against CPU (torch.linalg.lstsq
+# by QR on both, their f64 reductions summed in different orders), per
+# element of the 4x4 frame-to-frame transform
+FUSION_ODO_ATOL = 1e-9
+# the x-slab of the volume (planes x0 .. x0 + 32, the middle of the room)
+# whose first integration the CPU repeats, and the raycast rows it repeats
+FUSION_SLAB = (240, 272)
+FUSION_RAY_ROW_STEP = 8
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -1519,6 +1583,253 @@ def phase_track_dnn(E, run_counted, count_syncs, dev, card, kernel_syms):
     return cnt
 
 
+def phase_objdetect(E, run_counted, count_syncs, dev, card, kernel_syms):
+    """4v: object detection at 1080p (see the module's note).  Returns the
+    launch counts of the counted run."""
+    import tempfile
+    from opencv_tpu_torch.objdetect.cascade import CascadeClassifier
+    from opencv_tpu_torch.objdetect.face import FaceDetectorYN, FaceRecognizerSF
+    t_start = time.perf_counter()
+    frames_np, chart_np, truth = E.make_marker_scene(E.SHAPE_OBJDETECT)
+    make_s = time.perf_counter() - t_start
+    N, H, W, _ = frames_np.shape
+    frames, chart = torch.from_numpy(frames_np).to(dev), torch.from_numpy(chart_np).to(dev)
+    det = E.make_objdetectors(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    held, times = [], {}
+    t0 = time.perf_counter()
+    n_sync, cnt = run_counted(lambda: count_syncs(
+        lambda: held.append(E.forward_objdetect(frames, chart, det, times))))
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    out = held[0]
+    log(f"objdetect path launches: {cnt}")
+    routes = cnt["sep_filter routes"]
+    # ArUco's three windows in each frame's detectMarkers and in its
+    # CharucoDetector's own pass: window 3 on route k3, 13 and 23 generic
+    want = {"k3": 2 * N, "k5": 0, "k7": 0, "generic": 4 * N}
+    if routes != want or cnt["opencv_sep_filter"] != 6 * N or \
+            any(cnt[k] for k in kernel_syms if k != "opencv_sep_filter"):
+        raise AssertionError(f"objdetect: sep_filter must launch {want} and nothing else; "
+                             f"got {cnt}")
+    rep = E.objdetect_truth_report(out, truth)
+    log(f"objdetect truth: {rep} (gates: every free marker found, corners within "
+        f"{E.MARKER_CORNER_TOL} px; ChArUco share >= {E.CHARUCO_MIN_SHARE} within "
+        f"{E.CHARUCO_CORNER_TOL} px; the QR and EAN texts; the chart within {E.MCC_TOL})")
+    if not rep["ok"]:
+        raise AssertionError(f"objdetect: the truth gates failed: {rep}")
+    n_rects = [len(r) for r, _ in out["hog"]]
+    log(f"objdetect: {rep['markers']} free markers, HOG (INRIA SVM, "
+        f"{len(det['hog'].scales(H, W))} scales) rectangles per frame {n_rects}; stage ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + f"; the run {wall:.1f} ms, "
+        f"{n_sync} host syncs, peak device memory {peak:.3f} GiB over the frames  [{card}]")
+    # card against CPU on frame 0
+    t_cpu = time.perf_counter()
+    det_c = E.make_objdetectors("cpu")
+    from opencv_tpu_torch.constants import COLOR_BGR2GRAY
+    from opencv_tpu_torch.ops.color import cvtColor
+    f0, f0c = frames[0], frames[0].cpu()
+    for win, a, b in zip(ARUCO_WINDOWS, det["aruco"].thresholded(cvtColor(f0, COLOR_BGR2GRAY)),
+                         det_c["aruco"].thresholded(cvtColor(f0c, COLOR_BGR2GRAY))):
+        check_equal(f"objdetect threshold window {win}", a.cpu(), b)
+    corners, ids, rejected = det_c["aruco"].detectMarkers(f0c)
+    g_corners, g_ids, g_rej = out["aruco"][0]
+    if not (np.array_equal(ids, g_ids) and len(corners) == len(g_corners)
+            and all(np.array_equal(a, b) for a, b in zip(corners + rejected,
+                                                          g_corners + g_rej))):
+        raise AssertionError("objdetect: frame 0's markers differ between the card and the CPU")
+    hog, hog_c = det["hog"], det_c["hog"]
+    thr = E.HOG_DETECT["hitThreshold"]
+    ws = E.HOG_DETECT["winStride"]
+    covered, err, band, t_hog = 0, 0.0, 0, time.perf_counter()
+    scales = hog.scales(H, W, E.HOG_DETECT["scale"])
+    for sc in scales:
+        sg, _, _ = hog.window_scores(hog.scaled_image(f0, sc), ws)
+        sc_c, _, _ = hog_c.window_scores(hog_c.scaled_image(f0c, sc), ws)
+        d = (sg.cpu() - sc_c).abs()
+        err = max(err, float(d.max()))
+        if err > HOG_SCORE_ATOL:
+            raise AssertionError(f"objdetect HOG scale {sc}: scores {err} apart")
+        differ = (sg.cpu() >= thr) != (sc_c >= thr)
+        if bool((differ & ((sc_c - thr).abs() > HOG_SCORE_ATOL)).any()):
+            raise AssertionError(f"objdetect HOG scale {sc}: a window outside the band differs")
+        band += int(differ.sum())
+        covered += 1
+        if time.perf_counter() - t_hog > HOG_CPU_BUDGET_S:
+            break
+    hog_s = time.perf_counter() - t_hog
+    log(f"objdetect HOG card vs CPU on frame 0: {covered} of {len(scales)} scales, window "
+        f"scores within {err:.3e} (gate {HOG_SCORE_ATOL}), {band} windows found on one device "
+        f"only (all within the band)")
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = os.path.join(tmp, "cascade.xml")
+        with open(xml, "w") as fh:
+            fh.write(E.haar_cascade_xml(0))
+        c_g, c_c = CascadeClassifier(xml), CascadeClassifier(xml)
+        t_c = time.perf_counter()
+        raw_g = c_g.detectMultiScale(f0, minNeighbors=0)
+        card_ms = (time.perf_counter() - t_c) * 1e3
+        t_c = time.perf_counter()
+        if not np.array_equal(raw_g, c_c.detectMultiScale(f0c, minNeighbors=0)):
+            raise AssertionError("objdetect: the cascade's windows differ between card and CPU")
+        cas_cpu_s = time.perf_counter() - t_c
+        paths = {}
+        for k, b in E.face_models(0).items():
+            paths[k] = os.path.join(tmp, k + ".onnx")
+            with open(paths[k], "wb") as fh:
+                fh.write(b)
+        face_img = np.random.default_rng(1).integers(0, 256, (96, 96, 3), np.uint8)
+        res = {}
+        for where in (dev, "cpu"):
+            yn = FaceDetectorYN(paths["yunet"], "", (96, 96), 0.45, 0.3, 50, device=where)
+            _, faces = yn.detect(face_img)
+            sf = FaceRecognizerSF(paths["sface"], device=where)
+            box = faces[0] if faces is not None else np.r_[[20, 20, 50, 50], np.linspace(
+                30, 70, 10), 0.9].astype(np.float32)
+            res[str(where)] = (faces, sf.feature(sf.alignCrop(face_img, box)))
+    (fg, eg), (fc, ec) = res[str(dev)], res["cpu"]
+    if (fg is None) != (fc is None) or (fg is not None and (
+            fg.shape != fc.shape or np.abs(fg - fc).max() > FACE_ATOL)):
+        raise AssertionError(f"objdetect FaceDetectorYN: card {fg} against CPU {fc}")
+    if np.abs(eg - ec).max() > FACE_EMB_RTOL * np.abs(ec).max():
+        raise AssertionError("objdetect FaceRecognizerSF: the embeddings differ")
+    cpu_s = time.perf_counter() - t_cpu
+    log(f"objdetect card vs CPU ({cpu_s:.1f} s): ArUco's thresholded planes at windows "
+        f"{ARUCO_WINDOWS} and frame 0's markers equal; the seeded cascade "
+        f"({E.CASCADE_STAGES} stages, tilted features, 1.1 a scale) {len(raw_g)} raw windows "
+        f"equal (card {card_ms:.1f} ms on the host clock, CPU {cas_cpu_s:.1f} s); HOG's scales "
+        f"{hog_s:.1f} s of it; YuNet "
+        f"{0 if fg is None else len(fg)} faces within {FACE_ATOL}, SFace's embedding within "
+        f"{FACE_EMB_RTOL} relative")
+    # the path's time against its bound: the frames and the chart read once
+    in_bytes = frames.numel() + chart.numel()
+    busy, k_ms, f_ms = busy_share(lambda: E.forward_objdetect(frames[:2], chart, det), iters=1,
+                                  warmup=False, host_ops=False)
+    log(f"objdetect forward on 2 frames (profiled): {f_ms:.1f} ms, device busy share "
+        f"{busy:.4f} (kernels {k_ms:.2f} ms); bytes bound of the 8-frame run "
+        f"{bound(in_bytes, 0)[0]:.4f} ms ({in_bytes / 1e6:.1f} MB: the frames and the chart "
+        f"read once), share of bound {bound(in_bytes, 0)[0] / wall:.2e}  [{card}]")
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4v wall: {wall_s:.1f} s (the scene {make_s:.1f} s; budget "
+        f"{PATH_WALL_BUDGET_S:.0f} s)")
+    if wall_s > PATH_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4v took {wall_s:.1f} s, over its budget")
+    return cnt
+
+
+def phase_fusion(E, run_counted, count_syncs, dev, card, kernel_syms):
+    """4w: RGB-D fusion in KinectFusion's 512³ volume (see the module's
+    note).  Returns the launch counts of the counted run."""
+    from opencv_tpu_torch.threed.tsdf import Odometry, Volume
+    t_start = time.perf_counter()
+    scene = E.make_rgbd_scene(E.SHAPE_FUSION)
+    vs, os_ = E.fusion_settings()
+    vol = Volume(0, vs, device=dev)
+    od = Odometry(os_)
+    vol_bytes = vol._tsdf.numel() * 4 + vol._w.numel() * 4
+    if vol_bytes != 2 * E.FUSION_RES ** 3 * 4:
+        raise AssertionError(f"fusion: the volume holds {vol_bytes} bytes")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    held, times = [], {}
+    t0 = time.perf_counter()
+    n_sync, cnt = run_counted(lambda: count_syncs(
+        lambda: held.append(E.forward_fusion(scene, vol, od, dev, times))))
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    out = held[0]
+    log(f"fusion path launches: {cnt}")
+    if any(cnt[k] for k in kernel_syms):
+        raise AssertionError(f"fusion: no kernel of csrc/ may launch (the JAX package's 3d module "
+                             f"has no Pallas kernel); got {cnt}")
+    rep = E.fusion_truth_report(out, scene)
+    log(f"fusion truth: {rep} (gates: the last pose within {E.FUSION_POSE_TOL_M} m and "
+        f"{E.FUSION_POSE_TOL_DEG} deg, the raycast's depth within {E.FUSION_DEPTH_TOL} m on "
+        f">= {E.FUSION_DEPTH_SHARE} of the pixels)")
+    if not rep["ok"]:
+        raise AssertionError(f"fusion: the truth gates failed: {rep}")
+    n, H, W = E.SHAPE_FUSION
+    log(f"fusion: {n} frames {W}x{H}, {len(scene['tris'])} triangles; the volume "
+        f"{E.FUSION_RES}^3 TSDF + weights f32 = {vol_bytes / 1e6:.1f} MB on the card; "
+        f"{len(out['cloud'])} surface points; stage ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + f"; the run {wall:.1f} ms, "
+        f"{n_sync} host syncs, peak device memory {peak:.3f} GiB over the volume  [{card}]")
+    # card against CPU
+    t_cpu = time.perf_counter()
+    split = {}
+    depths_c = torch.stack([E.depth_to_u16(E.render_depth(scene, p, "cpu"))
+                            for p in scene["poses"]])
+    check_equal("fusion rendered frames", out["depths"].cpu(), depths_c)
+    split["renders"] = time.perf_counter() - t_cpu
+    from opencv_tpu_torch.threed.depth import rescaleDepth
+    metres = [rescaleDepth(d) for d in depths_c]
+    od_err = 0.0
+    for k in range(1, n):
+        _, T = od.compute(metres[k], metres[k - 1])
+        T_card = np.linalg.inv(out["poses"][k - 1]) @ out["poses"][k]
+        od_err = max(od_err, float(np.abs(T - T_card).max()))
+    if od_err > FUSION_ODO_ATOL:
+        raise AssertionError(f"fusion: an ICP pose differs by {od_err} between card and CPU")
+    split["icp"] = time.perf_counter() - t_cpu - sum(split.values())
+    x0, x1 = FUSION_SLAB
+    slab = [torch.ones((x1 - x0,) + vol._tsdf.shape[1:], dtype=torch.float32, device=d)
+            for d in (dev, "cpu")]
+    wts = [torch.zeros_like(t) for t in slab]
+    w2c = np.linalg.inv(out["poses"][0])
+    for t, w in zip(slab, wts):
+        vol.integrate_slab(t, w, x0, vol._depth(out["depths"][0], t.device), w2c)
+    check_equal(f"fusion first integration, x-slab {FUSION_SLAB}, tsdf", slab[0].cpu(), slab[1])
+    check_equal(f"fusion first integration, x-slab {FUSION_SLAB}, weights", wts[0].cpu(), wts[1])
+    touched = int((wts[1] > 0).sum())
+    del slab, wts
+    split["slab"] = time.perf_counter() - t_cpu - sum(split.values())
+    dirs = vol.ray_directions(out["poses"][-1], H, W)[::FUSION_RAY_ROW_STEP]
+    rows_c = vol.march(torch.from_numpy(np.ascontiguousarray(dirs)), out["poses"][-1][:3, 3],
+                       vol._tsdf.cpu(), vol._w.cpu())
+    check_equal(f"fusion raycast, every {FUSION_RAY_ROW_STEP}th row",
+                out["points"][::FUSION_RAY_ROW_STEP, :, :3].cpu(), rows_c.to(torch.float32))
+    cpu_s = time.perf_counter() - t_cpu
+    split["raycast"] = cpu_s - sum(split.values())
+    log(f"fusion card vs CPU ({cpu_s:.1f} s): {n} rendered frames equal; {n - 1} ICP poses "
+        f"within {od_err:.2e} (gate {FUSION_ODO_ATOL}); frame 0's integration of x-slab "
+        f"{FUSION_SLAB} ({touched} voxels updated) equal; the raycast of every "
+        f"{FUSION_RAY_ROW_STEP}th row ({dirs.shape[0]} x {W} rays) equal; the CPU's s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    # the bound: each integration reads and writes the volume, the raycast
+    # reads it once, each render writes its f32 frame
+    b_int = 2 * vol_bytes * n
+    b_ray = vol_bytes
+    b_ren = n * H * W * 4
+    b_all = b_int + b_ray + b_ren
+    # the busy share of one frame's step (its render, odometry against the
+    # frame before and integration): the profiler's summary of the whole
+    # forward's ~10^6 launches (the renders' and the march's) takes minutes
+    m_prev = rescaleDepth(out["depths"][0])
+
+    def step():
+        d = E.depth_to_u16(E.render_depth(scene, scene["poses"][1], dev))
+        od.compute(rescaleDepth(d), m_prev)
+        vol.integrate(d, out["poses"][1])
+
+    busy, k_ms, f_ms = busy_share(step, iters=1, warmup=False, host_ops=False)
+    log(f"fusion, one frame's step (render, odometry, integrate; profiled): {f_ms:.1f} ms, "
+        f"device busy share {busy:.4f} (kernels {k_ms:.2f} ms); the whole run {wall:.1f} ms "
+        f"against its bytes bound {bound(b_all, 0)[0]:.3f} ms = integrate "
+        f"{bound(b_int, 0)[0]:.3f} ({n} x {2 * vol_bytes / 1e9:.3f} GB) + raycast "
+        f"{bound(b_ray, 0)[0]:.3f} + renders {bound(b_ren, 0)[0]:.4f}; share of bound "
+        f"{bound(b_all, 0)[0] / wall:.5f}  [{card}]")
+    del vol
+    torch.cuda.empty_cache()
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4w wall: {wall_s:.1f} s (budget {PATH_WALL_BUDGET_S:.0f} s)")
+    if wall_s > PATH_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4w took {wall_s:.1f} s, over its budget")
+    return cnt
+
+
 def ml_data(seed=0, shape=ML_SHAPE, classes=ML_CLASSES, queries=ML_QUERIES):
     """MNIST's shape from the seed: (samples, labels, queries, their labels),
     f32 pixels in [0, 1] around a mean image per class."""
@@ -1791,8 +2102,17 @@ def main() -> int:
         err = check_equal(f"sep_filter photo k3 C3 {SEP_PHOTO_SHAPE} {kx}", sep_filter_int(x, **kw),
                           sep_filter_int_plain(x, **kw))
         max_err["sep_filter"] = max(max_err["sep_filter"], err)
+    for k in ARUCO_WINDOWS:
+        x = torch.from_numpy(rng.integers(0, 256, ARUCO_SHAPE, np.uint8)).to(dev)
+        kw = dict(scale=1.0 / (k * k), border=cv.BORDER_REPLICATE | cv.BORDER_ISOLATED)
+        err = check_equal(f"sep_filter aruco box {k} {ARUCO_SHAPE} route "
+                          f"{SEP_ROUTES[sep_filter_route((1,) * k, (1,) * k)]}",
+                          sep_filter_int(x, (1,) * k, (1,) * k, **kw),
+                          sep_filter_int_plain(x, (1,) * k, (1,) * k, **kw))
+        max_err["sep_filter"] = max(max_err["sep_filter"], err)
     log(f"sep_filter: {len(cases) + len(offset_taps) * len(OFFSET_SHAPES)} cases + "
-        f"{len(SEP_PHOTO_TAPS)} at the photo path's shape equal to the plain version")
+        f"{len(SEP_PHOTO_TAPS)} at the photo path's shape + {len(ARUCO_WINDOWS)} at ArUco's "
+        f"(windows {ARUCO_WINDOWS}) equal to the plain version")
 
     imgs = torch.from_numpy(E.make_batch()).to(dev)
     n = 0
@@ -3074,6 +3394,15 @@ def main() -> int:
     # video, and the other DNN trackers and features
     cfg22 = phase_track_dnn(E, run_counted, count_syncs, dev, card, kernel_syms)
 
+    # -- 4v. object detection on 1080p frames: ArUco (sep_filter k3 and the
+    # generic kernel), ChArUco, QR, EAN-13, HOG with the INRIA SVM, MCC; the
+    # seeded cascade and face models card against CPU
+    cfg23 = phase_objdetect(E, run_counted, count_syncs, dev, card, kernel_syms)
+
+    # -- 4w. RGB-D fusion in KinectFusion's 512³ volume: the rasterizer,
+    # ICP odometry, TSDF integration, raycast; no kernel of csrc/
+    cfg24 = phase_fusion(E, run_counted, count_syncs, dev, card, kernel_syms)
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -3121,14 +3450,11 @@ def main() -> int:
                      f"{shape} REFLECT_101", n_in + n_out, 2 * (5 * n_in // 2 + 5 * n_out),
                      conv_yardstick(a, k5, k5, 2, dev), None))
     # sep_filter at each of ORB's levels (the pyramid of the config-5 batch),
-    # as the blur launches it; then the generic kernel, which no main path
-    # launches, at k = 9 on the level-2 shape
+    # as the blur launches it
     levels = [x5[..., None]]
     for size in sizes5[1:]:
         levels.append(cv.resize(levels[-1], size, interpolation=cv.INTER_LINEAR_EXACT))
-    k9 = gauss_taps(9, 2.0)
-    for name, a, kx in ((*((f"sep_filter k7 level {lv}", a, k7) for lv, a in enumerate(levels)),
-                         ("sep_filter generic k9 level 2", levels[2], k9))):
+    for name, a, kx in ((f"sep_filter k7 level {lv}", a, k7) for lv, a in enumerate(levels)):
         rows.append((name, lambda a=a, kx=kx: sep_filter_int(a, kx, kx, shift=16,
                                                              border=cv.BORDER_REFLECT_101),
                      lambda a=a, kx=kx: sep_filter_int_plain(a, kx, kx, shift=16,
@@ -3144,6 +3470,18 @@ def main() -> int:
                  lambda: sep_filter_int_plain(a, kx3, ky3, **kw3),
                  f"{SEP_PHOTO_SHAPE} Sobel dx u8->16S REPLICATE", 3 * a.numel(), 2 * 6 * a.numel(),
                  conv_yardstick(a, kx3, ky3, 1, dev), (kx3, ky3)))
+    # ArUco's normalised boxes on the objdetect path (4v): window 3 on route
+    # k3, 13 and 23 on the generic kernel, each launched on every frame by
+    # detectMarkers and by the CharucoDetector's own pass
+    a = torch.from_numpy(rng.integers(0, 256, ARUCO_SHAPE, np.uint8)).to(dev)
+    for k in ARUCO_WINDOWS:
+        box = (1,) * k
+        kwb = dict(scale=1.0 / (k * k), border=cv.BORDER_REPLICATE | cv.BORDER_ISOLATED)
+        rows.append((f"sep_filter aruco k{k}",
+                     lambda box=box, kwb=kwb: sep_filter_int(a, box, box, **kwb),
+                     lambda box=box, kwb=kwb: sep_filter_int_plain(a, box, box, **kwb),
+                     f"{ARUCO_SHAPE} box {k}x{k} u8 REPLICATE|ISOLATED", 2 * a.numel(),
+                     2 * 2 * k * a.numel(), conv_yardstick(a, box, box, 1, dev), (box, box)))
     log(f"library_ms: one F.conv2d (cuDNN) on a pre-padded f32 NCHW copy, "
         f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
     times = {}
@@ -3850,19 +4188,21 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4u); the
+    # launches: the kernel's count over the main paths (4a to 4w); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
-                             "sep_filter k3 photo", "sep_filter generic k9 level 2"),
+                             "sep_filter k3 photo",
+                             *(f"sep_filter aruco k{k}" for k in ARUCO_WINDOWS)),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 stereo", "gauss5_down2 gray"),
               "pyr_down": ("pyr_down", *(f"pyr_down c3 {h}x{w}" for _, h, w, _ in
                                          PYR_SEGMENT_SHAPES),
                            *(f"pyr_down video {n}x{h}x{w}" for n, h, w, _ in
                              PYR_VIDEO_SHAPES[:3]))}
     main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
-                  cfg13, cfg14, cfg15, cfg16, cfg17, cfg18, cfg19, cfg20, cfg21, cfg22)
+                  cfg13, cfg14, cfg15, cfg16, cfg17, cfg18, cfg19, cfg20, cfg21, cfg22, cfg23,
+                  cfg24)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]
@@ -3872,11 +4212,14 @@ def main() -> int:
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
                         "cases": [times[s] for s in shapes[name]]})
-    # each kernel's launches by path: 4a-4r, and this slice's three
+    # each kernel's launches by path: 4a-4r, 4s-4u, and 4v and 4w (4v's
+    # sep_filter launches by route too)
     by_path = {"4a-4r": main_paths[:18], "4s stitch": (cfg19,), "4t gapi live": (cfg20,),
-               "4t gapi loaded": (cfg21,), "4u track_dnn": (cfg22,)}
+               "4t gapi loaded": (cfg21,), "4u track_dnn": (cfg22,), "4v objdetect": (cfg23,),
+               "4w fusion": (cfg24,)}
     for k, (_, _, sym) in zip(kernels, meta.values()):
         k["launches_by_path"] = {p: sum(c[sym] for c in cs) for p, cs in by_path.items()}
+    kernels[0]["launches_by_path"]["4v objdetect routes"] = dict(cfg23["sep_filter routes"])
     # sep_filter's launches on the main paths by route
     kernels[0]["launches_by_route"] = {
         r: sum(c["sep_filter routes"][r] for c in main_paths)

@@ -48,7 +48,11 @@ hand-eye, multiview); and the top-level names ``opencv_tpu/__init__.py``
 defines itself (RotatedRect, TickMeter, CV_MAKETYPE, FontFace,
 ECCParameters, FarnebackOpticalFlow, AsyncArray, ANNIndex, ...); and dnn (the
 ONNX executor, the Darknet, Caffe, TensorFlow and TFLite readers over the
-port's own protobuf codec, NMS, the Model classes) and ml.
+port's own protobuf codec, NMS, the Model classes) and ml; objdetect
+(ArUco, ChArUco, QR, barcodes, HOG, Haar cascades, YuNet/SFace, MCC),
+threed (depth maps, the rasterizer, the TSDF Volume and ICP Odometry),
+``cuda`` (0 devices, as the JAX package reports) and the binding-compat
+classes.
 """
 
 from .constants import *  # noqa: F401,F403
@@ -863,3 +867,106 @@ class detail_LightGlueFeaturesMatcher:
         raise NotImplementedError(
             "requires the LightGlue ONNX export; use "
             "LightGlueMatcher_create")
+
+
+# ---------------------------------------------------------------------------
+# threed, objdetect, cv2.cuda and the binding-compat classes (the names of
+# opencv_tpu/__init__.py for these modules)
+# ---------------------------------------------------------------------------
+from . import threed  # noqa: F401,E402
+from .threed import (  # noqa: F401,E402
+    loadPointCloud, savePointCloud, loadMesh, saveMesh,
+    depthTo3d, depthTo3dSparse, rescaleDepth, registerDepth, warpFrame,
+    triangleRasterize, triangleRasterizeColor, triangleRasterizeDepth,
+    TriangleRasterizeSettings,
+    RASTERIZE_CULLING_NONE, RASTERIZE_CULLING_CW, RASTERIZE_CULLING_CCW,
+    RASTERIZE_SHADING_WHITE, RASTERIZE_SHADING_FLAT,
+    RASTERIZE_SHADING_SHADED,
+    RASTERIZE_COMPAT_DISABLED, RASTERIZE_COMPAT_INVDEPTH,
+)
+from .threed.octree import (  # noqa: F401,E402
+    Octree, Octree_createWithDepth, Octree_createWithResolution,
+    RgbdNormals, RgbdNormals_create,
+)
+from .threed.tsdf import (  # noqa: F401,E402
+    Volume, VolumeSettings, Odometry, OdometryFrame, OdometrySettings,
+)
+
+from . import objdetect  # noqa: F401,E402
+from .objdetect import HOGDescriptor, QRCodeDetector, CascadeClassifier  # noqa: F401,E402
+from .objdetect import QRCodeEncoder  # noqa: F401,E402
+from .objdetect.hog import groupRectangles  # noqa: F401,E402
+from .objdetect import aruco  # noqa: F401,E402
+from .objdetect import FaceDetectorYN, FaceRecognizerSF  # noqa: F401,E402
+from .objdetect.mcc import (  # noqa: F401,E402
+    CChecker as mcc_CChecker, CCheckerDetector as mcc_CCheckerDetector,
+    DetectorParametersMCC as mcc_DetectorParametersMCC, mcc,
+)
+
+
+def QRCodeEncoder_create(params=None):
+    return QRCodeEncoder.create(params)
+
+
+class QRCodeEncoder_Params:
+    def __init__(self):
+        self.version = 0
+        self.correction_level = 0
+        self.mode = -1
+        self.structure_number = 1
+
+
+GraphicalCodeDetector = QRCodeDetector
+QRCodeDetectorAruco = QRCodeDetector
+
+
+class QRCodeDetectorAruco_Params:
+    def __init__(self):
+        self.minModuleSizeInPyramid = 4.0
+        self.maxRotation = 0.17
+        self.maxModuleSizeMismatch = 1.75
+        self.maxTimingPatternMismatch = 2.0
+        self.maxPenalties = 0.4
+        self.maxColorsMismatch = 0.2
+        self.scaleTimingPatternScore = 0.9
+
+
+def FaceDetectorYN_create(model, config="", input_size=(320, 320),
+                          score_threshold=0.9, nms_threshold=0.3,
+                          top_k=5000, backend_id=0, target_id=0, device=None):
+    return FaceDetectorYN.create(model, config, input_size,
+                                 score_threshold, nms_threshold, top_k,
+                                 backend_id, target_id, device)
+
+
+def FaceRecognizerSF_create(model, config="", backend_id=0, target_id=0, device=None):
+    return FaceRecognizerSF.create(model, config, backend_id, target_id, device)
+
+
+class barcode:  # namespace mirror of cv2.barcode
+    from .objdetect.barcode import BarcodeDetector
+
+
+barcode_BarcodeDetector = barcode.BarcodeDetector
+
+# flattened aruco names (binding aliases)
+aruco_ArucoDetector = aruco.ArucoDetector
+aruco_DetectorParameters = aruco.DetectorParameters
+aruco_Dictionary = aruco.Dictionary
+aruco_Board = aruco.Board
+aruco_GridBoard = aruco.GridBoard
+aruco_CharucoBoard = aruco.CharucoBoard
+aruco_CharucoDetector = aruco.CharucoDetector
+aruco_CharucoParameters = aruco.CharucoParameters
+aruco_RefineParameters = aruco.RefineParameters
+
+from .compat_classes import (  # noqa: F401,E402
+    error, MatShape,
+    cuda_GpuMat, cuda_GpuMatND, cuda_GpuData, cuda_GpuMat_Allocator,
+    cuda_HostMem, cuda_Stream, cuda_Event, cuda_BufferPool,
+    cuda_DeviceInfo, cuda_TargetArchs, ocl_Device,
+    ocl_OpenCLExecutionContext, utils_ClassWithKeywordProperties,
+    utils_nested_ExportClassName, utils_nested_ExportClassName_Params,
+)
+from . import compat_classes  # noqa: F401,E402
+from . import cuda  # noqa: F401,E402

@@ -156,6 +156,28 @@ with random weights made from a seed, written as a ``.caffemodel`` by the
 port's codec) on ``make_motion_video``'s frames; ``small_dnn_models``
 builds the small ONNX graphs of the other DNN trackers and features.
 
+``forward_objdetect`` runs the object detectors over camera frames as a
+warehouse or AR pipeline does: each frame's ArucoDetector.detectMarkers
+(DICT_6X6_250; its adaptive thresholds through ``sep_filter``, route k3 at
+window 3 and the generic kernel at 13 and 23), CharucoDetector.detectBoard,
+QRCodeDetector on the band that holds the codes, BarcodeDetector and
+HOGDescriptor.detectMultiScale with the INRIA people SVM at
+samples/python/peopledetect.py's settings, then CCheckerDetector on a
+colour chart (:data:`OBJDETECT_STAGES`). ``make_marker_scene`` draws the
+frames with numpy from a seed (markers under mild homographies, the 5 x 7
+ChArUco board, a QR code, an EAN-13 code) with their truth, which
+``objdetect_truth_report`` checks. ``haar_cascade_xml`` and
+``face_models`` write a Haar cascade and YuNet / SFace graphs from a seed
+(their published files are not in the repository).
+
+``forward_fusion`` is KinectFusion's loop at ``cv::kinfu::Params::
+defaultParams()``: a room (``make_room_mesh``) rendered by
+triangleRasterizeDepth along a 30-frame trajectory and sent as u16
+millimetres, Odometry.compute frame to frame, Volume.integrate of each
+frame in a 512³ TSDF of 3 m at its chained pose, then the raycast and
+fetchPointsNormals (:data:`FUSION_STAGES`); ``fusion_truth_report`` checks
+the chained pose and the raycast depth against the trajectory.
+
 ``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
 on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
 CUDA devices) run the batch-DP step and the spatial filters of
@@ -3738,3 +3760,631 @@ def dnn_sweep(models: dict, frames, box, workdir: str, device="cuda") -> dict:
     except NotImplementedError as e:
         out["lightglue"] = type(e).__name__
     return out
+
+
+# ---------------------------------------------------------------------------
+# object detection in 1080p frames: ArUco markers, a ChArUco board, a QR
+# code, an EAN-13 code, HOG people detection and an MCC colour chart
+# ---------------------------------------------------------------------------
+
+SHAPE_OBJDETECT = (8, 1080, 1920, 3)
+MARKER_DICT = 10               # aruco.DICT_6X6_250
+MARKER_SLOTS = (4, 3)          # the free markers' grid of slots, columns x rows
+MARKER_FIRST_ID = 17           # the ChArUco board's own markers are ids 0-16
+MARKER_SIDE = (90, 220)        # px a side at 1080p
+MARKER_TILT = 15.0             # each marker's rotation, degrees either way
+MARKER_WARP = 0.06             # each corner's random move, share of the side
+MARKER_QUIET = 12              # white px around a marker, at 1080p
+INK, PAPER = 25, 230           # the grey of a code's black and white print
+BACKGROUND = (185.0, 12.0)     # the textured background's mean grey and deviation
+CHARUCO_SQUARES = (5, 7)       # OpenCV's ChArUco tutorial's board
+CHARUCO_SQUARE_M, CHARUCO_MARKER_M = 0.04, 0.02
+CHARUCO_SQUARE_PX = 60         # at 1080p
+QR_MODULE_PX = 6
+QR_TEXT_LEN = 40
+# QRCodeDetector (both packages) takes the three largest groups of
+# concentric squares for the code's finders, and an ArUco marker in its
+# quiet zone or a ChArUco square around its marker is such a group: the
+# path runs it on the band of the frame that holds the codes, (x0, y0, x1,
+# y1) at 1080p, clear of the markers and the board (ROADMAP queue C)
+QR_ROI = (0, 600, 470, 1080)
+EAN_MODULE_PX = 3
+EAN_QUIET = 12                 # modules of quiet zone on each side
+HOG_DETECT = dict(hitThreshold=0.0, winStride=(8, 8), padding=(32, 32), scale=1.05)
+MCC_PATCH_PX = (170, 160)      # a chart patch's width and height at 1080p
+MCC_GAP_PX = 40
+OBJDETECT_STAGES = ("aruco", "charuco", "qr", "barcode", "hog", "mcc")
+# the truth gates (objdetect_truth_report): a free marker's corners and a
+# ChArUco corner within these px of where they were drawn, this share of
+# the board's corners found, each chart patch within this many grey levels
+MARKER_CORNER_TOL = 1.5
+CHARUCO_CORNER_TOL = 1.0
+CHARUCO_MIN_SHARE = 0.9
+MCC_TOL = 2.0
+
+
+def _apply_h(Hm: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    p = np.asarray(pts, np.float64) @ Hm[:, :2].T + Hm[:, 2]
+    return p[:, :2] / p[:, 2:]
+
+
+def _homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """The 3x3 map of four point pairs (an 8x8 solve, H[2, 2] = 1)."""
+    A, b = np.zeros((8, 8)), np.zeros(8)
+    for i, ((x, y), (u, v)) in enumerate(zip(src, dst)):
+        A[2 * i] = [x, y, 1, 0, 0, 0, -u * x, -u * y]
+        A[2 * i + 1] = [0, 0, 0, x, y, 1, -v * x, -v * y]
+        b[2 * i], b[2 * i + 1] = u, v
+    return np.append(np.linalg.solve(A, b), 1.0).reshape(3, 3)
+
+
+def _outline(h: int, w: int) -> np.ndarray:
+    """A patch's outer corners in pixel-centre coordinates."""
+    return np.array([[-0.5, -0.5], [w - 0.5, -0.5], [w - 0.5, h - 0.5], [-0.5, h - 0.5]])
+
+
+def _paste(frame: np.ndarray, patch: np.ndarray, Hm: np.ndarray) -> None:
+    """Draw the grey `patch` into the BGR `frame` through Hm (patch pixel
+    centres to frame pixel centres), sampled bilinearly, inside the
+    patch's outline only."""
+    h, w = patch.shape
+    FH, FW = frame.shape[:2]
+    box = _apply_h(Hm, _outline(h, w))
+    x0, x1 = max(int(np.floor(box[:, 0].min())), 0), min(int(np.ceil(box[:, 0].max())), FW - 1)
+    y0, y1 = max(int(np.floor(box[:, 1].min())), 0), min(int(np.ceil(box[:, 1].max())), FH - 1)
+    ys, xs = np.mgrid[y0:y1 + 1, x0:x1 + 1]
+    src = _apply_h(np.linalg.inv(Hm), np.stack([xs.ravel(), ys.ravel()], 1))
+    sx, sy = src[:, 0], src[:, 1]
+    inside = (sx >= -0.5) & (sx <= w - 0.5) & (sy >= -0.5) & (sy <= h - 0.5)
+    fx, fy = np.clip(sx, 0, w - 1), np.clip(sy, 0, h - 1)
+    ix, iy = np.minimum(fx.astype(int), max(w - 2, 0)), np.minimum(fy.astype(int), max(h - 2, 0))
+    ax, ay = fx - ix, fy - iy
+    p = patch.astype(np.float64)
+    ix1, iy1 = np.minimum(ix + 1, w - 1), np.minimum(iy + 1, h - 1)
+    val = ((p[iy, ix] * (1 - ax) + p[iy, ix1] * ax) * (1 - ay)
+           + (p[iy1, ix] * (1 - ax) + p[iy1, ix1] * ax) * ay)
+    sub = frame[y0:y1 + 1, x0:x1 + 1].reshape(-1, 3)
+    sub[inside] = np.rint(val[inside])[:, None].astype(np.uint8)
+    frame[y0:y1 + 1, x0:x1 + 1] = sub.reshape(y1 - y0 + 1, x1 - x0 + 1, 3)
+
+
+def _print(a: np.ndarray) -> np.ndarray:
+    """A 0/255 code image as printed: INK and PAPER greys."""
+    return np.where(a > 127, PAPER, INK).astype(np.uint8)
+
+
+def _placement(rng, h: int, w: int, centre, scale: float, tilt: float, warp: float) -> np.ndarray:
+    """A mild homography: the patch scaled about its centre, rotated by up
+    to `tilt` degrees, each corner moved by up to `warp` of the side."""
+    src = _outline(h, w)
+    ang = np.deg2rad(rng.uniform(-tilt, tilt))
+    R = np.array([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
+    c = np.array([(w - 1) / 2.0, (h - 1) / 2.0])
+    dst = (src - c) @ R.T * scale + np.asarray(centre, np.float64)
+    dst += rng.uniform(-warp, warp, (4, 2)) * max(h, w) * scale
+    return _homography(src, dst)
+
+
+def ean13_image(digits12: str, module: int = EAN_MODULE_PX, height: int = 90,
+                quiet: int = EAN_QUIET) -> tuple:
+    """The EAN-13 code of 12 digits and its check digit, as a 0/255 image
+    with its quiet zone (GS1's L, G and R patterns)."""
+    L = {0: "0001101", 1: "0011001", 2: "0010011", 3: "0111101", 4: "0100011",
+         5: "0110001", 6: "0101111", 7: "0111011", 8: "0110111", 9: "0001011"}
+    first_parity = {0: "LLLLLL", 1: "LLGLGG", 2: "LLGGLG", 3: "LLGGGL", 4: "LGLLGG",
+                    5: "LGGLLG", 6: "LGGGLL", 7: "LGLGLG", 8: "LGLGGL", 9: "LGGLGL"}
+    d = [int(c) for c in digits12]
+    s = sum(x * (3 if i % 2 else 1) for i, x in enumerate(d))
+    d.append((10 - s % 10) % 10)
+    inv = lambda bits: "".join("1" if c == "0" else "0" for c in bits)
+    bits = "101"
+    for dig, par in zip(d[1:7], first_parity[d[0]]):
+        bits += L[dig] if par == "L" else inv(L[dig])[::-1]
+    bits += "01010" + "".join(inv(L[dig]) for dig in d[7:]) + "101"
+    row = np.full((2 * quiet + len(bits)) * module, 255, np.uint8)
+    for i, b in enumerate(bits):
+        if b == "1":
+            row[(quiet + i) * module:(quiet + i + 1) * module] = 0
+    pad = np.full((quiet * module // 2, row.size), 255, np.uint8)
+    return "".join(map(str, d)), np.vstack([pad, np.tile(row, (height, 1)), pad])
+
+
+def make_objdetectors(device="cuda") -> dict:
+    """The path's detectors at their published settings: ArUco
+    (DICT_6X6_250, default DetectorParameters), the 5 x 7 ChArUco board's
+    detector, QRCodeDetector, BarcodeDetector, HOGDescriptor with the INRIA
+    people SVM (getDefaultPeopleDetector) and CCheckerDetector."""
+    from .objdetect import aruco
+    from .objdetect.barcode import BarcodeDetector
+    from .objdetect.hog import HOGDescriptor
+    from .objdetect.mcc import CCheckerDetector
+    from .objdetect.qrcode import QRCodeDetector
+    d = aruco.getPredefinedDictionary(MARKER_DICT)
+    board = aruco.CharucoBoard(CHARUCO_SQUARES, CHARUCO_SQUARE_M, CHARUCO_MARKER_M, d)
+    hog = HOGDescriptor()
+    hog.setSVMDetector(HOGDescriptor.getDefaultPeopleDetector())
+    return {"aruco": aruco.ArucoDetector(d),
+            "charuco": aruco.CharucoDetector(board), "qr": QRCodeDetector(),
+            "barcode": BarcodeDetector(), "hog": hog, "mcc": CCheckerDetector()}
+
+
+def make_marker_scene(shape=SHAPE_OBJDETECT, seed: int = 0):
+    """(frames (N, H, W, 3) u8, chart (H, W, 3) u8, truth): each frame a
+    textured background with MARKER_SLOTS free DICT_6X6_250 markers (ids >=
+    MARKER_FIRST_ID, MARKER_SIDE px a side at 1080p, each under a mild
+    random homography), the 5 x 7 ChArUco board rendered by the port's
+    CharucoBoard.generateImage, one QR code of a seeded QR_TEXT_LEN-character
+    text from the port's QRCodeEncoder and one EAN-13 code, placed apart;
+    the chart a 6 x 4 colour chart of seeded patches.  Made with numpy from
+    the seed (no cv2).  The truth holds each frame's marker ids and
+    corners, the ChArUco corners and ids, the texts and the chart's BGR
+    patches, in the frame's pixel-centre coordinates."""
+    from .objdetect import aruco
+    from .objdetect.qr_encode import QRCodeEncoder
+    N, H, W, _ = shape
+    s = H / 1080.0
+    rng = np.random.default_rng(seed)
+    d = aruco.getPredefinedDictionary(MARKER_DICT)
+    board = aruco.CharucoBoard(CHARUCO_SQUARES, CHARUCO_SQUARE_M, CHARUCO_MARKER_M, d)
+    alphabet = "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 $%*+-./:"
+    text = "".join(rng.choice(list(alphabet), QR_TEXT_LEN))
+    # the encoder's symbol has a 2-module margin: pad it to ISO 18004's 4
+    qr = np.pad(QRCodeEncoder.create().encode(text), 2, constant_values=255)
+    qr = np.kron(qr, np.ones((max(1, round(QR_MODULE_PX * s)),) * 2, np.uint8))
+    ean, ean_img = ean13_image("".join(map(str, rng.integers(0, 10, 12))),
+                               module=max(1, round(EAN_MODULE_PX * s)))
+    sq = max(4, round(CHARUCO_SQUARE_PX * s))
+    bw, bh = CHARUCO_SQUARES
+    margin = sq // 2
+    board_img = board.generateImage((bw * sq + 2 * margin, bh * sq + 2 * margin), margin)
+    inner = np.array([[margin + (x + 1) * sq - 0.5, margin + (y + 1) * sq - 0.5]
+                      for y in range(bh - 1) for x in range(bw - 1)])
+    frames = np.empty(shape, np.uint8)
+    truth = {"qr": text, "ean": ean, "markers": [], "charuco": []}
+    x_lo, x_hi = 470 * s, W - 20 * s
+    cols, rows = MARKER_SLOTS
+    sw, shh = (x_hi - x_lo) / cols, (H - 40 * s) / rows
+    for i in range(N):
+        tint = rng.uniform(-8, 8, 3)
+        bg = BACKGROUND[0] + BACKGROUND[1] * _smooth_noise(rng, H, W, 40.0 * s)
+        f = np.clip(bg[..., None] + tint + rng.normal(0, 1.5, (H, W, 3)), 0, 255)
+        f = np.rint(f).astype(np.uint8)
+        # the ChArUco board, top left, nearly square to the camera
+        bc = (40 * s + board_img.shape[1] / 2, 30 * s + board_img.shape[0] / 2)
+        Hb = _placement(rng, *board_img.shape, bc, 1.0, 4.0, 0.02)
+        _paste(f, _print(board_img), Hb)
+        truth["charuco"].append(_apply_h(Hb, inner))
+        # the QR code and the EAN-13 code below it
+        jit = rng.uniform(-10, 10, 2) * s
+        Hq = _homography(_outline(*qr.shape), _outline(*qr.shape) + [60 * s, 640 * s] + jit)
+        _paste(f, _print(qr), Hq)
+        He = _homography(_outline(*ean_img.shape),
+                         _outline(*ean_img.shape) + [40 * s, 900 * s] + jit)
+        _paste(f, _print(ean_img), He)
+        # the free markers, one per slot
+        ids = rng.choice(np.arange(MARKER_FIRST_ID, len(d.bytesList)), cols * rows, replace=False)
+        marks = []
+        for k, mid in enumerate(ids):
+            side = int(rng.integers(MARKER_SIDE[0], MARKER_SIDE[1] + 1) * s)
+            q = max(2, round(MARKER_QUIET * s))
+            patch = np.pad(aruco.generateImageMarker(d, int(mid), side), q, constant_values=255)
+            ext = side * (np.cos(np.deg2rad(MARKER_TILT)) + np.sin(np.deg2rad(MARKER_TILT))
+                          + 2 * MARKER_WARP) + 2 * q
+            cx = x_lo + (k % cols + 0.5) * sw + rng.uniform(-1, 1) * max(0.0, sw - ext) / 2
+            cy = 20 * s + (k // cols + 0.5) * shh + rng.uniform(-1, 1) * max(0.0, shh - ext) / 2
+            Hm = _placement(rng, *patch.shape, (cx, cy), 1.0, MARKER_TILT, MARKER_WARP)
+            _paste(f, _print(patch), Hm)
+            corners = np.array([[q - 0.5, q - 0.5], [q + side - 0.5, q - 0.5],
+                                [q + side - 0.5, q + side - 0.5], [q - 0.5, q + side - 0.5]])
+            marks.append((int(mid), _apply_h(Hm, corners)))
+        truth["markers"].append(marks)
+        frames[i] = f
+    # the colour chart: 6 x 4 patches on a dark ground
+    chart = np.clip(30 + rng.integers(-2, 3, (H, W, 3)), 0, 255).astype(np.uint8)
+    colours = rng.integers(40, 231, (24, 3))
+    pw, ph = round(MCC_PATCH_PX[0] * s), round(MCC_PATCH_PX[1] * s)
+    gap = round(MCC_GAP_PX * s)
+    ox, oy = (W - 6 * pw - 5 * gap) // 2, (H - 4 * ph - 3 * gap) // 2
+    for k, c in enumerate(colours):
+        r, cc = divmod(k, 6)
+        y0, x0 = oy + r * (ph + gap), ox + cc * (pw + gap)
+        chart[y0:y0 + ph, x0:x0 + pw] = np.clip(c + rng.integers(-2, 3, (ph, pw, 3)), 0, 255)
+    truth["chart_bgr"] = colours
+    return frames, chart, truth
+
+
+def qr_roi(H: int) -> tuple:
+    """QR_ROI at an H-row frame."""
+    s = H / 1080.0
+    return tuple(int(round(v * s)) for v in QR_ROI)
+
+
+def _qr_in(qr, roi, origin) -> tuple:
+    """QRCodeDetector.detectAndDecode on a view of the frame; the points in
+    the frame's coordinates."""
+    text, pts, straight = qr.detectAndDecode(roi)
+    if pts is not None:
+        pts = pts + np.asarray(origin, np.float32)
+    return text, pts, straight
+
+
+def forward_objdetect(frames, chart, det: dict, times: dict | None = None) -> dict:
+    """Each frame through ArucoDetector.detectMarkers, CharucoDetector
+    .detectBoard (its own marker pass), QRCodeDetector.detectAndDecode (on
+    the frame's QR_ROI band), BarcodeDetector.detectAndDecode and HOGDescriptor.detectMultiScale at
+    HOG_DETECT (samples/python/peopledetect.py's settings), then
+    CCheckerDetector.process on the chart.  Returns per stage the frames'
+    results; `times` (if given) gathers each stage's host-clock ms."""
+    import time as _t
+    out = {k: [] for k in OBJDETECT_STAGES}
+    clock = {k: 0.0 for k in OBJDETECT_STAGES}
+    x0, y0, x1, y1 = qr_roi(frames.shape[1])
+    calls = (("aruco", lambda f: det["aruco"].detectMarkers(f)),
+             ("charuco", lambda f: det["charuco"].detectBoard(f)),
+             ("qr", lambda f: _qr_in(det["qr"], f[y0:y1, x0:x1], (x0, y0))),
+             ("barcode", lambda f: det["barcode"].detectAndDecode(f)),
+             ("hog", lambda f: det["hog"].detectMultiScale(f, **HOG_DETECT)))
+    for f in frames:
+        for name, fn in calls:
+            t0 = _t.perf_counter()
+            out[name].append(fn(f))
+            clock[name] += (_t.perf_counter() - t0) * 1e3
+    t0 = _t.perf_counter()
+    ok = det["mcc"].process(chart, 0)
+    best = det["mcc"].getBestColorChecker() if ok else None
+    out["mcc"] = None if best is None else best.getChartsRGB().reshape(-1, 3)
+    clock["mcc"] = (_t.perf_counter() - t0) * 1e3
+    if times is not None:
+        times.update(clock)
+    return out
+
+
+def objdetect_truth_report(out: dict, truth: dict) -> dict:
+    """The path's results against the scene's truth: free markers missed
+    (or with another id), their corners' largest error, the ChArUco corners'
+    share found and largest error, the decoded texts, the chart's largest
+    patch error."""
+    missed, corner_err = 0, 0.0
+    for (corners, ids, _), marks in zip(out["aruco"], truth["markers"]):
+        found = {} if ids is None else {int(i): np.asarray(c).reshape(4, 2)
+                                        for i, c in zip(np.ravel(ids), corners)}
+        for mid, want in marks:
+            if mid not in found:
+                missed += 1
+                continue
+            corner_err = max(corner_err, float(np.abs(found[mid] - want).max()))
+    share, ch_err = [], 0.0
+    for (cc, ci, _, _), want in zip(out["charuco"], truth["charuco"]):
+        if ci is None:
+            share.append(0.0)
+            continue
+        got = np.asarray(cc).reshape(-1, 2)
+        err = np.abs(got - want[np.ravel(ci)]).max(axis=1)
+        share.append(float((err <= CHARUCO_CORNER_TOL).sum() / len(want)))
+        ch_err = max(ch_err, float(err.max()))
+    qr_ok = sum(t == truth["qr"] for t, _, _ in out["qr"])
+    ean_ok = sum(truth["ean"] in infos for _, infos, _, _ in out["barcode"])
+    mcc = out["mcc"]
+    mcc_err = (float("inf") if mcc is None
+               else float(np.abs(mcc - truth["chart_bgr"][:, ::-1]).max()))
+    n = len(truth["markers"])
+    return {"markers": sum(len(m) for m in truth["markers"]), "markers_missed": missed,
+            "marker_corner_err": corner_err, "charuco_min_share": min(share),
+            "charuco_corner_err": ch_err, "qr_decoded": qr_ok, "ean_decoded": ean_ok,
+            "frames": n, "mcc_err": mcc_err,
+            "ok": (missed == 0 and corner_err <= MARKER_CORNER_TOL
+                   and min(share) >= CHARUCO_MIN_SHARE and qr_ok == n and ean_ok == n
+                   and mcc_err <= MCC_TOL)}
+
+
+# ---------------------------------------------------------------------------
+# RGB-D fusion: KinectFusion's volume, ICP odometry and the rasterizer
+# ---------------------------------------------------------------------------
+
+SHAPE_FUSION = (30, 480, 640)       # frames, rows, columns
+# cv::kinfu::Params::defaultParams() (opencv_contrib modules/rgbd/src/kinfu.cpp)
+FUSION_F, FUSION_CX, FUSION_CY = 525.0, 319.5, 239.5
+FUSION_RES = 512                    # voxels a side
+FUSION_SIZE_M = 3.0                 # the volume's side
+FUSION_POSE_T = (-1.5, -1.5, 0.5)   # the volume's corner in the first camera's frame
+FUSION_TRUNC_VOXELS = 7
+FUSION_MAX_WEIGHT = 64
+FUSION_STEP_FACTOR = 0.25
+FUSION_ICP_ITERS = (10, 5, 4)
+# the cut: u16 millimetres (Kinect's and RealSense's z16 streams), not
+# kinfu's 5000 for TUM PNGs; the JAX package's integrate reads 1000 only
+FUSION_DEPTH_FACTOR = 1000.0
+FUSION_STEP_M, FUSION_STEP_DEG = 0.01, 0.5   # the camera's motion a frame
+FUSION_Z = (0.1, 10.0)              # the rasterizer's near and far planes
+FUSION_STAGES = ("render", "odometry", "integrate", "raycast", "fetch")
+# the truth gates (fusion_truth_report): the last chained pose within these
+# of the trajectory's, and the raycast's depth within FUSION_DEPTH_TOL of the
+# rendered depth on FUSION_DEPTH_SHARE of the pixels valid in both
+FUSION_POSE_TOL_M, FUSION_POSE_TOL_DEG = 0.02, 1.0
+FUSION_DEPTH_TOL, FUSION_DEPTH_SHARE = 0.01, 0.95
+GL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])   # the rasterizer's camera looks down -z, y up
+
+
+def fusion_intrinsics(W: int = 640, H: int = 480) -> np.ndarray:
+    """kinfu's intrinsics scaled to a W x H frame."""
+    s = W / 640.0
+    return np.array([[FUSION_F * s, 0, (W - 1) / 2.0], [0, FUSION_F * s, (H - 1) / 2.0], [0, 0, 1]])
+
+
+def fusion_settings(res: int = FUSION_RES, W: int = 640, H: int = 480) -> tuple:
+    """(VolumeSettings, OdometrySettings) at kinfu's defaults: a res³ volume
+    of FUSION_SIZE_M posed at FUSION_POSE_T, truncation at 7 voxels, weight
+    64, raycast step 0.25 voxels, ICP iterations {10, 5, 4}."""
+    from .threed.tsdf import OdometrySettings, VolumeSettings
+    K = fusion_intrinsics(W, H)
+    vs = VolumeSettings()
+    vs.setVoxelSize(FUSION_SIZE_M / res)
+    vs.setVolumeResolution((res, res, res))
+    pose = np.eye(4)
+    pose[:3, 3] = FUSION_POSE_T
+    vs.setVolumePose(pose)
+    vs.setTsdfTruncateDistance(FUSION_TRUNC_VOXELS * FUSION_SIZE_M / res)
+    vs.setMaxWeight(FUSION_MAX_WEIGHT)
+    vs.setRaycastStepFactor(FUSION_STEP_FACTOR)
+    vs.setDepthFactor(FUSION_DEPTH_FACTOR)
+    vs.setCameraIntegrateIntrinsics(K)
+    vs.setIntegrateWidth(W)
+    vs.setIntegrateHeight(H)
+    os_ = OdometrySettings()
+    os_.setCameraMatrix(K)
+    os_.setIterCounts(list(FUSION_ICP_ITERS))
+    return vs, os_
+
+
+def _quad(a, b, c, d) -> tuple:
+    return [a, b, c, d], [(0, 1, 2), (0, 2, 3)]
+
+
+def make_room_mesh(seed: int = 0) -> tuple:
+    """A room in the first camera's frame (x right, y down, z forward): back
+    wall, floor, ceiling and side walls, three boxes on the floor and a
+    sphere, all inside the volume; (vertices (V, 3) float64, triangles (T,
+    3) int32), under 1,000 triangles."""
+    rng = np.random.default_rng(seed)
+    V, T = [], []
+
+    def add(verts, tris):
+        base = len(V)
+        V.extend(verts)
+        T.extend([(base + i, base + j, base + k) for i, j, k in tris])
+
+    x0, x1, y0, y1, z0, z1 = -1.35, 1.35, -1.25, 1.2, 0.6, 3.2
+    add(*_quad((x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1)))   # back wall
+    add(*_quad((x0, y1, z0), (x1, y1, z0), (x1, y1, z1), (x0, y1, z1)))   # floor
+    add(*_quad((x0, y0, z0), (x1, y0, z0), (x1, y0, z1), (x0, y0, z1)))   # ceiling
+    add(*_quad((x0, y0, z0), (x0, y1, z0), (x0, y1, z1), (x0, y0, z1)))   # left wall
+    add(*_quad((x1, y0, z0), (x1, y1, z0), (x1, y1, z1), (x1, y0, z1)))   # right wall
+    faces = [(0, 1, 2), (0, 2, 3), (4, 6, 5), (4, 7, 6), (0, 4, 5), (0, 5, 1),
+             (1, 5, 6), (1, 6, 2), (2, 6, 7), (2, 7, 3), (3, 7, 4), (3, 4, 0)]
+    for bx, bz in ((-0.8, 2.4), (0.7, 2.6), (0.2, 1.9)):
+        w, h, d = rng.uniform(0.25, 0.55, 3)
+        a = rng.uniform(0, np.pi / 2)
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        c = np.array([[sx * w / 2, sy, sz * d / 2] for sy in (y1 - h, y1)
+                      for sx, sz in ((-1, -1), (1, -1), (1, 1), (-1, 1))])
+        c[:, 1] = np.repeat([y1 - h, y1], 4)
+        add([tuple(p) for p in c @ R.T + [bx, 0, bz]], faces)
+    r, (sx, sz) = 0.3, (-0.2, 2.7)
+    st, sl = 12, 24
+    verts = [(sx + r * np.sin(np.pi * i / st) * np.cos(2 * np.pi * j / sl),
+              y1 - r - 0.2 + r * np.cos(np.pi * i / st),
+              sz + r * np.sin(np.pi * i / st) * np.sin(2 * np.pi * j / sl))
+             for i in range(st + 1) for j in range(sl)]
+    tris = [t for i in range(st) for j in range(sl)
+            for t in (((i * sl + j), (i + 1) * sl + j, (i + 1) * sl + (j + 1) % sl),
+                      ((i * sl + j), (i + 1) * sl + (j + 1) % sl, i * sl + (j + 1) % sl))]
+    add(verts, tris)
+    return np.asarray(V, np.float64), np.asarray(T, np.int32)
+
+
+def _rot(axis, deg: float) -> np.ndarray:
+    k = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    a = np.deg2rad(deg)
+    return np.eye(3) + np.sin(a) * Kx + (1 - np.cos(a)) * Kx @ Kx
+
+
+def make_rgbd_scene(shape=SHAPE_FUSION, seed: int = 0) -> dict:
+    """The room of make_room_mesh and a camera trajectory of shape[0]
+    camera-to-world poses (the first the identity; each step moves
+    FUSION_STEP_M and turns FUSION_STEP_DEG about a slowly turning axis),
+    with the rasterizer's projection set to kinfu's intrinsics: fovY =
+    2·atan((H/2)/f) gives f, and the principal point is ((W-1)/2, (H-1)/2)."""
+    n, H, W = shape
+    rng = np.random.default_rng(seed)
+    verts, tris = make_room_mesh(seed)
+    K = fusion_intrinsics(W, H)
+    poses = [np.eye(4)]
+    axis, move = rng.normal(size=3), rng.normal(size=3)
+    for _ in range(n - 1):
+        axis = axis + 0.3 * rng.normal(size=3)
+        move = move + 0.3 * rng.normal(size=3)
+        step = np.eye(4)
+        step[:3, :3] = _rot(axis, FUSION_STEP_DEG)
+        step[:3, 3] = FUSION_STEP_M * move / np.linalg.norm(move)
+        poses.append(poses[-1] @ step)
+    return {"verts": verts, "tris": tris, "poses": np.stack(poses), "K": K,
+            "fovY": 2.0 * np.arctan((H / 2.0) / K[1, 1]), "size": (W, H)}
+
+
+def render_depth(scene: dict, pose: np.ndarray, device="cuda") -> torch.Tensor:
+    """triangleRasterizeDepth of the room seen from camera-to-world `pose`,
+    (H, W) float32 metres on `device`, FUSION_Z[1] where nothing is hit."""
+    from .threed.rasterize import (RASTERIZE_CULLING_NONE, TriangleRasterizeSettings,
+                                   triangleRasterizeDepth)
+    W, H = scene["size"]
+    buf = torch.full((H, W), FUSION_Z[1], dtype=torch.float32, device=device)
+    st = TriangleRasterizeSettings().setCullingMode(RASTERIZE_CULLING_NONE)
+    return triangleRasterizeDepth(scene["verts"], scene["tris"], buf,
+                                  GL_FLIP @ np.linalg.inv(pose), scene["fovY"], FUSION_Z[0],
+                                  FUSION_Z[1], st)
+
+
+def depth_to_u16(depth: torch.Tensor) -> torch.Tensor:
+    """Rendered metres as a z16 stream: millimetres rounded, 0 where no
+    surface was hit."""
+    mm = torch.round(depth.to(torch.float64) * FUSION_DEPTH_FACTOR).to(torch.int32)
+    return torch.where(depth < FUSION_Z[1], mm, 0).to(torch.uint16)
+
+
+def forward_fusion(scene: dict, volume, odometry, device="cuda", times: dict | None = None) -> dict:
+    """KinectFusion's loop over the trajectory: each frame rendered on
+    `device` and sent as u16 millimetres, Odometry.compute of each frame
+    against the one before (the poses chained), Volume.integrate of each
+    frame at its chained pose, then raycast at the last pose and
+    fetchPointsNormals.  Returns the depths, the chained poses, the raycast
+    points and normals and the point cloud; `times` (if given) gathers each
+    stage's host-clock ms (each stage synchronised)."""
+    import time as _t
+    from .threed.depth import rescaleDepth
+    clock = {k: 0.0 for k in FUSION_STAGES}
+    dev = torch.device(device)
+
+    def timed(name, fn):
+        t0 = _t.perf_counter()
+        r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        clock[name] += (_t.perf_counter() - t0) * 1e3
+        return r
+
+    depths = timed("render", lambda: torch.stack([depth_to_u16(render_depth(scene, p, dev))
+                                                   for p in scene["poses"]]))
+    poses = [np.eye(4)]
+    metres = [rescaleDepth(d) for d in depths]
+    for k in range(len(depths)):
+        if k:
+            # src = frame k, dst = frame k-1: T takes frame k's points to k-1's
+            _, T = timed("odometry", lambda: odometry.compute(metres[k], metres[k - 1]))
+            poses.append(poses[-1] @ T)
+        timed("integrate", lambda: volume.integrate(depths[k], poses[k]))
+    points, normals = timed("raycast", lambda: volume.raycast(poses[-1]))
+    cloud, _ = timed("fetch", lambda: volume.fetchPointsNormals())
+    if times is not None:
+        times.update(clock)
+    return {"depths": depths, "poses": np.stack(poses), "points": points, "normals": normals,
+            "cloud": cloud}
+
+
+def fusion_truth_report(out: dict, scene: dict) -> dict:
+    """The chained pose against the trajectory's last pose (translation m,
+    rotation degrees), and the raycast's depth (its points seen from the
+    chained pose) against the last rendered depth on the pixels valid in
+    both."""
+    from .core.arrays import to_host
+    est, true = out["poses"][-1], scene["poses"][-1]
+    dt = float(np.linalg.norm(est[:3, 3] - true[:3, 3]))
+    dR = est[:3, :3].T @ true[:3, :3]
+    deg = float(np.rad2deg(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))))
+    p = to_host(out["points"])[..., :3].astype(np.float64)
+    w2c = np.linalg.inv(est)
+    z = p @ w2c[2, :3] + w2c[2, 3]
+    d = to_host(out["depths"][-1]).astype(np.float64) / FUSION_DEPTH_FACTOR
+    valid = np.isfinite(z) & (d > 0)
+    err = np.abs(z - d)[valid]
+    share = float((err <= FUSION_DEPTH_TOL).mean()) if err.size else 0.0
+    return {"pose_err_m": dt, "pose_err_deg": deg, "depth_share": share,
+            "valid": int(valid.sum()), "raycast_hits": int(np.isfinite(z).sum()),
+            "depth_median_err": float(np.median(err)) if err.size else float("inf"),
+            "ok": (dt <= FUSION_POSE_TOL_M and deg <= FUSION_POSE_TOL_DEG
+                   and share >= FUSION_DEPTH_SHARE)}
+
+
+# ---------------------------------------------------------------------------
+# the object-detection models whose published files the repository lacks:
+# a Haar cascade and YuNet / SFace graphs made from a seed
+# ---------------------------------------------------------------------------
+
+CASCADE_WINDOW = 24
+CASCADE_STAGES = 12
+
+
+def haar_cascade_xml(seed: int = 0, stages: int = CASCADE_STAGES) -> str:
+    """A Haar cascade in OpenCV's (new) XML format with random stumps over
+    edge, line and tilted features of a 24 x 24 window: each stump splits
+    near 0 with leaves -a and +a, and each stage passes the windows whose
+    votes sum above 0 (on the objdetect path's frames a few of a million
+    windows pass all 12 stages)."""
+    rng = np.random.default_rng(seed)
+    n = CASCADE_WINDOW
+    feats, xml_stages = [], []
+    for st in range(stages):
+        k = 2 if st == 0 else int(rng.integers(3, 7))
+        weak = []
+        for _ in range(k):
+            kind = ("edge", "line", "tilted")[int(rng.integers(0, 3))]
+            if kind == "tilted":
+                w, h = (int(v) for v in rng.integers(2, 7, 2))
+                x = int(rng.integers(h, n - w + 1))
+                y = int(rng.integers(0, n - w - h + 1))
+                rects = [(x, y, w, h, -1.0), (x, y, w, max(1, h // 2), 2.0)]
+            else:
+                w, h = (int(v) for v in rng.integers(4, 12, 2)) if kind == "edge" else \
+                    (3 * int(rng.integers(2, 5)), int(rng.integers(3, 10)))
+                x, y = int(rng.integers(0, n - w + 1)), int(rng.integers(0, n - h + 1))
+                rects = ([(x, y, w, h, -1.0), (x, y, w // 2, h, 2.0)] if kind == "edge" else
+                         [(x, y, w, h, -1.0), (x + w // 3, y, w // 3, h, 3.0)])
+            feats.append((rects, kind == "tilted"))
+            a = float(rng.uniform(0.5, 1.0))
+            weak.append(f"<_><internalNodes>0 -1 {len(feats) - 1} "
+                        f"{rng.uniform(-0.002, 0.002):.6e}</internalNodes>"
+                        f"<leafValues>{-a:.6e} {a:.6e}</leafValues></_>")
+        xml_stages.append(f"<_><maxWeakCount>{k}</maxWeakCount><stageThreshold>0.0"
+                          f"</stageThreshold><weakClassifiers>{''.join(weak)}</weakClassifiers>"
+                          f"</_>")
+    xml_feats = "".join(
+        "<_><rects>" + "".join(f"<_>{x} {y} {w} {h} {wt:.1f}</_>" for x, y, w, h, wt in rects)
+        + f"</rects><tilted>{int(tilted)}</tilted></_>" for rects, tilted in feats)
+    return ('<?xml version="1.0"?>\n<opencv_storage>\n<cascade type_id="opencv-cascade-'
+            'classifier"><stageType>BOOST</stageType><featureType>HAAR</featureType>'
+            f"<height>{n}</height><width>{n}</width><stageParams><maxWeakCount>6"
+            "</maxWeakCount></stageParams><featureParams><maxCatCount>0</maxCatCount>"
+            f"<featSize>1</featSize><mode>ALL</mode></featureParams><stageNum>{stages}"
+            f"</stageNum><stages>{''.join(xml_stages)}</stages><features>{xml_feats}"
+            "</features></cascade>\n</opencv_storage>\n")
+
+
+def face_models(seed: int = 0, size=(96, 96)) -> dict:
+    """{"yunet": bytes, "sface": bytes}: ONNX graphs of YuNet's and SFace's
+    interfaces with random weights (the port's codec; no google.protobuf).
+    YuNet's: for strides 8, 16 and 32 an average pool of the input and 1x1
+    convolutions into its 12 heads cls_/obj_/bbox_/kps_{8,16,32}, shaped
+    (1, rows * cols, C); SFace's: one 112 x 112 convolution into a
+    16-float embedding."""
+    from .dnn import _proto
+    S = _proto.schema("onnx_schema")
+    T = functools.partial(_onnx_tensor, S)
+    N = functools.partial(_onnx_node, S)
+    M = functools.partial(_onnx_model, S)
+    W, H = size
+    rng = np.random.default_rng(seed)
+    nodes, inits, outs = [], [], []
+    for s in (8, 16, 32):
+        nodes.append(N("AveragePool", ["input"], [f"p{s}"], kernel_shape=[s, s], strides=[s, s]))
+        for name, ch, sig, std in (("cls", 1, True, 0.4), ("obj", 1, True, 0.4),
+                                   ("bbox", 4, False, 0.003), ("kps", 10, False, 0.01)):
+            inits += [T(f"w_{name}_{s}", rng.normal(0, std, (ch, 3, 1, 1)).astype(np.float32)),
+                      T(f"b_{name}_{s}", rng.normal(0, std, (ch,)).astype(np.float32)),
+                      T(f"shape_{name}_{s}", np.asarray([1, -1, ch], np.int64))]
+            act = f"{name}_{s}_conv"
+            nodes.append(N("Conv", [f"p{s}", f"w_{name}_{s}", f"b_{name}_{s}"], [act],
+                           kernel_shape=[1, 1], strides=[1, 1], pads=[0, 0, 0, 0]))
+            if sig:
+                nodes.append(N("Sigmoid", [act], [f"{name}_{s}_sig"]))
+                act = f"{name}_{s}_sig"
+            nodes += [N("Transpose", [act], [f"{name}_{s}_tr"], perm=[0, 2, 3, 1]),
+                      N("Reshape", [f"{name}_{s}_tr", f"shape_{name}_{s}"], [f"{name}_{s}"])]
+            outs.append((f"{name}_{s}", (1, (H // s) * (W // s), ch)))
+    yunet = M([("input", (1, 3, H, W))], outs, nodes, inits)
+    sface = M([("input", (1, 3, 112, 112))], [("emb", (1, 16))],
+              [N("Conv", ["input", "w"], ["emb4"], kernel_shape=[112, 112], strides=[1, 1],
+                 pads=[0, 0, 0, 0]),
+               N("Reshape", ["emb4", "shape"], ["emb"])],
+              [T("w", rng.normal(0, 0.1, (16, 3, 112, 112)).astype(np.float32)),
+               T("shape", np.asarray([1, 16], np.int64))])
+    return {"yunet": yunet.SerializeToString(), "sface": sface.SerializeToString()}

@@ -5,7 +5,7 @@
         [--sort COLUMN]
 
 PATH is one of flagship, cfg2, cfg3, cfg4, cfg5, decode, enhance, motion,
-lines, segment, photo, stereo, stitch, gapi and trackdnn.
+lines, segment, photo, stereo, stitch, gapi, trackdnn, objdetect and fusion.
 
 ``--path flagship`` (the default) runs ``opencv_tpu_torch.entry``'s forward
 and fused forward on the (8, 1080, 1920, 3) batch; ``--path cfg2`` runs
@@ -55,7 +55,14 @@ through ``gapi.Stream`` over four host batches of ``make_batch()``, on one
 resident batch, and its ``torch.export`` program loaded back; ``--path
 trackdnn`` GOTURN at its published widths (``entry.make_goturn_net``) on
 ``make_motion_video()``'s frames: one tracker's crops and blobs, the net's
-forward, and an update of all six trackers. Each runs under
+forward, and an update of all six trackers; ``--path objdetect`` the
+object-detection path on frame 0 of ``make_marker_scene()``'s 1080p frames
+and its chart, a stage per detector (``entry.OBJDETECT_STAGES``): aruco,
+charuco, qr (on the codes' band), barcode, hog (44 scales) and mcc;
+``--path fusion`` the fusion path's stages in KinectFusion's 512³ volume
+(``entry.FUSION_STAGES``): one render, one Odometry.compute between the
+first two frames, one integration, the raycast and fetchPointsNormals (run
+it with ``--repeats 3 --iters 1``). Each runs under
 ``torch.profiler`` with one ``record_function`` span per stage. Prints, per
 stage, the time between CUDA events around it (median of ``--repeats``,
 unprofiled) beside the device time of its torch-op kernels
@@ -319,11 +326,45 @@ def trackdnn_stages():
             ("update6", lambda _: [k.update(frames[1]) for k in trackers])]
 
 
+def objdetect_stages():
+    """The object-detection path's detectors on one 1080p frame and the
+    chart."""
+    frames_np, chart_np, _ = E.make_marker_scene((1,) + E.SHAPE_OBJDETECT[1:])
+    f, chart = torch.from_numpy(frames_np[0]).cuda(), torch.from_numpy(chart_np).cuda()
+    det = E.make_objdetectors("cuda")
+    x0, y0, x1, y1 = E.qr_roi(f.shape[0])
+    return [("aruco", lambda _: det["aruco"].detectMarkers(f)),
+            ("charuco", lambda _: det["charuco"].detectBoard(f)),
+            ("qr", lambda _: det["qr"].detectAndDecode(f[y0:y1, x0:x1])),
+            ("barcode", lambda _: det["barcode"].detectAndDecode(f)),
+            ("hog", lambda _: det["hog"].detectMultiScale(f, **E.HOG_DETECT)),
+            ("mcc", lambda _: det["mcc"].process(chart, 0))]
+
+
+def fusion_stages():
+    """The fusion path's stages in the 512³ volume: a render, the first
+    pair's odometry, an integration, the raycast and the fetch."""
+    from opencv_tpu_torch.threed.depth import rescaleDepth
+    from opencv_tpu_torch.threed.tsdf import Odometry, Volume
+    scene = E.make_rgbd_scene(E.SHAPE_FUSION)
+    vs, os_ = E.fusion_settings()
+    vol, od = Volume(0, vs, device="cuda"), Odometry(os_)
+    d = [E.depth_to_u16(E.render_depth(scene, p, "cuda")) for p in scene["poses"][:2]]
+    m = [rescaleDepth(x) for x in d]
+    vol.integrate(d[0], scene["poses"][0])
+    return [("render", lambda _: E.render_depth(scene, scene["poses"][1], "cuda")),
+            ("odometry", lambda _: od.compute(m[1], m[0])),
+            ("integrate", lambda _: vol.integrate(d[1], scene["poses"][1])),
+            ("raycast", lambda _: vol.raycast(scene["poses"][1])),
+            ("fetch", lambda _: vol.fetchPointsNormals())]
+
+
 PATHS = {"flagship": flagship_stages, "cfg2": cfg2_stages, "cfg3": cfg3_stages,
          "cfg4": cfg4_stages, "cfg5": cfg5_stages, "decode": decode_stages,
          "enhance": enhance_stages, "motion": motion_stages, "lines": lines_stages,
          "segment": segment_stages, "photo": photo_stages, "stereo": stereo_stages,
-         "stitch": stitch_stages, "gapi": gapi_stages, "trackdnn": trackdnn_stages}
+         "stitch": stitch_stages, "gapi": gapi_stages, "trackdnn": trackdnn_stages,
+         "objdetect": objdetect_stages, "fusion": fusion_stages}
 
 
 def staged(stages, marks=None):

@@ -561,6 +561,42 @@ def test_calib3d_leaves_nothing_out():
     assert len(CALIB3D_NAMES) == 143
 
 
+# objdetect, threed, cv2.cuda and the binding-compat classes: each public
+# name of each JAX module has its twin in the port's module, and each
+# top-level name the JAX package takes from them is the port's own
+SLICE24_MODULES = tuple(f"objdetect.{m}" for m in (
+    "hog", "cascade", "aruco", "charuco", "qrcode", "qr_encode", "barcode", "mcc", "face")) + \
+    tuple(f"threed.{m}" for m in ("depth", "rasterize", "tsdf", "octree", "pointcloud")) + \
+    ("cuda", "compat_classes")
+
+
+def test_objdetect_and_threed_leave_nothing_out():
+    import importlib
+    import types
+
+    def own(mod, n):   # defined by the module, not imported into it
+        v = getattr(mod, n)
+        return not isinstance(v, types.ModuleType) and n != "annotations" and \
+            getattr(v, "__module__", mod.__name__) == mod.__name__
+
+    for m in SLICE24_MODULES:
+        jmod = importlib.import_module(f"opencv_tpu.{m}")
+        tmod = importlib.import_module(f"opencv_tpu_torch.{m}")
+        left = sorted(n for n in dir(jmod) if not n.startswith("_") and own(jmod, n)
+                      and not hasattr(tmod, n))
+        assert left == [], (m, left)
+    names = [n for n in dir(jcv) if not n.startswith("_")
+             and getattr(getattr(jcv, n), "__module__", "").startswith(
+                 tuple(f"opencv_tpu.{m}" for m in SLICE24_MODULES))]
+    assert len(names) > 60
+    for n in names:
+        got = getattr(tcv, n)
+        assert got.__module__.startswith("opencv_tpu_torch."), n
+        assert type(got).__name__ == type(getattr(jcv, n)).__name__, n
+    for sub in ("threed", "objdetect", "cuda", "compat_classes"):
+        assert getattr(tcv, sub).__name__ == f"opencv_tpu_torch.{sub}"
+
+
 # ---------------------------------------------------------------------------
 # the second set of top-level names of opencv_tpu/__init__.py (video, core,
 # FLANN), each held to the JAX package's
@@ -644,26 +680,6 @@ def test_ann_index_equals_opencv_tpu(dist, tmp_path):
 # counts whether or not a test has imported it (an import makes it an
 # attribute of its package).
 STILL_TO_PORT = {
-    "cuda": ("cuda",),
-    "threed": ("threed", "RASTERIZE_COMPAT_DISABLED", "RASTERIZE_COMPAT_INVDEPTH",
-               "RASTERIZE_CULLING_CCW", "RASTERIZE_CULLING_CW", "RASTERIZE_CULLING_NONE",
-               "RASTERIZE_SHADING_FLAT", "RASTERIZE_SHADING_SHADED", "RASTERIZE_SHADING_WHITE",
-               "depthTo3d", "depthTo3dSparse", "registerDepth", "rescaleDepth", "warpFrame",
-               "Octree", "Octree_createWithDepth", "Octree_createWithResolution", "RgbdNormals",
-               "RgbdNormals_create", "loadMesh", "loadPointCloud", "saveMesh", "savePointCloud",
-               "TriangleRasterizeSettings", "triangleRasterize", "triangleRasterizeColor",
-               "triangleRasterizeDepth", "Odometry", "OdometryFrame", "OdometrySettings",
-               "Volume", "VolumeSettings"),
-    "objdetect": ("objdetect", "aruco", "aruco_ArucoDetector", "aruco_Board",
-                  "aruco_DetectorParameters", "aruco_Dictionary", "aruco_GridBoard",
-                  "aruco_RefineParameters", "aruco_CharucoBoard", "aruco_CharucoDetector",
-                  "aruco_CharucoParameters", "barcode", "barcode_BarcodeDetector",
-                  "CascadeClassifier", "FaceDetectorYN", "FaceDetectorYN_create",
-                  "FaceRecognizerSF", "FaceRecognizerSF_create", "HOGDescriptor",
-                  "groupRectangles", "mcc", "mcc_CChecker", "mcc_CCheckerDetector",
-                  "mcc_DetectorParametersMCC", "QRCodeEncoder", "QRCodeEncoder_Params",
-                  "QRCodeEncoder_create", "GraphicalCodeDetector", "QRCodeDetector",
-                  "QRCodeDetectorAruco", "QRCodeDetectorAruco_Params"),
     "videostab": ("videostab",),
     "imgcodecs": ("imgcodecs", "IMREAD_ANYCOLOR", "IMREAD_ANYDEPTH", "IMREAD_COLOR",
                   "IMREAD_GRAYSCALE", "IMREAD_UNCHANGED", "Animation", "haveImageReader",
@@ -685,12 +701,6 @@ STILL_TO_PORT = {
                 "resizeWindow", "selectROI", "selectROIs", "setMouseCallback", "setTrackbarMax",
                 "setTrackbarMin", "setTrackbarPos", "setWindowProperty", "setWindowTitle",
                 "startWindowThread", "waitKey", "waitKeyEx"),
-    "compat_classes": ("compat_classes", "MatShape", "cuda_BufferPool", "cuda_DeviceInfo",
-                       "cuda_Event", "cuda_GpuData", "cuda_GpuMat", "cuda_GpuMatND",
-                       "cuda_GpuMat_Allocator", "cuda_HostMem", "cuda_Stream",
-                       "cuda_TargetArchs", "error", "ocl_Device", "ocl_OpenCLExecutionContext",
-                       "utils_ClassWithKeywordProperties", "utils_nested_ExportClassName",
-                       "utils_nested_ExportClassName_Params"),
     "mat_wrapper": ("mat_wrapper", "Mat", "UMat", "UMat_context", "UMat_queue"),
     "one-name modules": ("Error", "instr", "ipp", "misc", "ocl", "ogl", "qt", "samples",
                          "typing", "version", "data"),
@@ -700,7 +710,7 @@ STILL_TO_PORT = {
 def test_only_the_modules_still_to_port_are_missing():
     import pkgutil
     listed = [n for names in STILL_TO_PORT.values() for n in names]
-    assert len(listed) == len(set(listed)) == 172
+    assert len(listed) == len(set(listed)) == 90
     theirs = set(dir(jcv)) | {m.name for m in pkgutil.iter_modules(jcv.__path__)}
     ours = set(dir(tcv)) | {m.name for m in pkgutil.iter_modules(tcv.__path__)}
     missing = {n for n in theirs - ours if not n.startswith("_")}
