@@ -8,7 +8,8 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
 1. device: a CUDA device is present; prints nvidia-smi's name and power limit;
 2. build: compiles the CUDA kernels from ``opencv_tpu_torch/csrc`` (nvcc),
    prints what ``ptxas -v`` said of sep_filter's kernels (registers, spills)
-   and fails if an instantiation of its template spills;
+   and fails if an instantiation of its template, its box kernel or its
+   generic kernel spills;
 3. kernels: each kernel (sep_filter, gauss5_down2, pyr_down) equals its
    plain PyTorch version bit for bit (``torch.equal``) on the whole batch at
    the main paths' shapes, with the taps and borders those paths give it
@@ -19,10 +20,12 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    sep_filter's route k3 with C = 3 at the photo path's (1, 1071, 1911, 3),
    u8 -> i16, dx and dy under BORDER_REPLICATE; ArUco's normalised boxes of
    windows 3, 13 and 23 at (1, 1080, 1920, 1) under BORDER_REPLICATE |
-   BORDER_ISOLATED, route k3 and the generic kernel), and on edge cases
+   BORDER_ISOLATED, route k3 and the box kernel, and the Gaussians k13 and
+   k23 there on the generic kernel), and on edge cases
    (borders, channel counts, odd and tiny sizes, rows of every width and
    offset views for the K = 7 template, k = 9 and 31 for
-   the generic kernel; gauss5_down2's strip classes: 3W % 16 != 0, a base
+   the generic kernel, boxes of 9, 13, 23, 31 and 9 x 15 into u8 and i16 at
+   every block class for the box kernel; gauss5_down2's strip classes: 3W % 16 != 0, a base
    one byte off, W of a strip and a strip -/+ 2, a ragged last strip, H = 2
    and 4, N = 1 and 3, sigma 0, 0.1 (the identity taps), 1.5 and 20, plans
    of 1 and 3 blocks, and asymmetric taps refused);
@@ -297,7 +300,7 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       BarcodeDetector.detectAndDecode, HOGDescriptor.detectMultiScale with
       the INRIA SVM at samples/python/peopledetect.py's settings (44 scales)
       and CCheckerDetector.process; sep_filter must launch on route k3 2 x 8
-      times and on the generic kernel 4 x 8 times (ArUco's windows 3, 13 and
+      times and on the box kernel 4 x 8 times (ArUco's windows 3, 13 and
       23 in each frame's two marker passes) and nothing else; the truth
       gates of ``entry.objdetect_truth_report``; on frame 0 the thresholded
       planes and the markers equal the CPU's, HOG's window scores within
@@ -329,8 +332,10 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    the f32 rate if larger) and, where one PyTorch call computes the same
    multiply-accumulate, that call (``library_ms``: ``F.conv2d`` on a
    pre-padded f32 copy, timed only here), and for sep_filter the route each
-   shape takes (the generic kernel at ArUco's windows 13 and 23, beside
-   route k3 at its window 3, at the 1080p frame of the objdetect path, 4v);
+   shape takes (the box kernel at ArUco's windows 13 and 23, beside
+   route k3 at its window 3, at the 1080p frame of the objdetect path, 4v;
+   the generic kernel on the Gaussians k13 and k23 there and k9 sigma 2 at
+   ORB's level 2, (8, 750, 1333, 1), which no main path launches);
    each op of config 3; the whole
    forwards; config 4's forward and ops; the pad inside one erode, whole and
    its device work alone; goodFeaturesToTrack's device part and host
@@ -589,9 +594,14 @@ SWEEP_FRAMES = 4
 
 # phase 4v (object detection): ArUco's adaptive-threshold windows (MEAN_C,
 # boxFilter under BORDER_REPLICATE | BORDER_ISOLATED: route k3 at 3, the
-# generic kernel at 13 and 23) at the frame's shape, (1, 1080, 1920, 1)
+# box kernel at 13 and 23) at the frame's shape, (1, 1080, 1920, 1)
 ARUCO_WINDOWS = (3, 13, 23)
 ARUCO_SHAPE = (1, 1080, 1920, 1)
+# the generic kernel (route 0) in phases 3 and 5: the Q8 Gaussians of
+# GaussianBlur ksize 13 and 23 (sigma from the size) at ARUCO_SHAPE, and k9
+# sigma 2 at ORB's level 2, each under BORDER_REFLECT_101
+GENERIC_GAUSS = (("gauss k13", ARUCO_SHAPE, 13, 0.0), ("gauss k23", ARUCO_SHAPE, 23, 0.0),
+                 ("k9 orb level 2", (8, 750, 1333, 1), 9, 2.0))
 # HOG's window scores, card against CPU: F.conv2d sums the products in
 # cuDNN's and oneDNN's orders (tests/test_torch_objdetect_hog.py holds the
 # port to the JAX package within the same bound); a window found on one
@@ -1028,6 +1038,20 @@ def sep_cases(K, gauss_taps, orb_sizes):
                               dict(kw, border=border, border_value=(9, 99, 199, 250)[:shape[3]])))
         cases.append((f"class sobel i16 W 17 {bname}", (2, 40, 17, 1),
                       dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16", border=border)))
+        # the box kernel's classes (a block is 256 output bytes of 32 rows,
+        # its window 64 bytes wider each side): every window into u8 with
+        # the box's scale, and by turns one into i16 with negative taps and
+        # a delta, k31 on the wide shapes too; N = 3 at C = 3
+        for i, (sname, shape) in enumerate((*shapes.items(), ("N 3 C3", (3, 37, 300, 3)))):
+            bv = (9, 99, 199, 250)[:shape[3]]
+            for kw_, kh_ in BOX_WINDOWS:
+                cases.append((f"class box {kw_}x{kh_} {sname} {shape} {bname}", shape,
+                              dict(kx=(1,) * kw_, ky=(1,) * kh_, scale=1.0 / (kw_ * kh_),
+                                   border=border, border_value=bv)))
+            kw_, kh_ = BOX_WINDOWS[i % len(BOX_WINDOWS)]
+            cases.append((f"class box i16 {kh_}x{kw_} {sname} {shape} {bname}", shape,
+                          dict(kx=(-3,) * kh_, ky=(2,) * kw_, delta=-5, out_dtype="int16",
+                               border=border, border_value=bv)))
         cases.append((f"class sobel i16 WC%16 C3 {bname}", (2, 40, 101, 3),
                       dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16", border=border)))
     # the template at K = 7 at every row width: W*C % 16 in {1, 5, 15} (odd
@@ -1052,6 +1076,8 @@ def sep_cases(K, gauss_taps, orb_sizes):
     return cases
 
 
+# (kw, kh) of phase 3's box-kernel rows
+BOX_WINDOWS = ((9, 9), (13, 13), (23, 23), (31, 31), (9, 15))
 # (C, widths) of phase 3's K = 7 rows: W*C % 16 = 1, 5, 15 (C = 1, 3), the
 # nearest even values (C = 2, 4), 0, and one row over 512 bytes
 K7_WIDTHS = {1: (33, 37, 47, 48, 1029), 2: (33, 35, 39, 48, 517), 3: (43, 39, 37, 48, 345),
@@ -1070,8 +1096,8 @@ def offset_view(rng, shape, dev):
 # (name, input shape) of the storage-offset cases: an image of H*W*C bytes
 # that is a multiple of 16 keeps the base aligned, one that is not (an odd
 # offset) puts every row of sep_filter's template at another offset in its
-# granule, and sends pyr_down and sep_filter's generic kernel to their
-# byte-wise staging
+# granule, and sends pyr_down to its byte-wise staging and sep_filter's box
+# and generic kernels to their word loads at the row's alignment
 OFFSET_SHAPES = (("offset aligned", (2, 40, 64, 1)), ("offset unaligned", (2, 41, 63, 1)),
                  ("offset unaligned C3", (2, 41, 67, 3)), ("offset main", (7, 1080, 1920, 1)))
 
@@ -1102,6 +1128,13 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     operations over the f32 rate (a MAC counts two)."""
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sep_ops(numel: int, k: int, box: bool) -> int:
+    """sep_filter's operations on `numel` pixels with k x k taps: the
+    separable MAC's 2 * 2k a pixel, or, for equal taps, the running sums'
+    two adds and two subtracts a pixel."""
+    return 4 * numel if box else 2 * 2 * k * numel
 
 
 def conv_yardstick(x, kx, ky, stride, dev):
@@ -1608,8 +1641,8 @@ def phase_objdetect(E, run_counted, count_syncs, dev, card, kernel_syms):
     log(f"objdetect path launches: {cnt}")
     routes = cnt["sep_filter routes"]
     # ArUco's three windows in each frame's detectMarkers and in its
-    # CharucoDetector's own pass: window 3 on route k3, 13 and 23 generic
-    want = {"k3": 2 * N, "k5": 0, "k7": 0, "generic": 4 * N}
+    # CharucoDetector's own pass: window 3 on route k3, 13 and 23 on the box
+    want = {"k3": 2 * N, "k5": 0, "k7": 0, "box": 4 * N, "generic": 0}
     if routes != want or cnt["opencv_sep_filter"] != 6 * N or \
             any(cnt[k] for k in kernel_syms if k != "opencv_sep_filter"):
         raise AssertionError(f"objdetect: sep_filter must launch {want} and nothing else; "
@@ -2056,19 +2089,25 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    spills = []
+    spills, seen = [], 0
     for name, r in sorted(_build.ptxas_report().items()):
-        m = re.search(r"sep_filter_kernelILi(\d+)ELi(\d+)E([hs])E", name)
-        if m is None and "sep_generic_kernel" not in name:
+        m = re.search(r"(sep_(?:filter|box|generic)_kernel)I((?:Li\d+E)*)([hs])E", name)
+        if m is None:
             continue
-        what = (f"sep_filter_kernel<K={m.group(1)}, C={m.group(2)}, "
-                f"{'u8' if m.group(3) == 'h' else 'i16'}>" if m else name)
+        seen += 1
+        ints = re.findall(r"\d+", m.group(2))  # the template's K and C, the box's C
+        params = [f"{n}={v}" for n, v in zip(("K", "C")[2 - len(ints):], ints)]
+        what = f"{m.group(1)}<{', '.join(params + ['u8' if m.group(3) == 'h' else 'i16'])}>"
         log(f"ptxas {what}: {r.get('registers')} registers, {r.get('stack')} bytes stack, "
             f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spill stores / loads")
-        if m and (r.get("spill_stores") or r.get("spill_loads")):
+        if r.get("spill_stores") or r.get("spill_loads"):
             spills.append(what)
+    # the template at K = 3, 5, 7 and C = 1..4, the box kernel at C = 1..4,
+    # the generic kernel, each into u8 and i16
+    if seen != 2 * (12 + 4 + 1):
+        raise AssertionError(f"ptxas reported {seen} sep_filter kernels, not 34")
     if spills:
-        raise AssertionError(f"sep_filter's template spills registers in {spills}")
+        raise AssertionError(f"sep_filter's kernels spill registers in {spills}")
 
     # -- 3. each kernel against its plain version, on the card
     def gauss_taps(k, sigma):
@@ -2079,23 +2118,36 @@ def main() -> int:
     max_err = {}
     sizes5 = orb_mod.level_sizes(1080, 1920)
     cases = sep_cases(cv, gauss_taps, sizes5)
+    t3, box_s, n_box = time.perf_counter(), 0.0, 0
     for name, shape, kw in cases:
+        t_case = time.perf_counter()
         x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
         err = check_equal(f"sep_filter {name}", sep_filter_int(x, **kw),
                           sep_filter_int_plain(x, **kw))
         if name.startswith("main"):
             max_err["sep_filter"] = max(max_err.get("sep_filter", 0), err)
+        if name.startswith("class box"):
+            box_s += time.perf_counter() - t_case
+            n_box += 1
     kx5, k7 = gauss_taps(5, 0.0), gauss_taps(7, 2.0)
     offset_taps = (dict(kx=kx5, ky=kx5, shift=16),
                    dict(kx=(-1, 0, 1), ky=(1, 2, 1), out_dtype="int16"),
                    dict(kx=k7, ky=k7, shift=16),
                    *(dict(kx=kx, ky=ky, delta=3, scale=0.25, out_dtype="int16")
-                     for kx, ky in SOBEL7))
+                     for kx, ky in SOBEL7),
+                   # the box and generic kernels
+                   dict(kx=(1,) * 13, ky=(1,) * 13, scale=1.0 / 169),
+                   dict(kx=(-3,) * 9, ky=(2,) * 15, delta=-5, out_dtype="int16"),
+                   dict(kx=gauss_taps(13, 0.0), ky=gauss_taps(13, 0.0), shift=16))
     for name, shape in OFFSET_SHAPES:
         x = offset_view(rng, shape, dev)
         for kw in offset_taps:
-            check_equal(f"sep_filter {name} {shape} k{len(kw['kx'])}", sep_filter_int(x, **kw),
-                        sep_filter_int_plain(x, **kw))
+            route = SEP_ROUTES[sep_filter_route(kw["kx"], kw["ky"])]
+            before = SEP_FILTER.routes[route]
+            check_equal(f"sep_filter {name} {shape} k{len(kw['kx'])} route {route}",
+                        sep_filter_int(x, **kw), sep_filter_int_plain(x, **kw))
+            if SEP_FILTER.routes[route] != before + 1:
+                raise AssertionError(f"sep_filter {name}: not launched on route {route}")
     for kx, ky in SEP_PHOTO_TAPS:
         x = torch.from_numpy(rng.integers(0, 256, SEP_PHOTO_SHAPE, np.uint8)).to(dev)
         kw = dict(kx=kx, ky=ky, out_dtype="int16", border=cv.BORDER_REPLICATE)
@@ -2105,14 +2157,29 @@ def main() -> int:
     for k in ARUCO_WINDOWS:
         x = torch.from_numpy(rng.integers(0, 256, ARUCO_SHAPE, np.uint8)).to(dev)
         kw = dict(scale=1.0 / (k * k), border=cv.BORDER_REPLICATE | cv.BORDER_ISOLATED)
-        err = check_equal(f"sep_filter aruco box {k} {ARUCO_SHAPE} route "
-                          f"{SEP_ROUTES[sep_filter_route((1,) * k, (1,) * k)]}",
+        route = SEP_ROUTES[sep_filter_route((1,) * k, (1,) * k)]
+        before = SEP_FILTER.routes[route]
+        err = check_equal(f"sep_filter aruco box {k} {ARUCO_SHAPE} route {route}",
                           sep_filter_int(x, (1,) * k, (1,) * k, **kw),
                           sep_filter_int_plain(x, (1,) * k, (1,) * k, **kw))
+        if SEP_FILTER.routes[route] != before + 1:
+            raise AssertionError(f"sep_filter aruco box {k}: not launched on route {route}")
         max_err["sep_filter"] = max(max_err["sep_filter"], err)
+    for name, shape, k, sigma in GENERIC_GAUSS:
+        x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        g = gauss_taps(k, sigma)
+        kw = dict(shift=16, border=cv.BORDER_REFLECT_101)
+        before = SEP_FILTER.routes["generic"]
+        check_equal(f"sep_filter generic {name} {shape} route "
+                    f"{SEP_ROUTES[sep_filter_route(g, g)]}",
+                    sep_filter_int(x, g, g, **kw), sep_filter_int_plain(x, g, g, **kw))
+        if SEP_FILTER.routes["generic"] != before + 1:
+            raise AssertionError(f"sep_filter generic {name}: not launched on the generic route")
     log(f"sep_filter: {len(cases) + len(offset_taps) * len(OFFSET_SHAPES)} cases + "
         f"{len(SEP_PHOTO_TAPS)} at the photo path's shape + {len(ARUCO_WINDOWS)} at ArUco's "
-        f"(windows {ARUCO_WINDOWS}) equal to the plain version")
+        f"(windows {ARUCO_WINDOWS}) + {len(GENERIC_GAUSS)} Gaussians on the generic kernel "
+        f"equal to the plain version in {time.perf_counter() - t3:.1f} s (the box kernel's "
+        f"{n_box} block-class cases {box_s:.1f} s)")
 
     imgs = torch.from_numpy(E.make_batch()).to(dev)
     n = 0
@@ -2576,7 +2643,7 @@ def main() -> int:
     tiers9 = tier_stats()
     log(f"lines path launches: {cfg9}; dispatch {tiers9}")
     if (cfg9["opencv_sep_filter"] != 7 or cfg9["sep_filter routes"] != {
-            "k3": 6, "k5": 1, "k7": 0, "generic": 0}
+            "k3": 6, "k5": 1, "k7": 0, "box": 0, "generic": 0}
             or cfg9["opencv_pyr_down"] or cfg9["opencv_gauss5_down2"]
             or tiers9 != {"tier.sep_filter_u8.cuda": 1, "tier.sep_filter_int.cuda": 6}):
         raise AssertionError(f"lines path: sep_filter must launch through the registry once on "
@@ -2710,7 +2777,7 @@ def main() -> int:
     tiers10 = tier_stats()
     log(f"segmentation path launches: {cfg10}; dispatch {tiers10}")
     if (cfg10["opencv_sep_filter"] != 1 or cfg10["sep_filter routes"] != {
-            "k3": 0, "k5": 1, "k7": 0, "generic": 0}
+            "k3": 0, "k5": 1, "k7": 0, "box": 0, "generic": 0}
             or cfg10["opencv_pyr_down"] != 2 or cfg10["opencv_gauss5_down2"]
             or tiers10 != {"tier.sep_filter_u8.cuda": 1, "tier.pyr_down_u8.cuda": 2}):
         raise AssertionError(f"segmentation path: sep_filter must launch through the registry "
@@ -3395,7 +3462,7 @@ def main() -> int:
     cfg22 = phase_track_dnn(E, run_counted, count_syncs, dev, card, kernel_syms)
 
     # -- 4v. object detection on 1080p frames: ArUco (sep_filter k3 and the
-    # generic kernel), ChArUco, QR, EAN-13, HOG with the INRIA SVM, MCC; the
+    # box kernel), ChArUco, QR, EAN-13, HOG with the INRIA SVM, MCC; the
     # seeded cascade and face models card against CPU
     cfg23 = phase_objdetect(E, run_counted, count_syncs, dev, card, kernel_syms)
 
@@ -3471,17 +3538,34 @@ def main() -> int:
                  f"{SEP_PHOTO_SHAPE} Sobel dx u8->16S REPLICATE", 3 * a.numel(), 2 * 6 * a.numel(),
                  conv_yardstick(a, kx3, ky3, 1, dev), (kx3, ky3)))
     # ArUco's normalised boxes on the objdetect path (4v): window 3 on route
-    # k3, 13 and 23 on the generic kernel, each launched on every frame by
-    # detectMarkers and by the CharucoDetector's own pass
+    # k3, 13 and 23 on the box kernel, each launched on every frame by
+    # detectMarkers and by the CharucoDetector's own pass.  A box's bound
+    # counts the running sums' operations (sep_ops), so it is the bytes';
+    # the MAC's, the bound the parent's generic kernel was held to, is
+    # logged beside it as `mac_bound_ms`
     a = torch.from_numpy(rng.integers(0, 256, ARUCO_SHAPE, np.uint8)).to(dev)
+    mac_ops = {}
     for k in ARUCO_WINDOWS:
         box = (1,) * k
         kwb = dict(scale=1.0 / (k * k), border=cv.BORDER_REPLICATE | cv.BORDER_ISOLATED)
+        mac_ops[f"sep_filter aruco k{k}"] = sep_ops(a.numel(), k, False)
         rows.append((f"sep_filter aruco k{k}",
                      lambda box=box, kwb=kwb: sep_filter_int(a, box, box, **kwb),
                      lambda box=box, kwb=kwb: sep_filter_int_plain(a, box, box, **kwb),
                      f"{ARUCO_SHAPE} box {k}x{k} u8 REPLICATE|ISOLATED", 2 * a.numel(),
-                     2 * 2 * k * a.numel(), conv_yardstick(a, box, box, 1, dev), (box, box)))
+                     sep_ops(a.numel(), k, True), conv_yardstick(a, box, box, 1, dev),
+                     (box, box)))
+    # the generic kernel (route 0), on no main path: the Gaussians k13 and
+    # k23 at ArUco's frame and k9 sigma 2 at ORB's level 2
+    for name, shape, k, sigma in GENERIC_GAUSS:
+        a = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+        g = gauss_taps(k, sigma)
+        kwg = dict(shift=16, border=cv.BORDER_REFLECT_101)
+        rows.append((f"sep_filter generic {name}",
+                     lambda a=a, g=g, kwg=kwg: sep_filter_int(a, g, g, **kwg),
+                     lambda a=a, g=g, kwg=kwg: sep_filter_int_plain(a, g, g, **kwg),
+                     f"{shape} Gaussian k{k} sigma {sigma} u8 REFLECT_101", 2 * a.numel(),
+                     sep_ops(a.numel(), k, False), conv_yardstick(a, g, g, 1, dev), (g, g)))
     log(f"library_ms: one F.conv2d (cuDNN) on a pre-padded f32 NCHW copy, "
         f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
     times = {}
@@ -3494,10 +3578,14 @@ def main() -> int:
                            library_ms=t_lib)
         if taps is not None:
             times[name]["route"] = SEP_ROUTES[sep_filter_route(*taps)]
+        mac = ""
+        if name in mac_ops:
+            times[name]["mac_bound_ms"] = bound(nbytes, mac_ops[name])[0]
+            mac = f", the MAC's bound {times[name]['mac_bound_ms']:.4f} ms"
         log(f"time {name} {what}{' route ' + times[name]['route'] if taps else ''}: kernel "
             f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, "
             f"library {'none' if t_lib is None else f'{t_lib:.4f} ms'}, bound {b_ms:.4f} ms "
-            f"({b_by}), share of bound {b_ms / t_kern:.3f}  [{card}]")
+            f"({b_by}), share of bound {b_ms / t_kern:.3f}{mac}  [{card}]")
     t_fwd = timer(lambda: forward(imgs))
     t_fused = timer(lambda: E.forward_fused(imgs))
     log(f"time forward (8,1080,1920,3): {t_fwd:.4f} ms  [{card}]")
@@ -4194,7 +4282,8 @@ def main() -> int:
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
                              "sep_filter k3 photo",
-                             *(f"sep_filter aruco k{k}" for k in ARUCO_WINDOWS)),
+                             *(f"sep_filter aruco k{k}" for k in ARUCO_WINDOWS),
+                             *(f"sep_filter generic {name}" for name, *_ in GENERIC_GAUSS)),
               "gauss5_down2": ("gauss5_down2", "gauss5_down2 stereo", "gauss5_down2 gray"),
               "pyr_down": ("pyr_down", *(f"pyr_down c3 {h}x{w}" for _, h, w, _ in
                                          PYR_SEGMENT_SHAPES),

@@ -62,7 +62,6 @@ struct EdgeMaps {
   int rmap[kEdge];
   int bval[4];
 };
-constexpr int kHeadBytes = (sizeof(EdgeMaps) + 15) & ~15;
 
 // Every thread of the block takes part; a __syncthreads() must follow.
 __device__ __forceinline__ void build_edge_maps(EdgeMaps* m, int W, int C, int border,
@@ -92,30 +91,10 @@ __device__ __forceinline__ int mapped_byte(const uint8_t* row, int p, int L, int
   return (row != nullptr && t >= 0) ? (int)__ldg(row + t) : fill;
 }
 
-// Byte p of a row (any p) for the generic kernel's byte staging; row ==
-// nullptr is a BORDER_CONSTANT row.
-__device__ __forceinline__ uint8_t row_byte(const uint8_t* row, int p, int L, int C,
-                                            const EdgeMaps* m) {
-  if (row == nullptr) {
-    int ch = p % C;
-    return (uint8_t)m->bval[ch < 0 ? ch + C : ch];
-  }
-  if (p >= 0 && p < L) return row[p];
-  int t;
-  if (p < 0) {
-    if (p < -kEdge) return 0;  // never read by a valid output
-    t = m->lmap[p + kEdge];
-  } else {
-    if (p >= L + kEdge) return 0;
-    t = m->rmap[p - L];
-  }
-  return t >= 0 ? row[t] : (uint8_t)m->bval[-t - 1];
-}
-
 // ---------------------------------------------------------------------------
-// The generic sep_filter kernel's staging: each lane copies 16-byte chunks
-// of a row into shared memory with cp.async, and the bytes outside [0, L)
-// are filled from the edge tables once the row has landed.
+// The staging of sep_filter's tile kernels: 16-byte chunks of a row copied
+// into shared memory with cp.async, and the bytes outside [0, L) filled
+// from the edge tables once the row has landed.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -130,44 +109,12 @@ __device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem, int n
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
-// The byte-wise staging of one chunk (unaligned rows, BORDER_CONSTANT rows).
-// Out of line: inlined, its 16 unrolled branches per chunk would crowd the
-// instruction cache of the loop it sits in.  The loads go to registers
-// first, so they are in flight together.
-static __device__ __noinline__ void stage_bytes(uint8_t* dst, const uint8_t* row, int q, int L,
-                                                int C, const EdgeMaps* m) {
-  uint8_t v[16];
-  if (row != nullptr && q >= 0 && q + 16 <= L) {
-#pragma unroll
-    for (int b = 0; b < 16; ++b) v[b] = row[q + b];
-  } else {
-#pragma unroll
-    for (int b = 0; b < 16; ++b) v[b] = row_byte(row, q + b, L, C, m);
-  }
-#pragma unroll
-  for (int b = 0; b < 16; ++b) dst[b] = v[b];
-}
-
-// Stage bytes [q, q + 16) of a row into dst (16-byte aligned shared memory).
-// vec: the row is 16-byte aligned (L % 16 == 0 and an aligned base).  An
-// aligned row only copies its own bytes, asynchronously; the bytes of the
-// chunk outside [0, L) are left to fill_edges once the copy has landed.
-// Other rows are staged byte by byte (stage_bytes).
-__device__ __forceinline__ void stage_chunk(uint8_t* dst, const uint8_t* row, int q, int L, int C,
-                                            bool vec, const EdgeMaps* m) {
-  if (vec && row != nullptr) {
-    if (q >= 0 && q < L) cp_async16_n(dst, row + q, min(16, L - q));
-  } else {
-    stage_bytes(dst, row, q, L, C, m);
-  }
-}
-
-// After the chunks of an aligned row have landed in win (the staged bytes
-// [lo, hi) of the row): fill the bytes of the window outside [0, L) from the
+// After the chunks of a row have landed in win (the staged bytes [lo, hi)
+// of the row): fill the bytes of the window outside [0, L) from the
 // edge tables, reading the source bytes from the window itself where it
 // holds them (every border but WRAP and windows that end near an edge take
-// no global load).  A warp-level pass: __syncwarp() before and after.  Out of
-// line, as only the first and last warp of a row run it.
+// no global load).  One warp's pass over one row, between two barriers of
+// its caller.  Out of line, as only the blocks at a row's ends run it.
 static __device__ __noinline__ void fill_edges(uint8_t* win, int lo, int hi, const uint8_t* row,
                                                int L, const EdgeMaps* m, int lane) {
   const int a0 = max(lo, -kEdge), a1 = min(hi, 0);

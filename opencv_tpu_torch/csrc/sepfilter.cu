@@ -25,11 +25,15 @@
 // Routes.  The host picks one per launch (kernels/sepfilter.py::
 // sep_filter_route) and the entry refuses taps that do not meet it:
 //  - K = 3, 5 or 7: kw == kh == K and sum |kx| * 255 < 2^16 (every
-//    Gaussian, Sobel and box filter of the main paths, ORB's 7x7 blur
-//    included), the template below, fully unrolled on the tap count, the
-//    channel count and the output type;
-//  - 0: any other taps (kw != kh, k up to 31, large taps), the generic
-//    kernel at the end of this file.
+//    Gaussian, Sobel and small box filter of the main paths, ORB's 7x7 blur
+//    and ArUco's 3x3 box included), the template below, fully unrolled on
+//    the tap count, the channel count and the output type;
+//  - 1, the box: the other taps whose kx are all one value a and whose ky
+//    are all one value b (boxFilter, blur and adaptiveThreshold MEAN_C at
+//    windows over 7, or kw != kh): acc = a * b * S, S the window's sum from
+//    running sums (sep_box_kernel);
+//  - 0: any other taps (kw != kh, k up to 31, large taps), a multiply-add
+//    per tap (sep_generic_kernel).
 //
 // The template.  Each warp owns a strip of kStrip output rows by 512 output
 // bytes (16 per thread) and walks down it.
@@ -70,17 +74,46 @@
 //  - Output rows of W*C % 16 == 0 on an aligned base are stored in 16-byte
 //    words, other rows one element at a time.
 //
-// The generic kernel: a warp stages each row of its strip into shared memory
-// with 16-byte cp.async (byte by byte where the rows are not 16-byte
-// aligned), fills the bytes outside the image from the edge tables, runs the
-// horizontal pass with runtime taps into a shared-memory ring of kh rows,
-// then the vertical pass.  It handles every border at every column itself.
+// The tile kernels (routes 1 and 0).  They replace the same Pallas kernel
+// as the template.  Bound at ArUco's 13 x 13 box on (1, 1080, 1920, 1):
+// 4.1 MB in and out, 0.0012 ms at 3.35 TB/s; the MAC's operations, 2 (kw +
+// kh) a pixel at the f32 rate, 0.0016 ms.  The box's running sums take a
+// few operations a pixel, so the bytes bound it; at that size the launch
+// and the latency of one block's staging are most of its time, so the
+// design fills the card with warps and keeps each one's chain short.
+//  - Tiling: a block of kTileWarps warps owns kTileOut output bytes of
+//    kTileRows rows (a 1080p plane: 272 blocks of 8 warps, two an SM).
+//    Each warp owns kTileRowsPerWarp of the rows, each lane kTileCols
+//    consecutive bytes of the staged window and 8 outputs of a row (lane +
+//    32 q), so every shared-memory access of a warp is free of conflicts.
+//  - Staging, once a block: the kTileRows + kh - 1 input rows of the strip,
+//    bytes [x0 - kEdge, x0 + kTileOut + kEdge) of each (kEdge = 64 is over
+//    the widest halo, 15 * 4), in 16-byte chunks: cp.async for rows of W*C
+//    % 16 == 0 on an aligned base, else word loads at the row's own
+//    alignment and a funnel shift, clamped to the tensor's granules.  A row
+//    outside the image is its border_map source row (a BORDER_CONSTANT row
+//    is written from the constant); the bytes outside [0, W*C) that a valid
+//    output reads come from common.cuh's edge tables (fill_edges) in the
+//    blocks whose window crosses an edge.  So every border is resolved once
+//    per row and column, at any C, N, row width and base alignment.
+//  - The box, O(1) a pixel: each lane keeps its 12 column sums of the kh
+//    rows as 16-bit halves of 6 registers (kh * 255 < 2^16) and moves down
+//    a row by adding the row that enters and subtracting the one that
+//    leaves; a prefix sum of the column sums at stride C (within the lane,
+//    then a warp scan of each lane's last C) goes to shared memory, and S =
+//    P[m + hr] - P[m - hl - C] adds the kw columns of the output's channel.
+//    uint32 arithmetic: its wrap is the int32 MAC's, bit for bit.
+//  - Route 0, O(kw + kh) a pixel: the vertical multiply-add first, on the
+//    window's bytes (three word loads a row, unpacked by __byte_perm), into
+//    12 column sums a lane stored to shared memory; then the horizontal
+//    multiply-add of each output over that row, the taps read from the
+//    parameter space.  The sum of products is the same modulo 2^32 in
+//    either order.
 #include "common.cuh"
 
 namespace {
 
 using ocvt::EdgeMaps;
-using ocvt::kHeadBytes;
 
 constexpr int kMaxTaps = 31;
 constexpr int kLanes = 16;               // output lanes per thread
@@ -92,11 +125,16 @@ constexpr int kSeg = 16 + kWarpLanes + 16;  // a warp's window of a row: 16 halo
 constexpr int kStage = kSeg + 16;  // one stage: the window, from its row's offset in a granule
 constexpr unsigned kFull = 0xffffffffu;
 
-// the generic kernel
-constexpr int kPad = 64;                          // halo room each side (>= 15 * 4)
-constexpr int kGenSeg = kPad + kWarpLanes + kPad;  // one staged row
-constexpr int kGenStages = 8;                     // rows in flight per warp (power of 2)
-constexpr int kGenStrip = 32;                     // output rows per warp
+// the tile kernels (the box and generic routes)
+constexpr int kTileWarps = 8;        // warps per block
+constexpr int kTileRowsPerWarp = 4;  // output rows per warp
+constexpr int kTileRows = kTileWarps * kTileRowsPerWarp;  // output rows per block
+constexpr int kTileOut = 256;                             // output bytes of a block's row
+constexpr int kTileWin = ocvt::kEdge + kTileOut + ocvt::kEdge;  // staged bytes of a row
+constexpr int kTileIn = kTileRows + kMaxTaps - 1;               // staged rows, at most
+constexpr int kTileCols = kTileWin / 32;                        // window bytes per lane
+constexpr int kTileOutPerLane = kTileOut / 32;
+static_assert(kTileCols % 3 == 0 && kTileCols % 4 == 0, "a lane's bytes hold whole pixels");
 
 struct Taps {
   int kx[kMaxTaps];
@@ -112,7 +150,7 @@ struct Params {
   int border;
   int bval[4];
   // 16-byte aligned rows (W*C % 16 == 0 and an aligned base) of the output,
-  // for the template, or of the input and the output, for the generic kernel
+  // for the template, or of the input, for the tile kernels
   int vec;
   uintptr_t glo, ghi;  // the input tensor's granules: [glo, ghi), 16-byte aligned
 };
@@ -393,100 +431,222 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
-// The generic kernel: any kw, kh <= 31, runtime C; one warp per block.
-template <typename OutT>
-__global__ void __launch_bounds__(32)
-    sep_generic_kernel(const uint8_t* __restrict__ src, OutT* __restrict__ dst, const Taps taps,
-                       const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  EdgeMaps* maps = reinterpret_cast<EdgeMaps*>(smem);
-  const int c = p.C;
-  ocvt::build_edge_maps(maps, p.W, c, p.border, p.bval);
-  __syncthreads();
-  uint8_t* seg = smem + kHeadBytes;
-  int* ring = reinterpret_cast<int*>(seg + kGenStages * kGenSeg);  // [kh][kLanes][32]
+// The shared memory of a tile kernel's block.
+struct TileSmem {
+  EdgeMaps maps;
+  const uint8_t* rows[kTileIn];  // source row of staged row r (nullptr: constant)
+  alignas(16) uint8_t strip[kTileIn][kTileWin];       // the staged rows
+  alignas(16) uint32_t sums[kTileWarps][kTileWin];    // a warp's row of sums
+};
 
-  const int kw = p.kw, kh = p.kh;
-  const int lane = threadIdx.x;
-  const int H = p.H, L = p.W * c;
-  const int xs = blockIdx.x * kWarpLanes;
-  const int y0 = blockIdx.y * kGenStrip;
-  const int nrows = min(kGenStrip, H - y0);
-  const int nin = nrows + kh - 1;
-  const int ay = kh / 2;
-  const int hl = (kw / 2) * c, hr = (kw - 1 - kw / 2) * c;
-  const int nl = (hl + 15) >> 4, nr = (hr + 15) >> 4;
-  const bool vec = p.vec;
-  const uint8_t* img = src + blockIdx.z * (size_t)H * L;
-  OutT* out = dst + blockIdx.z * (size_t)H * L;
-
-  // input row r of the strip is image row y0 - ay + r (nullptr: constant)
-  auto source_row = [&](int r) -> const uint8_t* {
-    const int y = y0 - ay + r;
-    const int sy = (y >= 0 && y < H) ? y : ocvt::border_map(y, H, p.border);
-    return sy < 0 ? nullptr : img + (size_t)sy * L;
-  };
-  auto slot_of = [&](int r) { return seg + (r & (kGenStages - 1)) * kGenSeg + kPad; };
-  auto issue = [&](int r) {
-    uint8_t* b = slot_of(r);
-    const uint8_t* row = source_row(r);
-    for (int ch = lane - nl; ch < 32 + nr; ch += 32)
-      ocvt::stage_chunk(b + 16 * ch, row, xs + 16 * ch, L, c, vec, maps);
-  };
-  // the staged window is row bytes [wlo, whi); it crosses 0 or L only in
-  // the first and last warp of a row
-  const int wlo = xs - 16 * nl, whi = xs + kWarpLanes + 16 * nr;
-  const bool edge = vec && (wlo < 0 || whi > L);
-  const int nvalid = min(kLanes, L - (xs + kLanes * lane));  // <= 0: lanes past the row
-
-#pragma unroll 1
-  for (int r = 0; r < kGenStages - 1; ++r) {
-    if (r < nin) issue(r);
-    ocvt::cp_async_commit();
-  }
-  int slot = 0;  // ring slot of row r
-#pragma unroll 1
-  for (int r = 0; r < nin; ++r) {
-    if (r + kGenStages - 1 < nin) issue(r + kGenStages - 1);
-    ocvt::cp_async_commit();
-    ocvt::cp_async_wait<kGenStages - 1>();
-    __syncwarp();
-    if (edge) {
-      const uint8_t* row = source_row(r);
-      if (row != nullptr) {
-        ocvt::fill_edges(slot_of(r) - 16 * nl, wlo, whi, row, L, maps, lane);
-        __syncwarp();
-      }
-    }
-    const uint8_t* t = slot_of(r) + kLanes * lane - hl;
-    for (int v = 0; v < kLanes; ++v) {
-      int a = 0;
-      for (int i = 0; i < kw; ++i) a += taps.kx[i] * (int)t[v + i * c];
-      ring[(slot * kLanes + v) * 32 + lane] = a;
-    }
-    __syncwarp();
-    if (r >= kh - 1 && nvalid > 0) {
-      int acc[kLanes];
+// Bytes [q, q + 16) of a row into dst (16-byte aligned shared memory): from
+// the constant where row == nullptr, by cp.async where the rows are 16-byte
+// aligned (p.vec), else by word loads at the row's alignment and a funnel
+// shift.  A chunk's bytes outside [0, L) are left to fill_edges; words
+// outside the tensor's granules are not loaded, so nothing faults.
+__device__ __forceinline__ void stage16(uint8_t* dst, const uint8_t* row, int q, int L,
+                                        const Params& p, const EdgeMaps* m) {
+  if (row == nullptr) {
+    uint32_t w[4];
+    ocvt::const_words(w, q, p.C, m->bval);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if (p.vec) {
+    if (q >= 0 && q < L) ocvt::cp_async16_n(dst, row + q, 16);
+  } else if (q < L + ocvt::kEdge) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(row) + (intptr_t)q;
+    const uintptr_t b = a & ~uintptr_t(3);
+    uint32_t v[5];
 #pragma unroll
-      for (int v = 0; v < kLanes; ++v) acc[v] = 0;
-      int s = slot + 1 == kh ? 0 : slot + 1;  // oldest row of the window
-      for (int j = 0; j < kh; ++j) {
-#pragma unroll
-        for (int v = 0; v < kLanes; ++v) acc[v] += taps.ky[j] * ring[(s * kLanes + v) * 32 + lane];
-        s = s + 1 == kh ? 0 : s + 1;
-      }
-      OutT o[kLanes];
-#pragma unroll
-      for (int v = 0; v < kLanes; ++v) o[v] = finish<OutT>(acc[v], p);
-      ocvt::store_range(out + (size_t)(y0 + r - (kh - 1)) * L + xs + kLanes * lane, o, 0, nvalid,
-                        vec);
+    for (int i = 0; i < 5; ++i) {
+      const uintptr_t w = b + 4 * i;
+      v[i] = (w >= p.glo && w < p.ghi) ? __ldg(reinterpret_cast<const uint32_t*>(w)) : 0u;
     }
-    slot = slot + 1 == kh ? 0 : slot + 1;
+    const unsigned sh = 8 * (unsigned)(a & 3);
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(__funnelshift_r(v[0], v[1], sh), __funnelshift_r(v[1], v[2], sh),
+                   __funnelshift_r(v[2], v[3], sh), __funnelshift_r(v[3], v[4], sh));
   }
 }
 
-size_t generic_smem_bytes(int kh) {
-  return kHeadBytes + (size_t)kGenStages * kGenSeg + (size_t)kh * kWarpLanes * sizeof(int);
+// Stage the nin input rows of the block's strip: staged row r is image row
+// y0 - kh/2 + r, its bytes [x0 - kEdge, x0 - kEdge + kTileWin).  Every
+// thread of the block takes part; on return every byte that a valid output
+// reads is in place.
+__device__ __forceinline__ void stage_tile(TileSmem& sm, const uint8_t* img, const Params& p,
+                                           int x0, int y0, int nin) {
+  constexpr int kThreads = 32 * kTileWarps, kChunks = kTileWin / 16;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int H = p.H, L = p.W * p.C, xw = x0 - ocvt::kEdge;
+  ocvt::build_edge_maps(&sm.maps, p.W, p.C, p.border, p.bval);
+  for (int r = tid; r < nin; r += kThreads) {
+    const int y = y0 - p.kh / 2 + r;
+    const int sy = (y >= 0 && y < H) ? y : ocvt::border_map(y, H, p.border);
+    sm.rows[r] = sy < 0 ? nullptr : img + (size_t)sy * L;
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (int it = tid; it < nin * kChunks; it += kThreads) {
+    const int r = it / kChunks, c = it - r * kChunks;
+    stage16(sm.strip[r] + 16 * c, sm.rows[r], xw + 16 * c, L, p, &sm.maps);
+  }
+  ocvt::cp_async_commit();
+  ocvt::cp_async_wait<0>();
+  __syncthreads();
+  if (xw < 0 || xw + kTileWin > L) {  // the window crosses an image edge
+    for (int r = threadIdx.y; r < nin; r += kTileWarps)
+      if (sm.rows[r] != nullptr)
+        ocvt::fill_edges(sm.strip[r], xw, xw + kTileWin, sm.rows[r], L, &sm.maps, threadIdx.x);
+    __syncthreads();
+  }
+}
+
+// The lane's 12 bytes of staged row r, as three words.
+__device__ __forceinline__ void lane_words(const TileSmem& sm, int r, uint32_t (&w)[3]) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(sm.strip[r]) + 3 * threadIdx.x;
+  w[0] = s[0];
+  w[1] = s[1];
+  w[2] = s[2];
+}
+
+// The lane's 12 sums to its slots of the warp's row in shared memory.
+__device__ __forceinline__ void put_sums(uint32_t* row, const uint32_t (&v)[kTileCols]) {
+  uint4* d = reinterpret_cast<uint4*>(row + kTileCols * threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < kTileCols / 4; ++i)
+    d[i] = make_uint4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+
+// Route 1, the box: kx all a, ky all b; C channels.
+template <int C, typename OutT>
+__global__ void __launch_bounds__(32 * kTileWarps)
+    sep_box_kernel(const uint8_t* __restrict__ src, OutT* __restrict__ dst, const Taps taps,
+                   const Params p) {
+  __shared__ TileSmem sm;
+  const int H = p.H, L = p.W * C, kh = p.kh;
+  const int x0 = blockIdx.x * kTileOut, y0 = blockIdx.y * kTileRows;
+  const int nout = min(kTileRows, H - y0);
+  const uint8_t* img = src + blockIdx.z * (size_t)H * L;
+  stage_tile(sm, img, p, x0, y0, nout + kh - 1);
+
+  const int lane = threadIdx.x, t0 = threadIdx.y * kTileRowsPerWarp;
+  const int t1 = min(t0 + kTileRowsPerWarp, nout);
+  if (t0 >= t1) return;
+  const int hl = (p.kw / 2) * C, hr = (p.kw - 1 - p.kw / 2) * C;
+  const uint32_t ab = (uint32_t)taps.kx[0] * (uint32_t)taps.ky[0];
+  uint32_t* sum = sm.sums[threadIdx.y];
+  OutT* out = dst + blockIdx.z * (size_t)H * L + x0;
+
+  // the column sums of the lane's 12 bytes over the window's kh rows, bytes
+  // 0 and 2 of each word in the halves of ev, bytes 1 and 3 in od
+  constexpr uint32_t kHalves = 0x00ff00ffu;
+  uint32_t ev[3] = {0u, 0u, 0u}, od[3] = {0u, 0u, 0u};
+#pragma unroll 4
+  for (int j = 0; j < kh; ++j) {
+    uint32_t w[3];
+    lane_words(sm, t0 + j, w);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      ev[i] += w[i] & kHalves;
+      od[i] += (w[i] >> 8) & kHalves;
+    }
+  }
+#pragma unroll 1
+  for (int t = t0;;) {
+    // the prefix sum at stride C: within the lane, then each residue's
+    // carry from the lanes before (12 is a multiple of C)
+    uint32_t s[kTileCols];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      s[4 * i] = ev[i] & 0xffffu;
+      s[4 * i + 1] = od[i] & 0xffffu;
+      s[4 * i + 2] = ev[i] >> 16;
+      s[4 * i + 3] = od[i] >> 16;
+    }
+#pragma unroll
+    for (int k = C; k < kTileCols; ++k) s[k] += s[k - C];
+    uint32_t carry[C];
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      const uint32_t tot = s[kTileCols - C + r];
+      uint32_t inc = tot;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const uint32_t u = __shfl_up_sync(kFull, inc, d);
+        if (lane >= d) inc += u;
+      }
+      carry[r] = inc - tot;
+    }
+#pragma unroll
+    for (int k = 0; k < kTileCols; ++k) s[k] += carry[k % C];
+    put_sums(sum, s);
+    __syncwarp();
+    OutT* orow = out + (size_t)(y0 + t) * L;
+#pragma unroll
+    for (int q = 0; q < kTileOutPerLane; ++q) {
+      const int o = lane + 32 * q, m = ocvt::kEdge + o;
+      if (x0 + o < L) orow[o] = finish<OutT>((int)(ab * (sum[m + hr] - sum[m - hl - C])), p);
+    }
+    if (++t >= t1) break;
+    __syncwarp();  // every lane has read the row of sums
+    // down a row: add row t + kh - 1, take off row t - 1 (each half stays a
+    // true column sum, so no half carries into the other)
+    uint32_t a[3], b[3];
+    lane_words(sm, t + kh - 1, a);
+    lane_words(sm, t - 1, b);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      ev[i] += (a[i] & kHalves) - (b[i] & kHalves);
+      od[i] += ((a[i] >> 8) & kHalves) - ((b[i] >> 8) & kHalves);
+    }
+  }
+}
+
+// Route 0: any taps, runtime C.
+template <typename OutT>
+__global__ void __launch_bounds__(32 * kTileWarps)
+    sep_generic_kernel(const uint8_t* __restrict__ src, OutT* __restrict__ dst, const Taps taps,
+                       const Params p) {
+  __shared__ TileSmem sm;
+  const int H = p.H, C = p.C, L = p.W * C, kw = p.kw, kh = p.kh;
+  const int x0 = blockIdx.x * kTileOut, y0 = blockIdx.y * kTileRows;
+  const int nout = min(kTileRows, H - y0);
+  const uint8_t* img = src + blockIdx.z * (size_t)H * L;
+  stage_tile(sm, img, p, x0, y0, nout + kh - 1);
+
+  const int lane = threadIdx.x, t0 = threadIdx.y * kTileRowsPerWarp;
+  const int t1 = min(t0 + kTileRowsPerWarp, nout);
+  if (t0 >= t1) return;
+  uint32_t* sum = sm.sums[threadIdx.y];
+  OutT* out = dst + blockIdx.z * (size_t)H * L + x0;
+  // the lane's first horizontal tap of output lane + 32 q is h[32 q]
+  const uint32_t* h = sum + ocvt::kEdge - (kw / 2) * C + lane;
+#pragma unroll 1
+  for (int t = t0; t < t1; ++t) {
+    uint32_t v[kTileCols] = {};
+#pragma unroll 2
+    for (int j = 0; j < kh; ++j) {
+      uint32_t w[3];
+      lane_words(sm, t + j, w);
+      const uint32_t ky = (uint32_t)taps.ky[j];
+#pragma unroll
+      for (int k = 0; k < kTileCols; ++k) v[k] += ky * __byte_perm(w[k >> 2], 0, 0x4440 | (k & 3));
+    }
+    put_sums(sum, v);
+    __syncwarp();
+    uint32_t acc[kTileOutPerLane] = {};
+#pragma unroll 2
+    for (int i = 0; i < kw; ++i) {
+      const uint32_t kx = (uint32_t)taps.kx[i];
+      const uint32_t* hi = h + i * C;
+#pragma unroll
+      for (int q = 0; q < kTileOutPerLane; ++q) acc[q] += kx * hi[32 * q];
+    }
+    OutT* orow = out + (size_t)(y0 + t) * L;
+#pragma unroll
+    for (int q = 0; q < kTileOutPerLane; ++q)
+      if (x0 + lane + 32 * q < L) orow[lane + 32 * q] = finish<OutT>((int)acc[q], p);
+    __syncwarp();  // every lane has read the row of sums
+  }
 }
 
 template <int K, int C, typename OutT>
@@ -500,20 +660,17 @@ cudaError_t launch(const uint8_t* src, void* dst, int N, const Taps& taps, const
   return cudaGetLastError();
 }
 
-template <typename OutT>
-cudaError_t launch_generic(const uint8_t* src, void* dst, int N, const Taps& taps, const Params& p,
-                           cudaStream_t stream) {
-  static bool configured = false;  // once, at the largest size
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(sep_generic_kernel<OutT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)generic_smem_bytes(kMaxTaps));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const dim3 grid(ocvt::ceil_div(p.W * p.C, kWarpLanes), ocvt::ceil_div(p.H, kGenStrip), N);
-  sep_generic_kernel<OutT><<<grid, 32, generic_smem_bytes(p.kh), stream>>>(
-      src, static_cast<OutT*>(dst), taps, p);
+// route 1 (C > 0: the box kernel at C channels) or 0 (C == 0: the generic)
+template <int C, typename OutT>
+cudaError_t launch_tile(const uint8_t* src, void* dst, int N, const Taps& taps, const Params& p,
+                        cudaStream_t stream) {
+  const dim3 grid(ocvt::ceil_div(p.W * p.C, kTileOut), ocvt::ceil_div(p.H, kTileRows), N);
+  const dim3 block(32, kTileWarps);
+  OutT* out = static_cast<OutT*>(dst);
+  if constexpr (C > 0)
+    sep_box_kernel<C, OutT><<<grid, block, 0, stream>>>(src, out, taps, p);
+  else
+    sep_generic_kernel<OutT><<<grid, block, 0, stream>>>(src, out, taps, p);
   return cudaGetLastError();
 }
 
@@ -533,15 +690,28 @@ cudaError_t dispatch(const uint8_t* src, void* dst, int N, const Taps& taps, con
     case 7 * 8 + 2: return launch<7, 2, OutT>(src, dst, N, taps, p, st);
     case 7 * 8 + 3: return launch<7, 3, OutT>(src, dst, N, taps, p, st);
     case 7 * 8 + 4: return launch<7, 4, OutT>(src, dst, N, taps, p, st);
-    default: return launch_generic<OutT>(src, dst, N, taps, p, st);
+    case 1 * 8 + 1: return launch_tile<1, OutT>(src, dst, N, taps, p, st);
+    case 1 * 8 + 2: return launch_tile<2, OutT>(src, dst, N, taps, p, st);
+    case 1 * 8 + 3: return launch_tile<3, OutT>(src, dst, N, taps, p, st);
+    case 1 * 8 + 4: return launch_tile<4, OutT>(src, dst, N, taps, p, st);
+    default: return launch_tile<0, OutT>(src, dst, N, taps, p, st);
   }
 }
 
-// The template's condition on route K (kernels/sepfilter.py::sep_filter_route):
-// kw == kh == K in {3, 5, 7} and sum |kx| * 255 < 2^16, so the 16-bit
-// horizontal sums cannot carry.  Route 0, the generic kernel, takes any taps.
-bool route_takes(int route, const int* kx, int kw, int kh) {
+// The condition of each route (kernels/sepfilter.py::sep_filter_route).
+// Route K in {3, 5, 7}, the template: kw == kh == K and sum |kx| * 255 <
+// 2^16, so the 16-bit horizontal sums cannot carry.  Route 1, the box: kx
+// all one value and ky all one value.  Route 0, the generic kernel, takes
+// any taps.
+bool route_takes(int route, const int* kx, int kw, const int* ky, int kh) {
   if (route == 0) return true;
+  if (route == 1) {
+    for (int i = 1; i < kw; ++i)
+      if (kx[i] != kx[0]) return false;
+    for (int j = 1; j < kh; ++j)
+      if (ky[j] != ky[0]) return false;
+    return true;
+  }
   if ((route != 3 && route != 5 && route != 7) || kw != route || kh != route) return false;
   int sum = 0;
   for (int i = 0; i < kw; ++i) sum += abs(kx[i]);
@@ -554,16 +724,17 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 
 // src: (N, H, W, C) u8 contiguous; dst: (N, H, W, C) u8 (out_i16 = 0) or
 // i16 (out_i16 = 1).  kx/ky and bval are host arrays.  route: 3, 5 or 7 for
-// the template, 0 for the generic kernel; taps that the route does not take
-// are refused, never sent to another route.  Returns a cudaError_t.
+// the template, 1 for the box kernel, 0 for the generic kernel; taps that the
+// route does not take are refused, never sent to another route.  Returns a
+// cudaError_t.
 extern "C" int opencv_sep_filter(const void* src, void* dst, int N, int H, int W, int C,
                                  const int* kx, int kw, const int* ky, int kh, int shift,
                                  int delta, int has_scale, float scale, int border,
                                  const int* bval, int out_i16, int route, void* stream) {
   if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || C > 4 || kw < 1 || kw > kMaxTaps ||
       kh < 1 || kh > kMaxTaps || shift < 0 || shift > 30 || border < 0 || border > 4 ||
-      (long long)W * C > (1 << 30) || ocvt::ceil_div(H, kGenStrip) > 65535 ||
-      !route_takes(route, kx, kw, kh))
+      (long long)W * C > (1 << 30) || ocvt::ceil_div(H, kTileRows) > 65535 ||
+      !route_takes(route, kx, kw, ky, kh))
     return cudaErrorInvalidValue;
   Taps taps{};
   for (int i = 0; i < kw; ++i) taps.kx[i] = kx[i];
@@ -580,7 +751,8 @@ extern "C" int opencv_sep_filter(const void* src, void* dst, int N, int H, int W
   p.scale = scale;
   p.border = border;
   for (int c = 0; c < 4; ++c) p.bval[c] = bval[c];
-  p.vec = (W * C) % 16 == 0 && aligned16(dst) && (route != 0 || aligned16(src));
+  // the template stores 16-byte words; the tile kernels stage them
+  p.vec = (W * C) % 16 == 0 && (route >= 3 ? aligned16(dst) : aligned16(src));
   const uintptr_t s0 = reinterpret_cast<uintptr_t>(src);
   p.glo = s0 & ~uintptr_t(15);
   p.ghi = (s0 + (size_t)N * H * W * C + 15) & ~uintptr_t(15);

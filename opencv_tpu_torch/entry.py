@@ -159,7 +159,7 @@ builds the small ONNX graphs of the other DNN trackers and features.
 ``forward_objdetect`` runs the object detectors over camera frames as a
 warehouse or AR pipeline does: each frame's ArucoDetector.detectMarkers
 (DICT_6X6_250; its adaptive thresholds through ``sep_filter``, route k3 at
-window 3 and the generic kernel at 13 and 23), CharucoDetector.detectBoard,
+window 3 and the box kernel at 13 and 23), CharucoDetector.detectBoard,
 QRCodeDetector on the band that holds the codes, BarcodeDetector and
 HOGDescriptor.detectMultiScale with the INRIA people SVM at
 samples/python/peopledetect.py's settings, then CCheckerDetector on a

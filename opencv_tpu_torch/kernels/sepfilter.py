@@ -37,9 +37,10 @@ __all__ = ["SEP_FILTER", "PYR_DOWN", "SEP_ROUTES", "sep_correlate_int", "sep_fil
            "sep_filter_int", "sep_filter_int_plain", "sep_filter_u8", "pyr_down_sum",
            "pyr_down_int_plain", "pyr_down_u8", "pyr_down_u8_plain"]
 
-# sep_filter's routes (csrc/sepfilter.cu): the template at K = 3, 5 or 7, and
-# the generic kernel (route 0), by the name each is counted under
-SEP_ROUTES = {3: "k3", 5: "k5", 7: "k7", 0: "generic"}
+# sep_filter's routes (csrc/sepfilter.cu): the template at K = 3, 5 or 7, the
+# box kernel (route 1) and the generic kernel (route 0), by the name each is
+# counted under
+SEP_ROUTES = {3: "k3", 5: "k5", 7: "k7", 1: "box", 0: "generic"}
 
 _vp, _i, _ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SEP_FILTER = Kernel("opencv_sep_filter",
@@ -90,14 +91,18 @@ def sep_filter_int_plain(x, kx, ky, shift: int = 0, delta: int = 0, scale=None,
 
 
 def sep_filter_route(kx, ky) -> int:
-    """The CUDA route of a ``sep_filter`` launch: K (3, 5 or 7) when
-    kw == kh == K and sum |kx| * 255 < 2^16, so the kernel's 16-bit
-    horizontal sums cannot carry (the template of ``csrc/sepfilter.cu``);
-    else 0 (the generic kernel).  The entry refuses taps that the route it
-    is given does not take."""
+    """The CUDA route of a ``sep_filter`` launch (``csrc/sepfilter.cu``):
+    K (3, 5 or 7) when kw == kh == K and sum |kx| * 255 < 2^16, so the
+    template's 16-bit horizontal sums cannot carry; else 1 (the box kernel)
+    when the kx are all one value and the ky all one value; else 0 (the
+    generic kernel).  The entry refuses taps that the route it is given
+    does not take."""
+    kx, ky = [int(v) for v in kx], [int(v) for v in ky]
     k = len(kx)
-    if k == len(ky) and k in (3, 5, 7) and sum(abs(int(v)) for v in kx) * 255 < 1 << 16:
+    if k == len(ky) and k in (3, 5, 7) and sum(abs(v) for v in kx) * 255 < 1 << 16:
         return k
+    if len(set(kx)) == 1 and len(set(ky)) == 1:
+        return 1
     return 0
 
 

@@ -11,7 +11,7 @@ with error correction) over the port's primitives.
 On a tensor image the dense part runs on its device: the gray conversion
 and each window's adaptive threshold (MEAN_C: ``boxFilter`` -> the
 ``sep_filter_int`` kernel on the card, the k3 template at window 3 and the
-generic kernel at 13 and 23).  The gray plane and each thresholded plane
+box kernel at 13 and 23).  The gray plane and each thresholded plane
 are read back once; the contours, quads, unwarping and bit reading are
 host numpy, as in the JAX package.  One difference: a candidate quad with
 three corners on a line (no homography to unwarp it by) is rejected, where

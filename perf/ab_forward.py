@@ -2,7 +2,7 @@
 """Forwards of two or more checkouts of the port, on one GPU, in one run,
 to tell a change from the host's spread.
 
-    python3 perf/ab_forward.py PARENT_ROOT CHANGE_ROOT [--path flagship|decode|gauss5] [--rounds 2] [--iters N]
+    python3 perf/ab_forward.py PARENT_ROOT CHANGE_ROOT [--path flagship|decode|gauss5|generic] [--rounds 2] [--iters N]
 
 Each root is a directory that holds an ``opencv_tpu_torch`` package (a
 ``git archive`` of a commit, or the repo itself).  Every round runs the
@@ -18,9 +18,18 @@ of each (``--path decode``), or the gauss5_down2 kernel (``--path gauss5``):
 ``x.clone()`` of the (8, 1080, 1920, 3) batch as a calibration of the memory
 rate the timing reaches, each kernel first held equal to its plain version;
 each with its bytes bound (input read once, output written once, 3.35
-TB/s) and its share of it.  CUDA events around each call, the 50 MB L2
+TB/s) and its share of it.  ``--path generic`` times ``sep_filter`` on the
+rows of ``chip_smoke.py``'s phase 5 that the template does not take, or
+takes as a box: ArUco's normalised boxes (``ARUCO_WINDOWS``,
+BORDER_REPLICATE | BORDER_ISOLATED) and ``GENERIC_GAUSS``'s Gaussians
+(REFLECT_101), each first held equal to its plain version, beside
+``chip_smoke.conv_yardstick``'s ``F.conv2d``, with the route each checkout
+takes and ``chip_smoke.bound`` of ``chip_smoke.sep_ops``: a box's bound
+counts the running sums' operations (so it is its bytes'), and the MAC's
+bound, 2 (kw + kh) operations a pixel at 67 TFLOP/s, stands beside it as
+``mac bound``.  CUDA events around each call, the 50 MB L2
 flushed before it, median and quartiles of ``--iters`` calls (default 200;
-20 after 3 warm-ups for gauss5, ``chip_smoke.Timer``'s protocol), as the
+20 after 3 warm-ups for gauss5 and generic, ``chip_smoke.Timer``'s protocol), as the
 caller sees it and with the host part held out of the window (the card
 spins first, so the whole call is queued when the window opens), and the
 host's enqueue time of the call in that second run (``... host``: the
@@ -86,6 +95,8 @@ def child(root: str, iters: int, path: str) -> None:
                ("gray (8,1080,1920)", lambda: F.gauss5_down2_u8(g8)),
                ("forward_fused", lambda: E.forward_fused(x8)),
                ("clone (8,1080,1920,3)", lambda: x8.clone()))
+    elif path == "generic":
+        fns, routes, bounds = generic_rows(torch, root)
     elif path == "decode":
         forward, args = E.entry_decode_color("cuda")
         small = forward(*args)[4]
@@ -98,7 +109,7 @@ def child(root: str, iters: int, path: str) -> None:
                ("forward_fused", lambda: E.forward_fused(imgs)))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    warmup = 3 if path == "gauss5" else 5
+    warmup = 3 if path in ("gauss5", "generic") else 5
 
     def quartiles(times):
         q1, med, q3 = statistics.quantiles(times, n=4)
@@ -123,33 +134,91 @@ def child(root: str, iters: int, path: str) -> None:
             times.append(start.elapsed_time(end))
         return quartiles(times), quartiles(host)
 
+    if path == "gauss5":
+        bounds = {name: {"bound": nbytes / HBM_BYTES_PER_S * 1e3}
+                  for name, nbytes in GAUSS5_BYTES.items()}
+    elif path != "generic":
+        routes, bounds = None, {}
     out = {"root": root}
     for name, fn in fns:
         out[name] = timed(fn, False)[0]
         out[name + " device"], out[name + " host"] = timed(fn, True)
     syncs = {name: count_syncs(torch, fn) for name, fn in fns}
-    print(json.dumps({**out, "host syncs": syncs}), flush=True)
+    print(json.dumps({**out, "host syncs": syncs, "routes": routes, "bounds": bounds}),
+          flush=True)
 
 
-def share(name: str, v: dict) -> str:
-    """', bound B ms, share S' for a gauss5 row with a bytes bound."""
-    nbytes = GAUSS5_BYTES.get(name.removesuffix(" device"))
-    if nbytes is None:
+def chip_smoke():
+    """chip_smoke.py of the repo this script lies in, loaded by its path, so
+    that the package each child imports stays its root's."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def generic_rows(torch, root: str):
+    """The sep_filter rows of ``--path generic`` (each held equal to its
+    plain version) and their F.conv2d yardsticks, the route each row takes
+    in this checkout, and each row's bounds."""
+    import numpy as np
+    from opencv_tpu_torch import constants as K
+    from opencv_tpu_torch.kernels import sepfilter as S
+    from opencv_tpu_torch.ops.filter import (gaussian_kernel_bitexact,
+                                             gaussian_kernel_fixedpoint_ed)
+    cs = chip_smoke()
+    rng = np.random.default_rng(0)
+    box_kw = dict(border=K.BORDER_REPLICATE | K.BORDER_ISOLATED)
+    table = [(f"box {k}x{k}", cs.ARUCO_SHAPE, (1,) * k, dict(box_kw, scale=1.0 / (k * k)), True)
+             for k in cs.ARUCO_WINDOWS]
+    table += [(name, shape, tuple(int(v) for v in gaussian_kernel_fixedpoint_ed(
+                   gaussian_kernel_bitexact(k, sigma), 8)),
+               dict(shift=16, border=K.BORDER_REFLECT_101), False)
+              for name, shape, k, sigma in cs.GENERIC_GAUSS]
+    inputs = {shape: torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).cuda()
+              for shape in dict.fromkeys(row[1] for row in table)}
+    fns, routes, bounds = [], {}, {}
+    for name, shape, kx, kw, box in table:
+        x = inputs[shape]
+        if not torch.equal(S.sep_filter_int(x, kx, kx, **kw),
+                           S.sep_filter_int_plain(x, kx, kx, **kw)):
+            raise AssertionError(f"{root}: sep_filter != plain at {name}")
+        routes[name] = S.SEP_ROUTES[S.sep_filter_route(kx, kx)]
+        n, k = x.numel(), len(kx)
+        b_ms, b_by = cs.bound(2 * n, cs.sep_ops(n, k, box))
+        bounds[name] = {"bound": b_ms, "by": b_by}
+        if box:
+            bounds[name]["mac bound"] = cs.bound(2 * n, cs.sep_ops(n, k, False))[0]
+        fns.append((name, lambda x=x, kx=kx, kw=kw: S.sep_filter_int(x, kx, kx, **kw)))
+        fns.append((name + " conv2d", cs.conv_yardstick(x, kx, kx, 1, "cuda")))
+    return fns, routes, bounds
+
+
+def share(name: str, v: dict, bounds: dict) -> str:
+    """', bound B ms (by), share S' for a row with a bound, and a box's
+    MAC bound beside it."""
+    b = bounds.get(name.removesuffix(" device"))
+    if b is None:
         return ""
-    b = nbytes / HBM_BYTES_PER_S * 1e3
-    return f", bound {b:.4f} ms, share {b / v['median']:.3f}"
+    by = f" ({b['by']})" if "by" in b else ""
+    mac = f", mac bound {b['mac bound']:.4f} ms" if "mac bound" in b else ""
+    return f", bound {b['bound']:.4f} ms{by}, share {b['bound'] / v['median']:.3f}{mac}"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+")
-    ap.add_argument("--path", choices=("flagship", "decode", "gauss5"), default="flagship")
+    ap.add_argument("--path", choices=("flagship", "decode", "gauss5", "generic"),
+                    default="flagship")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=None)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.iters is None:
-        args.iters = 20 if args.path == "gauss5" else 200
+        args.iters = 20 if args.path in ("gauss5", "generic") else 200
     if args.child:
         child(args.roots[0], args.iters, args.path)
         return 0
@@ -161,11 +230,14 @@ def main() -> int:
                               "--iters", str(args.iters), "--path", args.path],
                              capture_output=True, text=True, check=True, timeout=600)
         row = json.loads(res.stdout.strip().splitlines()[-1])
-        syncs = row.pop("host syncs")
+        tail = f"; host syncs per call {row.pop('host syncs')}"
+        routes, bounds = row.pop("routes"), row.pop("bounds")
+        if routes is not None:
+            tail += f"; routes {routes}"
         print(f"run {i + 1} {root}: " + "; ".join(
-            f"{k} {v['median']:.4f} ms (q1 {v['q1']:.4f}, q3 {v['q3']:.4f}{share(k, v)})"
-            for k, v in row.items() if k != "root") + f"; host syncs per call {syncs}  [{card}]",
-            flush=True)
+            f"{k} {v['median']:.4f} ms (q1 {v['q1']:.4f}, q3 {v['q3']:.4f}"
+            f"{share(k, v, bounds)})"
+            for k, v in row.items() if k != "root") + f"{tail}  [{card}]", flush=True)
     return 0
 
 

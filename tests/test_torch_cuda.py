@@ -64,9 +64,9 @@ def test_sep_filter_kernel_equals_plain(cuda, border, cn):
 # The kernels' block classes (see the notes in csrc/sepfilter.cu and
 # csrc/pyrdown.cu): interior blocks, rows one byte over and under the
 # 16-byte word and the 512-byte warp, W*C % 16 != 0 (rows at an offset in
-# their granules; the generic kernel's byte-wise staging), H not a multiple
-# of the row strip; k = 3, 5 and 7 (the template) and 9, 31 (the generic
-# kernel)
+# their granules; the tile kernels' word loads at the row's alignment), H
+# not a multiple of the row strip; k = 3, 5 and 7 (the template) and 9, 31
+# (the generic kernel)
 SEP_CLASS_SHAPES = [(1, 256, 4096, 1), (2, 40, 15, 1), (2, 40, 17, 1), (2, 33, 511, 1),
                     (2, 33, 513, 1), (2, 40, 101, 1), (2, 40, 101, 3), (2, 40, 101, 4),
                     (2, 33, 64, 1), (1, 127, 160, 2), (1, 161, 128, 4)]
@@ -87,6 +87,45 @@ def test_sep_filter_kernel_block_classes(cuda, k, border):
         torch.cuda.synchronize()
         assert SEP_FILTER.routes[route] == before + 1
         assert torch.equal(got, sep_filter_int_plain(x, **kw)), shape
+
+
+@pytest.mark.parametrize("border", BORDERS)
+@pytest.mark.parametrize("window", [(9, 9), (13, 13), (23, 23), (31, 31), (9, 15)])
+def test_sep_filter_box_route_block_classes(cuda, window, border):
+    """The box kernel at every block class, k31 on the wide shapes too: u8
+    with the box's scale and i16 with negative taps and a delta, on a batch
+    and on a view one image into its storage (an odd offset where H*W*C is
+    odd), each launch counted on route box."""
+    kw_, kh_ = window
+    taps = (dict(kx=(1,) * kw_, ky=(1,) * kh_, scale=1.0 / (kw_ * kh_)),
+            dict(kx=(-3,) * kh_, ky=(2,) * kw_, delta=-5, out_dtype=torch.int16))
+    for shape in SEP_CLASS_SHAPES:
+        base = _rand((shape[0] + 1, *shape[1:]), kw_ * 100 + border * 10 + shape[2]).to(cuda)
+        for x in (base[:-1], base[1:].contiguous()):
+            for kw in taps:
+                kw = dict(kw, border=border, border_value=(9, 99, 199, 250)[:shape[3]])
+                before = SEP_FILTER.routes["box"]
+                got = sep_filter_int(x, **kw)
+                torch.cuda.synchronize()
+                assert SEP_FILTER.routes["box"] == before + 1
+                assert torch.equal(got, sep_filter_int_plain(x, **kw)), (shape, x.storage_offset())
+
+
+def test_sep_filter_tile_kernels_at_the_timed_shapes(cuda):
+    """ArUco's normalised boxes 13 and 23 on the box kernel, and the
+    Gaussians k13 and k23 on the generic kernel, at the 1080p frame; k9 at
+    ORB's level 2 on the generic kernel."""
+    aruco = _rand((1, 1080, 1920, 1), 1).to(cuda)
+    for k in (13, 23):
+        kw = dict(kx=(1,) * k, ky=(1,) * k, scale=1.0 / (k * k),
+                  border=tcv.BORDER_REPLICATE | tcv.BORDER_ISOLATED)
+        assert sep_filter_route(kw["kx"], kw["ky"]) == 1
+        assert torch.equal(sep_filter_int(aruco, **kw), sep_filter_int_plain(aruco, **kw))
+    for x, k, sigma in ((aruco, 13, 0.0), (aruco, 23, 0.0), (_rand((8, 750, 1333, 1), 2).to(cuda),
+                                                             9, 2.0)):
+        kw = dict(kx=_q8(k, sigma), ky=_q8(k, sigma), shift=16)
+        assert sep_filter_route(kw["kx"], kw["ky"]) == 0
+        assert torch.equal(sep_filter_int(x, **kw), sep_filter_int_plain(x, **kw))
 
 
 # sep_filter's template at K = 7, at every row width: (C, widths) with
@@ -129,7 +168,8 @@ def test_sep_filter_entry_refuses_a_route_its_taps_do_not_meet(cuda):
     out = torch.empty_like(x)
     q7, q5 = _q8(7, 2.0), _q8(5, 1.0)
     for kx, ky, route in ((q5, q5, 7), (q7, q7, 5), (q7, q5, 7), (tuple(2 * v for v in q7),) * 2
-                          + (7,), (q7, q7, 4), (_q8(9, 2.0), _q8(9, 2.0), 9)):
+                          + (7,), (q7, q7, 4), (_q8(9, 2.0), _q8(9, 2.0), 9),
+                          (q7, q7, 1), ((1,) * 9, (1,) * 8 + (2,), 1)):
         launches = SEP_FILTER.launches
         with pytest.raises(RuntimeError, match="CUDA error"):
             SEP_FILTER(x.device, x.data_ptr(), out.data_ptr(), 1, 16, 40, 1,

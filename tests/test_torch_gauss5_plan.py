@@ -4,18 +4,19 @@ the launch plan of ``kernels/fused_preproc.py``.
 
 The kernel itself runs on the card (``tests/test_torch_cuda.py``); here its
 source is also compiled for the host with g++, against an emulation of the
-few CUDA features it uses, and held to the plain version.
+CUDA features it uses (``tests/cuda_host_emu.py``), and held to the plain
+version.
 """
 
 import ctypes
 import re
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import cuda_host_emu
 from opencv_tpu_torch.kernels import fused_preproc as F
 from opencv_tpu_torch.ops.color import BY15, GRAY_SHIFT, GY15, RY15
 
@@ -135,123 +136,11 @@ def test_plan_takes_the_aligned_path_exactly_when_base_and_pitch_are():
 # ---------------------------------------------------------------------------
 # the kernel's source on the host
 
-# A host emulation of the few CUDA features that csrc/fused_preproc.cu uses:
-# a block's threads are host threads, one block after another; a warp's
-# shuffles meet at a barrier.  The integer intrinsics follow the PTX ISA's
-# definitions (prmt, shf.r.wrap, dp2a).
-CUDA_EMU = r"""#pragma once
-#include <barrier>
-#include <cstdint>
-#include <cstring>
-#include <functional>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __restrict__
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return 0; }
-
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct uint4 { uint32_t x, y, z, w; };
-struct uint2 { uint32_t x, y; };
-inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
-inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
-thread_local dim3 threadIdx, blockIdx;
-dim3 gridDim, blockDim;
-
-template <class T>
-inline T __ldg(const T* p) {
-  T v;
-  memcpy(&v, p, sizeof(T));
-  return v;
-}
-inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t sh) {
-  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (sh & 31));
-}
-inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
-  const uint64_t v = ((uint64_t)y << 32) | x;
-  uint32_t r = 0;
-  for (int i = 0; i < 4; ++i) r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
-  return r;
-}
-inline uint32_t __dp2a_lo(uint32_t a, uint32_t b, uint32_t c) {
-  return c + (a & 0xffff) * (b & 0xff) + (a >> 16) * ((b >> 8) & 0xff);
-}
-inline uint32_t __dp2a_hi(uint32_t a, uint32_t b, uint32_t c) {
-  return c + (a & 0xffff) * ((b >> 16) & 0xff) + (a >> 16) * (b >> 24);
-}
-inline long long min(long long a, long long b) { return a < b ? a : b; }
-inline int min(int a, int b) { return a < b ? a : b; }
-inline int max(int a, int b) { return a > b ? a : b; }
-
-// a warp's shuffle: every lane writes its value, then reads its neighbour's
-struct Warp {
-  std::barrier<> bar{32};
-  uint32_t buf[32];
-};
-thread_local Warp* tl_warp;
-inline uint32_t shfl(uint32_t v, int delta) {
-  const int lane = threadIdx.x & 31, src = lane + delta;
-  tl_warp->bar.arrive_and_wait();
-  tl_warp->buf[lane] = v;
-  tl_warp->bar.arrive_and_wait();
-  const uint32_t r = (src >= 0 && src < 32) ? tl_warp->buf[src] : v;
-  tl_warp->bar.arrive_and_wait();
-  return r;
-}
-inline uint32_t __shfl_up_sync(unsigned, uint32_t v, int d) { return shfl(v, -d); }
-inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int d) { return shfl(v, d); }
-
-// every block of the grid, one after another; a block's threads at once
-inline void emu_launch(dim3 grid, dim3 block, std::function<void()> body) {
-  gridDim = grid;
-  blockDim = block;
-  for (unsigned bx = 0; bx < grid.x; ++bx) {
-    const int nt = block.x * block.y;
-    std::vector<Warp> warps((nt + 31) / 32);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < nt; ++t)
-      threads.emplace_back([&, t] {
-        threadIdx = dim3(t % block.x, t / block.x);
-        blockIdx = dim3(bx);
-        tl_warp = &warps[t / 32];
-        body();
-      });
-    for (auto& th : threads) th.join();
-  }
-}
-"""
-LAUNCH = re.compile(r"(\w+<[^<>]*>)<<<([^,]+),\s*([^,]+),\s*[^,]+,\s*[^>]+>>>\(([^;]*)\);", re.S)
-
-
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """fused_preproc.cu built for the host: its launches call the
-    emulation's, and common.cuh is cut to the border helpers it uses."""
-    d = tmp_path_factory.mktemp("gauss5_host")
-    src = (CSRC / "fused_preproc.cu").read_text()
-    src, n = LAUNCH.subn(lambda m: f"emu_launch({m[2]}, {m[3]}, [&] {{ {m[1]}({m[4]}); }});", src)
-    assert n == 2
-    common = (CSRC / "common.cuh").read_text().split("// " + "-" * 75)[0]
-    (d / "common.cuh").write_text(common.replace("#include <cuda_runtime.h>", "") + "}\n")
-    (d / "k.cpp").write_text(src)
-    emu = d / "cuda_emu.h"
-    emu.write_text(CUDA_EMU)
-    so = d / "libgauss5_host.so"
-    res = subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-include",
-                          str(emu), "-I", str(d), "-o", str(so), str(d / "k.cpp")],
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
-    fn = ctypes.CDLL(str(so)).opencv_gauss5_down2
+    """fused_preproc.cu built for the host (tests/cuda_host_emu.py)."""
+    fn = cuda_host_emu.build(CSRC / "fused_preproc.cu", tmp_path_factory.mktemp("gauss5_host"),
+                             "opencv_gauss5_down2", 2)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     return fn

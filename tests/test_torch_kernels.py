@@ -92,7 +92,8 @@ def test_sep_filter_constant_per_channel_and_delta_vs_pallas():
 # row is W*C bytes, a warp covers 512 output bytes in 16-byte words, strips
 # of rows; k = 3, 5 and 7 take sep_filter's template, which stages a row
 # whose W*C is not a multiple of 16 from its granules at an offset, other k
-# the generic kernel, which stages such a row byte by byte.  The plain
+# the tile kernels (tests/test_torch_sepfilter_box.py), which stage such a
+# row by word loads at its own alignment.  The plain
 # versions, which the kernels are held to on the card, are held here to the
 # Pallas kernels at the same shapes: (name, (N, H, W, C)).
 SEP_CLASS_SHAPES = [
@@ -159,6 +160,12 @@ def test_sep_filter_sobel7_i16_vs_pallas(border):
     (_q8(9, 2.0), _q8(9, 2.0), 0),                        # k = 9
     (_q8(3, 0.0), _q8(3, 0.0), 3), ((-1, 0, 1), (1, 2, 1), 3),
     (_q8(5, 1.3), _q8(5, 1.3), 5),
+    *(((1,) * k, (1,) * k, 1) for k in (9, 13, 23, 31)),  # boxes over 7: the box route
+    ((1,) * 9, (1,) * 15, 1), ((2,) * 15, (2,) * 9, 1),   # kw != kh
+    ((-3,) * 13, (5,) * 13, 1), ((0,) * 9, (-1,) * 9, 1),  # equal negative or zero taps
+    *(((1,) * k, (1,) * k, k) for k in (3, 5, 7)),        # small boxes stay on the template
+    (_q8(13, 2.0), _q8(13, 2.0), 0),                      # Gaussian k13: the generic kernel
+    ((1,) * 9 + (2,), (1,) * 10, 0),                      # one tap off
 ])
 def test_sep_filter_route(kx, ky, route):
     assert sep_filter_route(kx, ky) == route
