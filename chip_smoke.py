@@ -262,11 +262,14 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       chained into one panorama about 3,070 px wide; sep_filter must launch
       2 x 7 x 8 times on route k7 (ORB's blur of each level) and nothing
       else; the panorama's width within STITCH_WIDTH_TOL of the extent the
-      pan's truth implies (``entry.pan_extent``); on the card's own
-      panorama so far, each pair's homography from the CPU's ORB, matches
+      pan's truth implies (``entry.pan_extent``); every pair rebuilt on the
+      card from the run's homographies equal to the run's panorama, and on
+      the card's own panorama so far the homography of STITCH_CPU_PAIRS
+      (the first, the middle and the last pair) from the CPU's ORB, matches
       and RANSAC equal to the card's exactly, and the first and last pair's
       panoramas within the warp bound; sep_filter k7 equal to its plain
-      version at every level shape of the wider panoramas; the stages'
+      version at every level shape of the wider panoramas; the CPU checks'
+      seconds by check; the stages'
       times (ORB, match, homography, warp, distance, blend), busy share,
       host syncs and peak memory beside the path's bytes bound; the wall
       against PATH_WALL_BUDGET_S;
@@ -320,12 +323,38 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       raycast at the last pose and fetchPointsNormals
       (``entry.forward_fusion``); no kernel of csrc/ launches; the gates of
       ``entry.fusion_truth_report``; against the CPU the 30 rendered frames
-      equal, each ICP pose within FUSION_ODO_ATOL, frame 0's integration of
-      the x-slab FUSION_SLAB and the raycast of every FUSION_RAY_ROW_STEP-th
-      row equal; the stage times, host syncs, peak memory, a profiled run's
+      equal, the ICP pose of the frame pairs FUSION_CPU_PAIRS (the first,
+      the middle and the last) within FUSION_ODO_ATOL, frame 0's integration
+      of the x-slab FUSION_SLAB and the raycast of every
+      FUSION_RAY_ROW_STEP-th row equal, with the checks' seconds by check;
+      the stage times, host syncs, peak memory, a profiled run's
       busy share and the bytes bound (each integration reads and writes the
       volume, the raycast reads it once, each render writes its frame); the
       wall against PATH_WALL_BUDGET_S;
+   x. stabilisation: ``entry.forward_videostab`` (gray on the card, then
+      ``videostab.OnePassStabilizer(radius=15)``) over
+      ``make_motion_video()``'s 31 frames at 1080p; pyr_down must launch 3 x
+      30 times (the three LK levels of each pair) and nothing else; each
+      inter-frame motion's displacement at the frame's centre within
+      VIDEO_SHIFT_TOL of the video's shift difference, and the stabilised
+      frame-to-frame jitter (phaseCorrelate) under the input's / 2.5, the
+      criterion of tests/test_video.py; against the CPU the gray frames 0-1
+      equal, pair 0's motion within VIDEOSTAB_MOTION_TOL at the frame's
+      corners and frames 0 and 15 warped within the warp bound; the stage
+      times (gray, corners, klt, ransac, filter, warp), host syncs, peak
+      memory, a 4-frame profiled run's busy share and the bytes bound; the
+      wall against VIDEOSTAB_WALL_BUDGET_S;
+   y. JPEG in, PNG out: ``make_codec_frames()`` (the motion video's 8
+      frames at 1080p through the port's ``imencode('.jpg')``, untimed),
+      then ``entry.forward_codec``: ``imdecode`` of each JPEG on the host,
+      one pinned copy to the card, ``entry.forward`` (sep_filter must launch
+      once, on route k5, and nothing else), one read-back and
+      ``imencode('.png')`` of each output; the card's output equal to the
+      CPU's forward on decoded frames 0 and 7, each PNG decoding to its
+      output, each decoded frame's PSNR at least entry.CODEC_PSNR_DB less
+      entry.CODEC_PSNR_MARGIN_DB; the stage times, frames per second, host
+      syncs, busy share and the device part's bytes bound; the wall against
+      CODEC_WALL_BUDGET_S;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -335,7 +364,9 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
    shape takes (the box kernel at ArUco's windows 13 and 23, beside
    route k3 at its window 3, at the 1080p frame of the objdetect path, 4v;
    the generic kernel on the Gaussians k13 and k23 there and k9 sigma 2 at
-   ORB's level 2, (8, 750, 1333, 1), which no main path launches);
+   ORB's level 2, (8, 750, 1333, 1), which no main path launches; the
+   template at K = 7 at the stitching path's widest level 0,
+   STITCH_K7_SHAPE);
    each op of config 3; the whole
    forwards; config 4's forward and ops; the pad inside one erode, whole and
    its device work alone; goodFeaturesToTrack's device part and host
@@ -580,6 +611,15 @@ PATH_WALL_BUDGET_S = 60.0
 # implies, relative: 1%, the width of about 30 px at 3,000 px (each pair's
 # canvas rounds its corners up to a pixel; the homographies are estimates)
 STITCH_WIDTH_TOL = 0.01
+# (stitching path) the pairs whose homography the CPU recomputes from its own
+# ORB on the card's panorama so far, by the pair's index among the N - 1: the
+# first, the middle and the last (ORB of the growing panorama on the host
+# took 21-44 s for all seven); the rebuild of every pair from the run's
+# homographies and the panorama's width against the truth hold the others
+STITCH_CPU_PAIRS = ("first", "middle", "last")
+# (stitching path) the widest level-0 image ORB blurs there: the gray of the
+# panorama before the last pair; phase 5 times sep_filter k7 at it
+STITCH_K7_SHAPE = (1, 1121, 2896, 1)
 # (G-API) the batches of make_batch() the Stream runs
 GAPI_BATCHES = 4
 # (DNN trackers) six GOTURN trackers over frames 1-7; the card's output
@@ -618,10 +658,26 @@ FACE_EMB_RTOL = 1e-5
 # by QR on both, their f64 reductions summed in different orders), per
 # element of the 4x4 frame-to-frame transform
 FUSION_ODO_ATOL = 1e-9
+# the frame pairs whose ICP pose the CPU repeats: the first, the middle and
+# the last (all 29 took 7-13 s of the phase's 60 s); the trajectory's truth
+# holds the chained pose of every frame
+FUSION_CPU_PAIRS = ("first", "middle", "last")
 # the x-slab of the volume (planes x0 .. x0 + 32, the middle of the room)
-# whose first integration the CPU repeats, and the raycast rows it repeats
+# whose first integration the CPU repeats, and the raycast rows it repeats:
+# every 48th, 10 of 480 spread over the frame (every 8th took 7-20 s of the
+# phase, every 24th 9 s)
 FUSION_SLAB = (240, 272)
-FUSION_RAY_ROW_STEP = 8
+FUSION_RAY_ROW_STEP = 48
+
+# phase 4x (stabilisation): its wall budget, s
+VIDEOSTAB_WALL_BUDGET_S = 40.0
+# pair 0's motion, card against CPU: its displacement at each frame corner,
+# px.  LK's points agree within VIDEO_LK_TOL; the similarity is a least-
+# squares fit over ~300 inliers spread over the frame, so its value at a
+# corner moves by at most a few times its points' error: ten times
+VIDEOSTAB_MOTION_TOL = 10 * VIDEO_LK_TOL
+# phase 4y (JPEG in, PNG out): its wall budget, s
+CODEC_WALL_BUDGET_S = 40.0
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -1309,10 +1365,11 @@ def _host_ms(fn, iters: int = 3) -> float:
     return host_median(run, iters=iters, warmup=1)
 
 
-def phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7):
+def phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7, pan=None):
     """4s: the stitching path at full size (see the module's note); `k7`
-    are ORB's 7x7 blur taps.  Returns the launch counts of its counted
-    run."""
+    are ORB's 7x7 blur taps; `pan` is ``make_pan_video()``'s (frames,
+    truth) where an earlier phase made it.  Returns the launch counts of its
+    counted run."""
     t_start = time.perf_counter()
     import opencv_tpu_torch as cv
     from opencv_tpu_torch.features2d.orb import level_sizes
@@ -1320,7 +1377,9 @@ def phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7):
     from opencv_tpu_torch.stitching import Stitcher
     from opencv_tpu_torch.blenders import blend_multiband
     from opencv_tpu_torch.calib3d.geometry import RANSAC, findHomography
-    frames_np, truth = E.make_pan_video(E.SHAPE_STITCH)
+    frames_np, truth = pan if pan is not None else E.make_pan_video(E.SHAPE_STITCH)
+    if frames_np.shape != E.SHAPE_STITCH:
+        raise AssertionError(f"stitch: a pan of {frames_np.shape}, not {E.SHAPE_STITCH}")
     make_s = time.perf_counter() - t_start
     frames = torch.from_numpy(frames_np).to(dev)
     torch.cuda.synchronize()
@@ -1353,27 +1412,34 @@ def phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7):
         f"by {width_err:.5f} (gate {STITCH_WIDTH_TOL})")
     if width_err > STITCH_WIDTH_TOL:
         raise AssertionError("stitch: the panorama's width is off the pan's truth")
-    # card against CPU, pair by pair on the card's own panorama so far: the
-    # card's bases rebuilt from the run's homographies, the CPU's features,
-    # matches and homography of each pair on those bases, and the CPU's
-    # composition of the first and the last pair (the CPU's chamfer
-    # distance transform takes seconds a panorama)
+    # card against CPU on the card's own panorama so far: every pair's base
+    # rebuilt on the card from the run's homographies (the last must be the
+    # run's panorama); for STITCH_CPU_PAIRS the CPU's features, matches and
+    # homography on that base, and for the first and the last pair the CPU's
+    # composition (the CPU's chamfer distance transform takes seconds a
+    # panorama)
     t0 = time.perf_counter()
     sg, sc = Stitcher.create(), Stitcher.create()
+    at = {"first": 0, "middle": (N - 2) // 2, "last": N - 2}
+    held_pairs = sorted({at[k] for k in STITCH_CPU_PAIRS})
     bases = [frames[0]]
-    h_exact, worst = 0, (0, 0.0)
+    h_exact, worst, split = 0, (0, 0.0), {}
     for i, H in enumerate(st["homographies"]):
         base = bases[-1]
         nxt = sg.compose(base, frames[i + 1], H)
-        src, dst = sc.match_points(base.cpu(), frames[i + 1].cpu())
-        Hc, _ = findHomography(src, dst, RANSAC, 3.0)
-        if not np.array_equal(Hc, H):
-            raise AssertionError(f"stitch pair {i}: the CPU's homography differs: "
-                                 f"max |d| {np.abs(Hc - H).max()}")
-        h_exact += 1
         bases.append(nxt)
+        if i in held_pairs:
+            t_pair = time.perf_counter()
+            src, dst = sc.match_points(base.cpu(), frames[i + 1].cpu())
+            Hc, _ = findHomography(src, dst, RANSAC, 3.0)
+            if not np.array_equal(Hc, H):
+                raise AssertionError(f"stitch pair {i}: the CPU's homography differs: "
+                                     f"max |d| {np.abs(Hc - H).max()}")
+            h_exact += 1
+            split[f"pair {i} homography"] = time.perf_counter() - t_pair
         if i not in (0, N - 2):
             continue
+        t_pair = time.perf_counter()
         d = (nxt.cpu().to(torch.int32) - sc.compose(base.cpu(), frames[i + 1].cpu(), H)
              .to(torch.int32)).abs()
         share = int(d.count_nonzero()) / d.numel()
@@ -1381,8 +1447,10 @@ def phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7):
         if int(d.max()) > WARP_ATOL or share > WARP_MAX_FRACTION:
             raise AssertionError(f"stitch pair {i}: composition max |d| {int(d.max())}, share "
                                  f"{share}")
+        split[f"pair {i} composition"] = time.perf_counter() - t_pair
     if not torch.equal(bases[-1], pano):
         raise AssertionError("stitch: the pairs rebuilt from the homographies differ from the run")
+    split["rebuild on the card"] = time.perf_counter() - t0 - sum(split.values())
     # sep_filter at the shapes the path gave it past 1080p: the levels of
     # every panorama so far, against the plain version on the card
     rng = np.random.default_rng(19)
@@ -1392,14 +1460,20 @@ def phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7):
         x = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
         kw = dict(kx=k7, ky=k7, shift=16, border=cv.BORDER_REFLECT_101)
         check_equal(f"sep_filter k7 {shape}", sep_filter_int(x, **kw), sep_filter_int_plain(x, **kw))
+    if STITCH_K7_SHAPE not in shapes:
+        raise AssertionError(f"stitch: no panorama level of {STITCH_K7_SHAPE} (phase 5 times "
+                             f"sep_filter k7 there); the level shapes are {shapes}")
     cpu_s = time.perf_counter() - t0
+    split["k7 checks"] = cpu_s - sum(split.values())
     log(f"stitch: sep_filter k7 equal to the plain version at the {len(shapes)} level shapes of "
         f"the panoramas so far ({shapes[0][1:3]} to {shapes[-1][1:3]})")
-    log(f"stitch against the CPU (with the k7 checks, {cpu_s:.1f} s): {h_exact} of {N - 1} "
-        f"homographies equal "
-        f"exactly (ORB and the Hamming matches exact on both devices, RANSAC on the host); the "
-        f"first and the last pair's panoramas within the warp bound (max |d| {worst[0]}, share "
-        f"{worst[1]:.2e}; bound {WARP_ATOL}, {WARP_MAX_FRACTION})")
+    log(f"stitch against the CPU (with the k7 checks, {cpu_s:.1f} s): all {N - 1} pairs rebuilt "
+        f"from the run's homographies equal to the run's panorama; the homographies of pairs "
+        f"{held_pairs} ({', '.join(STITCH_CPU_PAIRS)}), {h_exact} of {len(held_pairs)}, equal "
+        f"to the CPU's exactly (ORB and the Hamming matches exact on both devices, RANSAC on the "
+        f"host); the first and the last pair's panoramas within the warp bound (max |d| "
+        f"{worst[0]}, share {worst[1]:.2e}; bound {WARP_ATOL}, {WARP_MAX_FRACTION}); the "
+        f"checks' s: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
     # stage times on the last pair (the widest panorama), host clock with a
     # synchronize, median of 3
     last, b, H = bases[-2], frames[-1], st["homographies"][-1]
@@ -1800,7 +1874,9 @@ def phase_fusion(E, run_counted, count_syncs, dev, card, kernel_syms):
     from opencv_tpu_torch.threed.depth import rescaleDepth
     metres = [rescaleDepth(d) for d in depths_c]
     od_err = 0.0
-    for k in range(1, n):
+    at = {"first": 1, "middle": n // 2, "last": n - 1}
+    icp_pairs = sorted({at[k] for k in FUSION_CPU_PAIRS})
+    for k in icp_pairs:
         _, T = od.compute(metres[k], metres[k - 1])
         T_card = np.linalg.inv(out["poses"][k - 1]) @ out["poses"][k]
         od_err = max(od_err, float(np.abs(T - T_card).max()))
@@ -1826,8 +1902,9 @@ def phase_fusion(E, run_counted, count_syncs, dev, card, kernel_syms):
                 out["points"][::FUSION_RAY_ROW_STEP, :, :3].cpu(), rows_c.to(torch.float32))
     cpu_s = time.perf_counter() - t_cpu
     split["raycast"] = cpu_s - sum(split.values())
-    log(f"fusion card vs CPU ({cpu_s:.1f} s): {n} rendered frames equal; {n - 1} ICP poses "
-        f"within {od_err:.2e} (gate {FUSION_ODO_ATOL}); frame 0's integration of x-slab "
+    log(f"fusion card vs CPU ({cpu_s:.1f} s): {n} rendered frames equal; the ICP poses of "
+        f"frames {icp_pairs} against the frame before ({', '.join(FUSION_CPU_PAIRS)} of "
+        f"{n - 1}) within {od_err:.2e} (gate {FUSION_ODO_ATOL}); frame 0's integration of x-slab "
         f"{FUSION_SLAB} ({touched} voxels updated) equal; the raycast of every "
         f"{FUSION_RAY_ROW_STEP}th row ({dirs.shape[0]} x {W} rays) equal; the CPU's s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
@@ -1860,6 +1937,167 @@ def phase_fusion(E, run_counted, count_syncs, dev, card, kernel_syms):
     log(f"phase 4w wall: {wall_s:.1f} s (budget {PATH_WALL_BUDGET_S:.0f} s)")
     if wall_s > PATH_WALL_BUDGET_S:
         raise AssertionError(f"phase 4w took {wall_s:.1f} s, over its budget")
+    return cnt
+
+
+def phase_videostab(E, run_counted, count_syncs, dev, card, kernel_syms):
+    """4x: the stabilisation path (see the module's note).  Returns the
+    launch counts of its counted run."""
+    import opencv_tpu_torch as cv
+    from opencv_tpu_torch.ops.color import cvtColor
+    from opencv_tpu_torch.ops.warp import warpAffine
+    from opencv_tpu_torch.videostab import estimateGlobalMotionRansac
+    t_start = time.perf_counter()
+    frames_np, shifts, _ = E.make_motion_video(E.SHAPE_VIDEOSTAB)
+    make_s = time.perf_counter() - t_start
+    frames = torch.from_numpy(frames_np).to(dev)
+    N, H, W, _ = frames.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    held, times = [], {}
+    t0 = time.perf_counter()
+    n_sync, cnt = run_counted(lambda: count_syncs(
+        lambda: held.append(E.forward_videostab(frames, times=times))))
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    out = held[0]
+    run_s = time.perf_counter() - t0
+    log(f"videostab path launches: {cnt}")
+    # each LK call builds three pyrDown levels of its (2, H, W) pair
+    want = 3 * (N - 1)
+    if (cnt["opencv_pyr_down"] != want
+            or any(cnt[k] for k in kernel_syms if k != "opencv_pyr_down")):
+        raise AssertionError(f"videostab: pyr_down must launch {want} times (3 levels of each of "
+                             f"{N - 1} LK pairs) and nothing else; got {cnt}")
+    st = out["stabilized"]
+    if st.shape != (N, H, W) or st.dtype != torch.uint8 or st.device != dev \
+            or out["motions"].shape != (N - 1, 3, 3):
+        raise AssertionError(f"videostab: stabilised {tuple(st.shape)} {st.dtype} {st.device}, "
+                             f"motions {out['motions'].shape}")
+    t_truth = time.perf_counter()
+    rep = E.videostab_truth_report(out, shifts, frames.shape)
+    truth_s = time.perf_counter() - t_truth
+    log(f"videostab truth ({truth_s:.1f} s): {rep} (gates: each inter-frame motion's "
+        f"displacement at the frame's centre within {VIDEO_SHIFT_TOL} px of the shift "
+        f"difference; the stabilised jitter under the input's / {E.VIDEOSTAB_JITTER_GAIN})")
+    if rep["translation_err"] > VIDEO_SHIFT_TOL or rep["jitter_gain"] <= E.VIDEOSTAB_JITTER_GAIN:
+        raise AssertionError(f"videostab: the truth gates failed: {rep}")
+    # card against CPU: the gray frames 0-1, the motion of pair 0 from the
+    # CPU's GFTT, LK and RANSAC, and frames 0 and N // 2 warped on the CPU by
+    # the card's corrections
+    t_cpu = time.perf_counter()
+    gray_c = cvtColor(frames[:2].cpu(), cv.COLOR_BGR2GRAY)[..., 0]
+    check_equal("videostab gray frames 0-1", out["gray"][:2].cpu(), gray_c)
+    Mc, ok = estimateGlobalMotionRansac(gray_c[0], gray_c[1])
+    corners = np.array([[0, 0, 1], [W - 1, 0, 1], [0, H - 1, 1], [W - 1, H - 1, 1]], np.float64).T
+    m_err = float(np.abs((out["motions"][0] - Mc) @ corners)[:2].max())
+    if not ok or m_err > VIDEOSTAB_MOTION_TOL:
+        raise AssertionError(f"videostab pair 0: the CPU's motion (ok {ok}) differs by {m_err} px "
+                             f"at a corner (gate {VIDEOSTAB_MOTION_TOL})")
+    worst = (0, 0.0)
+    for i in (0, N // 2):
+        want_i = warpAffine(out["gray"][i].cpu(), out["corrections"][i][:2].astype(np.float32),
+                            (W, H), borderMode=cv.BORDER_REPLICATE)
+        d = (st[i].cpu().to(torch.int32) - want_i.to(torch.int32)).abs()
+        share = int(d.count_nonzero()) / d.numel()
+        worst = max(worst, (int(d.max()), share))
+        if int(d.max()) > WARP_ATOL or share > WARP_MAX_FRACTION:
+            raise AssertionError(f"videostab frame {i}: warp max |d| {int(d.max())}, share {share}")
+    cpu_s = time.perf_counter() - t_cpu
+    log(f"videostab card vs CPU ({cpu_s:.1f} s): gray frames 0-1 equal; pair 0's motion within "
+        f"{m_err:.2e} px at the corners (gate {VIDEOSTAB_MOTION_TOL}); frames 0 and {N // 2} "
+        f"warped within the warp bound (max |d| {worst[0]}, share {worst[1]:.2e}; bound "
+        f"{WARP_ATOL}, {WARP_MAX_FRACTION})")
+    # the busy share of 4 frames (3 pairs) through the stabiliser: the whole
+    # run again would double the phase
+    t_prof = time.perf_counter()
+    busy, k_ms, f_ms = busy_share(lambda: E.forward_videostab(frames[:4]), iters=1,
+                                  warmup=False, host_ops=False)
+    prof_s = time.perf_counter() - t_prof
+    nbytes = frames.numel() + st.numel()
+    b_ms = bound(nbytes, 0)[0]
+    log(f"videostab: {N} frames {W}x{H}, radius {E.VIDEOSTAB_RADIUS}; stage ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+        + f"; the run {wall:.1f} ms on the host clock, {n_sync} host syncs, peak device memory "
+        f"over the frames {peak:.3f} GiB; bytes bound {b_ms:.4f} ms ({nbytes / 1e6:.1f} MB: the "
+        f"BGR frames read once, the stabilised frames written once), share of bound "
+        f"{b_ms / wall:.2e}; 4 frames profiled {f_ms:.1f} ms, device busy share {busy:.4f} "
+        f"(kernels {k_ms:.2f} ms)  [{card}]")
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4x wall: {wall_s:.1f} s (the video {make_s:.1f} s, the run {run_s:.1f} s, the "
+        f"truth {truth_s:.1f} s, the CPU {cpu_s:.1f} s, the profile {prof_s:.1f} s; budget "
+        f"{VIDEOSTAB_WALL_BUDGET_S:.0f} s)")
+    if wall_s > VIDEOSTAB_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4x took {wall_s:.1f} s, over its budget")
+    return cnt
+
+
+def phase_codec(E, run_counted, count_syncs, dev, card, kernel_syms):
+    """4y: the JPEG-in, PNG-out path (see the module's note).  Returns the
+    launch counts of its counted run."""
+    from opencv_tpu_torch.imgcodecs import IMREAD_UNCHANGED, imdecode
+    t_start = time.perf_counter()
+    frames_np, jpegs = E.make_codec_frames(E.SHAPE_CODEC)
+    make_s = time.perf_counter() - t_start
+    N, H, W, _ = frames_np.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    held, times = [], {}
+    t0 = time.perf_counter()
+    n_sync, cnt = run_counted(lambda: count_syncs(
+        lambda: held.append(E.forward_codec(jpegs, dev, times))))
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    out = held[0]
+    log(f"codec path launches: {cnt}")
+    if (cnt["opencv_sep_filter"] != 1 or cnt["sep_filter routes"]["k5"] != 1
+            or any(cnt[k] for k in kernel_syms if k != "opencv_sep_filter")):
+        raise AssertionError(f"codec path: sep_filter must launch once, on route k5 (the 5x5 "
+                             f"blur of the batch), and nothing else; got {cnt}")
+    y = out["out"]
+    if y.shape != (N, H // 2, W // 2, 1) or y.dtype != torch.uint8 or y.device != dev:
+        raise AssertionError(f"codec path: output {tuple(y.shape)} {y.dtype} {y.device}")
+    t_cpu = time.perf_counter()
+    ends = [0, N - 1]
+    check_equal(f"codec forward, decoded frames {ends}, card against CPU", y[ends].cpu(),
+                E.forward(torch.from_numpy(out["decoded"][ends])))
+    for i, png in enumerate(out["pngs"]):
+        back = imdecode(np.frombuffer(png, np.uint8), IMREAD_UNCHANGED)
+        if back is None or not np.array_equal(back, out["host"][i]):
+            raise AssertionError(f"codec frame {i}: the PNG does not decode to the output")
+    gate = E.CODEC_PSNR_DB - E.CODEC_PSNR_MARGIN_DB
+    psnrs = [E.psnr(d, f) for d, f in zip(out["decoded"], frames_np)]
+    if min(psnrs) < gate:
+        raise AssertionError(f"codec: a decoded frame's PSNR {min(psnrs):.3f} dB is under "
+                             f"{gate} dB")
+    cpu_s = time.perf_counter() - t_cpu
+    log(f"codec: {N} frames {W}x{H}: JPEGs of {min(map(len, jpegs))}-{max(map(len, jpegs))} "
+        f"bytes (made in {make_s:.1f} s); decoded PSNR {min(psnrs):.3f}-{max(psnrs):.3f} dB (gate "
+        f"{gate:.2f}); the card's forward equal to the CPU's on decoded frames {ends}; every PNG "
+        f"({min(map(len, out['pngs']))}-{max(map(len, out['pngs']))} bytes) decodes to its "
+        f"output ({cpu_s:.1f} s)")
+    t_prof = time.perf_counter()
+    busy, k_ms, f_ms = busy_share(lambda: E.forward_codec(jpegs, dev), iters=1, warmup=False,
+                                  host_ops=False)
+    prof_s = time.perf_counter() - t_prof
+    nbytes = out["decoded"].size + y.numel()
+    b_ms = bound(nbytes, 0)[0]
+    log(f"codec stage ms: decode {times['decode'] / N:.2f} a frame, upload {times['upload']:.2f}, "
+        f"forward {times['forward']:.2f}, read-back {times['readback']:.2f}, encode "
+        f"{times['encode'] / N:.2f} a frame (host clock, each stage synchronised)  [{card}]")
+    log(f"codec forward: {wall:.1f} ms for {N} frames = {N / wall * 1e3:.2f} frames/s end to end, "
+        f"{n_sync} host syncs, peak device memory {peak:.3f} GiB; the device part's bytes bound "
+        f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB: the decoded frames read once, the output written "
+        f"once), share of bound {b_ms / wall:.2e}; profiled {f_ms:.1f} ms, device busy share "
+        f"{busy:.4f} (kernels {k_ms:.2f} ms)  [{card}]")
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4y wall: {wall_s:.1f} s (the JPEGs {make_s:.1f} s, the run {wall / 1e3:.1f} s, "
+        f"the checks {cpu_s:.1f} s, the profile {prof_s:.1f} s; budget "
+        f"{CODEC_WALL_BUDGET_S:.0f} s)")
+    if wall_s > CODEC_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4y took {wall_s:.1f} s, over its budget")
     return cnt
 
 
@@ -3451,7 +3689,10 @@ def main() -> int:
 
     # -- 4s. the stitching path: Stitcher.create().stitch over the pan (ORB,
     # BFMatcher, RANSAC findHomography, warpPerspective, the seam, the blend)
-    cfg19 = phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7)
+    if E.SHAPE_STITCH != E.SHAPE_REGISTER:
+        raise AssertionError("the stitching path runs on the registration path's pan video")
+    cfg19 = phase_stitch(E, run_counted, count_syncs, dev, card, kernel_syms, k7,
+                         pan=(video11, truth11))
 
     # -- 4t. the flagship chain as a G-API graph through Stream, live and
     # through its torch.export bytes
@@ -3469,6 +3710,14 @@ def main() -> int:
     # -- 4w. RGB-D fusion in KinectFusion's 512³ volume: the rasterizer,
     # ICP odometry, TSDF integration, raycast; no kernel of csrc/
     cfg24 = phase_fusion(E, run_counted, count_syncs, dev, card, kernel_syms)
+
+    # -- 4x. the stabilisation path: videostab.OnePassStabilizer over 31
+    # frames (GFTT, LK through pyr_down, RANSAC, the motion filter, the warps)
+    cfg25 = phase_videostab(E, run_counted, count_syncs, dev, card, kernel_syms)
+
+    # -- 4y. JPEG in, PNG out: imdecode on the host, the flagship forward on
+    # the card (sep_filter k5 once), imencode('.png') on the host
+    cfg26 = phase_codec(E, run_counted, count_syncs, dev, card, kernel_syms)
 
     # -- 5. timing
     timer = Timer(dev)
@@ -3528,6 +3777,14 @@ def main() -> int:
                                                              border=cv.BORDER_REFLECT_101),
                      f"{tuple(a.shape)} k{len(kx)} s2 REFLECT_101", 2 * a.numel(),
                      2 * 2 * len(kx) * a.numel(), conv_yardstick(a, kx, kx, 1, dev), (kx, kx)))
+    # sep_filter k7 at the stitching path's widest level 0 (4s launches it on
+    # every level of each panorama so far)
+    a = torch.from_numpy(rng.integers(0, 256, STITCH_K7_SHAPE, np.uint8)).to(dev)
+    rows.append(("sep_filter k7 stitch level 0",
+                 lambda: sep_filter_int(a, k7, k7, shift=16, border=cv.BORDER_REFLECT_101),
+                 lambda: sep_filter_int_plain(a, k7, k7, shift=16, border=cv.BORDER_REFLECT_101),
+                 f"{STITCH_K7_SHAPE} k7 s2 REFLECT_101", 2 * a.numel(), 2 * 2 * 7 * a.numel(),
+                 conv_yardstick(a, k7, k7, 1, dev), (k7, k7)))
     # sep_filter on route k3 at the photo path's shape: Canny's dx of the
     # masked three-channel frame, u8 -> i16 (its dy is the same work)
     a = torch.from_numpy(rng.integers(0, 256, SEP_PHOTO_SHAPE, np.uint8)).to(dev)
@@ -4276,11 +4533,12 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4w); the
+    # launches: the kernel's count over the main paths (4a to 4y); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
                              *(f"sep_filter k7 level {lv}" for lv in range(len(sizes5))),
+                             "sep_filter k7 stitch level 0",
                              "sep_filter k3 photo",
                              *(f"sep_filter aruco k{k}" for k in ARUCO_WINDOWS),
                              *(f"sep_filter generic {name}" for name, *_ in GENERIC_GAUSS)),
@@ -4291,7 +4549,7 @@ def main() -> int:
                              PYR_VIDEO_SHAPES[:3]))}
     main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
                   cfg13, cfg14, cfg15, cfg16, cfg17, cfg18, cfg19, cfg20, cfg21, cfg22, cfg23,
-                  cfg24)
+                  cfg24, cfg25, cfg26)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]
@@ -4301,11 +4559,11 @@ def main() -> int:
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
                         "cases": [times[s] for s in shapes[name]]})
-    # each kernel's launches by path: 4a-4r, 4s-4u, and 4v and 4w (4v's
+    # each kernel's launches by path: 4a-4r, then 4s to 4y one by one (4v's
     # sep_filter launches by route too)
     by_path = {"4a-4r": main_paths[:18], "4s stitch": (cfg19,), "4t gapi live": (cfg20,),
                "4t gapi loaded": (cfg21,), "4u track_dnn": (cfg22,), "4v objdetect": (cfg23,),
-               "4w fusion": (cfg24,)}
+               "4w fusion": (cfg24,), "4x videostab": (cfg25,), "4y codec": (cfg26,)}
     for k, (_, _, sym) in zip(kernels, meta.values()):
         k["launches_by_path"] = {p: sum(c[sym] for c in cs) for p, cs in by_path.items()}
     kernels[0]["launches_by_path"]["4v objdetect routes"] = dict(cfg23["sep_filter routes"])

@@ -52,7 +52,10 @@ port's own protobuf codec, NMS, the Model classes) and ml; objdetect
 (ArUco, ChArUco, QR, barcodes, HOG, Haar cascades, YuNet/SFace, MCC),
 threed (depth maps, the rasterizer, the TSDF Volume and ICP Odometry),
 ``cuda`` (0 devices, as the JAX package reports) and the binding-compat
-classes.
+classes; videostab (OnePassStabilizer over the port's GFTT, LK and
+warpAffine) and imgcodecs (PNG, BMP, PNM, Sun raster, JPEG, TIFF, GIF, EXR,
+WebP, HDR, PAM, JPEG 2000, AVIF, and the HuffYUV, FFV1 and MPEG-4 video
+codecs with the MP4 demuxer; their entropy loops are native host tails).
 """
 
 from .constants import *  # noqa: F401,F403
@@ -970,3 +973,13 @@ from .compat_classes import (  # noqa: F401,E402
 )
 from . import compat_classes  # noqa: F401,E402
 from . import cuda  # noqa: F401,E402
+
+from . import imgcodecs  # noqa: F401,E402
+from .imgcodecs import (  # noqa: F401,E402
+    imread, imwrite, imdecode, imencode, imreadmulti, imwritemulti, imcount, imdecodemulti,
+    imencodemulti, haveImageReader, haveImageWriter, Animation, imreadanimation,
+    imwriteanimation, imdecodeanimation, imencodeanimation, imreadWithMetadata,
+    imwriteWithMetadata, imdecodeWithMetadata, imencodeWithMetadata, IMREAD_ANYDEPTH,
+    IMREAD_ANYCOLOR, IMREAD_COLOR, IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
+)
+from . import videostab  # noqa: F401,E402

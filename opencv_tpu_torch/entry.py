@@ -178,6 +178,16 @@ frame in a 512³ TSDF of 3 m at its chained pose, then the raycast and
 fetchPointsNormals (:data:`FUSION_STAGES`); ``fusion_truth_report`` checks
 the chained pose and the raycast depth against the trajectory.
 
+``forward_videostab`` stabilises ``make_motion_video``'s shaking camera
+with ``videostab.OnePassStabilizer`` (radius 15, over 2 * 15 + 1 frames):
+GFTT and LK of each consecutive pair (LK's pyramids through ``pyr_down``),
+the similarity RANSAC and the Gaussian motion filter on the host, the
+warps on the card; ``videostab_truth_report`` holds each motion to the
+video's shifts and the jitter to tests/test_video.py's gain.
+``forward_codec`` takes JPEGs in (``make_codec_frames``: the motion
+frames through ``imencode('.jpg')``), decodes them on the host, runs the
+flagship :func:`forward` on the card and writes PNGs.
+
 ``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
 on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
 CUDA devices) run the batch-DP step and the spatial filters of
@@ -193,7 +203,7 @@ import numpy as np
 import torch
 
 from . import constants as K
-from .core.arrays import to_device
+from .core.arrays import as_tensor, to_device
 from .features2d.orb import ORB_create
 from .kernels import fused_gray_gauss5_down2
 from .ops.canny import Canny
@@ -214,6 +224,7 @@ from .ops.thresh import threshold
 from .ops.warp import getRotationMatrix2D, remap, warpAffine, warpPerspective
 from .ops.contours import boundingRect, contourArea, findContours
 from .ops.misc import createHanningWindow, phase_correlate_batch
+from .videostab import STABILIZE_STAGES, OnePassStabilizer
 from .ops.shape import component_stats, components_batch, distanceTransform, moments_dict, \
     raw_moments
 from .ops.transform import accumulateWeighted
@@ -284,7 +295,12 @@ __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHA
            "SHAPE_TRACK_DNN", "GOTURN_INPUT", "GOTURN_PRIOR", "GOTURN_FC8_GAIN",
            "goturn_prototxt", "goturn_layers", "goturn_flops", "write_goturn_caffemodel",
            "goturn_files", "make_goturn_net", "make_goturn_trackers", "forward_track_dnn",
-           "small_dnn_models", "dnn_sweep"]
+           "small_dnn_models", "dnn_sweep",
+           "VIDEOSTAB_RADIUS", "SHAPE_VIDEOSTAB", "VIDEOSTAB_STAGES", "VIDEOSTAB_CROP",
+           "VIDEOSTAB_JITTER_GAIN", "forward_videostab", "entry_videostab", "motion_translation",
+           "jitter_std", "videostab_truth_report",
+           "SHAPE_CODEC", "CODEC_STAGES", "CODEC_PSNR_DB", "CODEC_PSNR_MARGIN_DB",
+           "make_codec_frames", "forward_codec", "psnr"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -4388,3 +4404,146 @@ def face_models(seed: int = 0, size=(96, 96)) -> dict:
               [T("w", rng.normal(0, 0.1, (16, 3, 112, 112)).astype(np.float32)),
                T("shape", np.asarray([1, 16], np.int64))])
     return {"yunet": yunet.SerializeToString(), "sface": sface.SerializeToString()}
+
+
+# ---------------------------------------------------------------------------
+# the stabilisation path: videostab's OnePassStabilizer over a shaking camera
+# ---------------------------------------------------------------------------
+
+VIDEOSTAB_RADIUS = 15                  # OnePassStabilizer's default
+# 2 * radius + 1 frames of make_motion_video: the middle frame's correction
+# sees the whole Gaussian window
+SHAPE_VIDEOSTAB = (2 * VIDEOSTAB_RADIUS + 1, 1080, 1920, 3)
+VIDEOSTAB_STAGES = ("gray",) + STABILIZE_STAGES
+# the frames' margin left out of the jitter measure, px (test_video.py's 20)
+VIDEOSTAB_CROP = 20
+# the stabilised jitter's std must be under the input's over this
+VIDEOSTAB_JITTER_GAIN = 2.5
+
+
+def forward_videostab(frames, radius: int = VIDEOSTAB_RADIUS, times: dict | None = None) -> dict:
+    """The (N, H, W, 3) u8 BGR `frames` turned to gray on their device, then
+    ``videostab.OnePassStabilizer(radius)``: GFTT (300 corners) and LK of
+    each consecutive pair (three pyrDown levels of the pair each, through
+    ``pyr_down``), the similarity RANSAC and the Gaussian motion filter on
+    the host, and warpAffine of each frame by its correction
+    (BORDER_REPLICATE) on the frames' device.  Returns the gray frames, the
+    inter-frame motions (host 3x3), the corrections and the (N, H, W)
+    stabilised frames; `times` (if given) gathers the host-clock ms of
+    :data:`VIDEOSTAB_STAGES`."""
+    import time as _t
+    t0 = _t.perf_counter()
+    gray = cvtColor(frames, K.COLOR_BGR2GRAY)[..., 0]
+    if times is not None:
+        if gray.device.type == "cuda":
+            torch.cuda.synchronize(gray.device)
+        times["gray"] = (_t.perf_counter() - t0) * 1e3
+    stab = OnePassStabilizer(radius)
+    out = stab.stabilize(gray.unbind(0), times)
+    n = len(out)
+    return {"gray": gray, "motions": np.stack(stab.motions),
+            "corrections": np.stack([stab.filter.stabilize(i, stab.motions, (0, n))
+                                     for i in range(n)]),
+            "stabilized": torch.stack(out)}
+
+
+def entry_videostab(device="cuda", shape=SHAPE_VIDEOSTAB):
+    """``(forward_videostab, (frames,))`` with ``make_motion_video(shape)``'s
+    frames on `device`."""
+    return forward_videostab, (torch.from_numpy(make_motion_video(shape)[0]).to(device),)
+
+
+def motion_translation(M, shape) -> np.ndarray:
+    """The displacement of a 3x3 motion at the centre of an (H, W) frame, px
+    (x, y): a similarity's translation as the frame's middle sees it."""
+    H, W = shape[:2]
+    c = np.array([(W - 1) / 2.0, (H - 1) / 2.0, 1.0])
+    return (np.asarray(M, np.float64) @ c)[:2] - c[:2]
+
+
+def jitter_std(seq, crop: int = VIDEOSTAB_CROP) -> float:
+    """The std of the frame-to-frame shift magnitudes of an (N, H, W)
+    sequence (``phaseCorrelate`` of each consecutive pair, its margin of
+    `crop` px left out), as tests/test_video.py measures jitter."""
+    s = as_tensor(seq)[:, crop:-crop, crop:-crop].to(torch.float32)
+    shifts, _ = phase_correlate_batch(s[:-1], s[1:])
+    return float(torch.hypot(shifts[:, 0], shifts[:, 1]).cpu().numpy().std())
+
+
+def videostab_truth_report(out: dict, shifts, shape) -> dict:
+    """forward_videostab's outputs against make_motion_video's ``shifts``:
+    ``translation_err``, the largest |displacement at the frame's centre of
+    each inter-frame motion − (shifts[i+1] − shifts[i])| per axis, px; the
+    input's and the stabilised jitter (:func:`jitter_std`) and their
+    ratio."""
+    sh = np.asarray(shifts, np.float64)
+    err = max(float(np.abs(motion_translation(M, shape[1:3]) - (sh[i + 1] - sh[i])).max())
+              for i, M in enumerate(out["motions"]))
+    j_in, j_out = jitter_std(out["gray"]), jitter_std(out["stabilized"])
+    return {"translation_err": err, "jitter_in": j_in, "jitter_out": j_out,
+            "jitter_gain": j_in / j_out if j_out > 0 else float("inf")}
+
+
+# ---------------------------------------------------------------------------
+# the JPEG-in, PNG-out path: decode on the host, the flagship on the card,
+# encode on the host
+# ---------------------------------------------------------------------------
+
+SHAPE_CODEC = (8, 1080, 1920, 3)
+CODEC_STAGES = ("decode", "upload", "forward", "readback", "encode")
+# each decoded frame's PSNR against its source, dB: the CPU measures 41.908 -
+# 41.913 on make_motion_video's 1080p frames 0 and 7 at imencode('.jpg')'s
+# defaults (tests/test_torch_slice_codec.py); the gate takes the margin off
+CODEC_PSNR_DB = 41.90
+CODEC_PSNR_MARGIN_DB = 0.1
+
+
+def make_codec_frames(shape=SHAPE_CODEC, seed: int = 0):
+    """``make_motion_video(shape)``'s frames and each one's JPEG as
+    ``imencode('.jpg')`` writes it at its defaults (quality 95, 4:2:0):
+    ``(frames, jpegs)``, the JPEGs as bytes."""
+    from .imgcodecs import imencode
+    frames = make_motion_video(shape, seed)[0]
+    return frames, [imencode(".jpg", f)[1].tobytes() for f in frames]
+
+
+def forward_codec(jpegs, device="cuda", times: dict | None = None) -> dict:
+    """JPEG in, PNG out: ``imdecode`` of each of the `jpegs` on the host, one
+    copy of the (N, H, W, 3) batch to `device` (through pinned memory to a
+    card), :func:`forward` (the flagship: gray, GaussianBlur 5x5 through
+    ``sep_filter``, the half-size resize, warpAffine), one read-back, and
+    ``imencode('.png')`` of each (H/2, W/2) output.  Returns the decoded
+    frames, the forward's output on `device`, its host copy and the PNGs;
+    `times` (if given) gathers the host-clock ms of :data:`CODEC_STAGES`."""
+    import time as _t
+    from .imgcodecs import IMREAD_COLOR, imdecode, imencode
+    dev = torch.device(device)
+    clock = {}
+
+    def lap(name, t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = _t.perf_counter()
+        clock[name] = (t - t0) * 1e3
+        return t
+
+    t = _t.perf_counter()
+    decoded = np.stack([imdecode(np.frombuffer(b, np.uint8), IMREAD_COLOR) for b in jpegs])
+    t = lap("decode", t)
+    x = to_device(decoded, dev)
+    t = lap("upload", t)
+    y = forward(x)
+    t = lap("forward", t)
+    host = y[..., 0].cpu().numpy()
+    t = lap("readback", t)
+    pngs = [imencode(".png", o)[1].tobytes() for o in host]
+    lap("encode", t)
+    if times is not None:
+        times.update(clock)
+    return {"decoded": decoded, "out": y, "host": host, "pngs": pngs}
+
+
+def psnr(a, b) -> float:
+    """PSNR of two u8 arrays of one shape, dB (inf where equal)."""
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)

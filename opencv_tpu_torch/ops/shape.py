@@ -30,7 +30,11 @@ uses what the card has:
   package's fixpoint, one step being the minimum over the neighbours that
   share a weight, plus that weight (equal to the JAX package's step, since
   adding a weight is monotone in f32); the fixpoint is checked every
-  :data:`DT_CHECK_EVERY` steps.  DIST_MASK_PRECISE takes the vertical
+  :data:`DT_CHECK_EVERY` steps.  Under DIST_L1 that fixpoint is the exact
+  city-block distance (each mask weight is its step's |dx| + |dy|), which
+  two running minima a direction give without relaxing: the vertical
+  distance within each column, then the minimum over each row of that
+  distance plus |dx|.  DIST_MASK_PRECISE takes the vertical
   distance from running maxima of the nearest background row, then the
   parabola minimum over each row in chunks of rows sized from free memory,
   never the whole (N, H, W, W) array.
@@ -440,6 +444,26 @@ def _chamfer(fg: torch.Tensor, weights, stats=None) -> torch.Tensor:
     return d
 
 
+def _city_block(fg: torch.Tensor) -> torch.Tensor:
+    """The exact L1 distance of (N, H, W) bool to the nearest background
+    pixel, in f32, _INF where there is none: the fixpoint of the DIST_L1
+    chamfer masks, from running minima in int64."""
+    N, H, W = fg.shape
+    dev = fg.device
+    far = 1 << 40
+    rows = torch.arange(H, device=dev)[None, :, None]
+    bg = ~fg
+    above = torch.where(bg, rows, -far).cummax(dim=1).values
+    below = torch.where(bg, rows, far).flip(1).cummin(dim=1).values.flip(1)
+    g = torch.minimum(rows - above, below - rows)
+    # min over x' of g(x') + |x - x'|: the columns at or left of x, then right
+    xs = torch.arange(W, device=dev)[None, None, :]
+    left = (g - xs).cummin(dim=2).values + xs
+    right = (g + xs).flip(2).cummin(dim=2).values.flip(2) - xs
+    d = torch.minimum(left, right)
+    return torch.where(d < far // 2, d.to(torch.float32), _INF)
+
+
 def _precise_chunk_rows(W: int, device) -> int:
     """Rows of the parabola minimum taken at once: a (rows, W, W) f32
     intermediate in a quarter of the free device memory, at most 1 GiB (256
@@ -479,10 +503,11 @@ def _precise(fg: torch.Tensor) -> torch.Tensor:
 def distanceTransform(src, distanceType: int, maskSize: int, dstType: int = K.CV_32F,
                       stats=None):
     """`cv::distanceTransform` of each image of the batch: chamfer masks 3/5
-    relaxed to the JAX package's fixpoint, DIST_MASK_PRECISE with DIST_L2
-    exact; an f32 result on the input's device.  `stats` (this port's
-    addition), if a dict, receives the chamfer relaxation's ``steps`` and
-    ``checks`` (host syncs)."""
+    relaxed to the JAX package's fixpoint (under DIST_L1 its closed form,
+    the exact city-block distance), DIST_MASK_PRECISE with DIST_L2 exact;
+    an f32 result on the input's device.  `stats` (this port's addition),
+    if a dict, receives the chamfer relaxation's ``steps`` and ``checks``
+    (host syncs; 0 under DIST_L1)."""
     x, meta = to_batched(src)
     fg = x[..., 0] != 0
     if maskSize == K.DIST_MASK_PRECISE and distanceType == K.DIST_L2:
@@ -491,6 +516,10 @@ def distanceTransform(src, distanceType: int, maskSize: int, dstType: int = K.CV
                                                                 K.DIST_C):
         maskSize = 5
         distanceType = K.DIST_L2
+    if distanceType == K.DIST_L1:
+        if stats is not None:
+            stats.update(steps=0, checks=0)
+        return from_batched(_city_block(fg)[..., None], meta)
     d = _chamfer(fg, _DIST_WEIGHTS[(distanceType, maskSize)], stats)
     return from_batched(d[..., None], meta)
 

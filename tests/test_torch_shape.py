@@ -270,3 +270,25 @@ def test_public_surface_shape():
                  "distanceTransform", "distanceTransformWithLabels"):
         assert hasattr(tcv, name), name
         assert getattr(tcv, name).__class__ is getattr(jcv, name).__class__, name
+
+
+@pytest.mark.parametrize("shape, p_bg", [((3, 40, 50), 0.05), ((2, 64, 31), 0.002),
+                                         ((1, 17, 5), 0.0), ((2, 1, 9), 0.3),
+                                         ((1, 48, 160), 0.002)])
+def test_distance_l1_closed_form_is_the_chamfer_fixpoint(shape, p_bg):
+    """Under DIST_L1 distanceTransform takes the exact city-block distance
+    from running minima; it equals the chamfer relaxation's fixpoint (masks
+    3 and 5) bit for bit, 1e9 where no background pixel exists, and the JAX
+    package's result."""
+    fg = torch.from_numpy(np.random.default_rng(shape[1]).random(shape) >= p_bg)
+    want = S._chamfer(fg, S._DIST_WEIGHTS[(tcv.DIST_L1, 3)])
+    assert torch.equal(S._chamfer(fg, S._DIST_WEIGHTS[(tcv.DIST_L1, 5)]), want)
+    steps = {}
+    for ms in (3, 5):
+        got = tcv.distanceTransform(_t(fg.numpy()[..., None].astype(np.uint8) * 255),
+                                    tcv.DIST_L1, ms, stats=steps)
+        assert torch.equal(got[..., 0], want)
+        assert steps == {"steps": 0, "checks": 0}
+    img = fg[0].numpy().astype(np.uint8) * 255
+    np.testing.assert_array_equal(tcv.distanceTransform(_t(img), tcv.DIST_L1, 3).numpy(),
+                                  np.asarray(jcv.distanceTransform(img, jcv.DIST_L1, 3)))

@@ -675,19 +675,11 @@ def test_ann_index_equals_opencv_tpu(dist, tmp_path):
 
 
 # The top-level names of the JAX package that the port still lacks: only
-# those of the modules still to port (ROADMAP A8-A10), by module.  A name
+# those of the modules still to port (ROADMAP A10.3-A10.6), by module.  A name
 # of a ported area that is missing shows up here.  A top-level submodule
 # counts whether or not a test has imported it (an import makes it an
 # attribute of its package).
 STILL_TO_PORT = {
-    "videostab": ("videostab",),
-    "imgcodecs": ("imgcodecs", "IMREAD_ANYCOLOR", "IMREAD_ANYDEPTH", "IMREAD_COLOR",
-                  "IMREAD_GRAYSCALE", "IMREAD_UNCHANGED", "Animation", "haveImageReader",
-                  "haveImageWriter", "imcount", "imdecode", "imdecodeWithMetadata",
-                  "imdecodeanimation", "imdecodemulti", "imencode", "imencodeWithMetadata",
-                  "imencodeanimation", "imencodemulti", "imread", "imreadWithMetadata",
-                  "imreadanimation", "imreadmulti", "imwrite", "imwriteWithMetadata",
-                  "imwriteanimation", "imwritemulti"),
     "videoio": ("videoio", "videoio_registry", "videoio_ffmpeg", "CAP_PROP_FPS",
                 "CAP_PROP_FRAME_COUNT", "CAP_PROP_FRAME_HEIGHT", "CAP_PROP_FRAME_WIDTH",
                 "CAP_PROP_POS_FRAMES", "IStreamReader", "VideoCapture", "VideoWriter",
@@ -710,7 +702,7 @@ STILL_TO_PORT = {
 def test_only_the_modules_still_to_port_are_missing():
     import pkgutil
     listed = [n for names in STILL_TO_PORT.values() for n in names]
-    assert len(listed) == len(set(listed)) == 90
+    assert len(listed) == len(set(listed)) == 63
     theirs = set(dir(jcv)) | {m.name for m in pkgutil.iter_modules(jcv.__path__)}
     ours = set(dir(tcv)) | {m.name for m in pkgutil.iter_modules(tcv.__path__)}
     missing = {n for n in theirs - ours if not n.startswith("_")}
