@@ -355,6 +355,23 @@ Phases, each of which raises on failure (exit code != 0, and no result line):
       entry.CODEC_PSNR_MARGIN_DB; the stage times, frames per second, host
       syncs, busy share and the device part's bytes bound; the wall against
       CODEC_WALL_BUDGET_S;
+   z. a video file in, a video file out: ``entry.make_videoio_files()``
+      (the motion video's 8 frames at 1080p through the port's
+      ``VideoWriter`` as a HuffYUV AVI, and a ``FileStorage`` YAML of the
+      flagship's parameters: ksize, dsize, the 2 x 3 f64 M, fourcc FFV1,
+      fps), then ``entry.forward_videoio``: the YAML read, ``VideoCapture``
+      checked against it and read to its end on the host, one pinned copy to
+      the card, the flagship chain with the YAML's values (sep_filter must
+      launch once, on route k5, and nothing else), one read-back,
+      ``VideoWriter`` of an FFV1 AVI, ``imshow`` and ``waitKey(1)``; the
+      decoded frames equal to the video's (HuffYUV is lossless), the YAML's
+      M equal to getRotationMatrix2D bit for bit, the card's output equal to
+      ``entry.forward`` on the card and to the CPU's on frames 0 and 7, the
+      FFV1 file read back as the output in three equal channels, highgui's
+      stored image the last output; the stage times, frames per second, host
+      syncs, peak memory, busy share, the device part's bytes bound and
+      whether the FFmpeg adapter built; the wall against
+      VIDEOIO_WALL_BUDGET_S;
 5. timing: CUDA events, median of 20 after warm-up, with L2 flushed between
    runs: each kernel at each main-path shape beside its plain version, its
    bound (``bound_ms``: bytes in + out over 3.35 TB/s, or operations over
@@ -678,6 +695,11 @@ VIDEOSTAB_WALL_BUDGET_S = 40.0
 VIDEOSTAB_MOTION_TOL = 10 * VIDEO_LK_TOL
 # phase 4y (JPEG in, PNG out): its wall budget, s
 CODEC_WALL_BUDGET_S = 40.0
+# phase 4z (a HuffYUV AVI in, an FFV1 AVI out): its wall budget, s.  Its
+# host work is 4y's kind and size: 8 lossless 1080p frames decoded and 8
+# half-size frames encoded on the host, the files written first, the CPU
+# forward on 2 frames, the output file read back, a profiled rerun
+VIDEOIO_WALL_BUDGET_S = 40.0
 
 
 # config 2's ops, in the order of entry.forward_resize_warp_4k's outputs
@@ -2098,6 +2120,111 @@ def phase_codec(E, run_counted, count_syncs, dev, card, kernel_syms):
         f"{CODEC_WALL_BUDGET_S:.0f} s)")
     if wall_s > CODEC_WALL_BUDGET_S:
         raise AssertionError(f"phase 4y took {wall_s:.1f} s, over its budget")
+    return cnt
+
+
+def phase_videoio(E, run_counted, count_syncs, dev, card, kernel_syms):
+    """4z: a HuffYUV AVI in, the flagship on the card, an FFV1 AVI out (see
+    the module's note).  Returns the launch counts of its counted run."""
+    import tempfile
+    from opencv_tpu_torch import highgui, videoio_ffmpeg
+    from opencv_tpu_torch.ops.warp import getRotationMatrix2D
+    from opencv_tpu_torch.videoio import VideoCapture
+    t_start = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="smoke_videoio_")
+    try:
+        in_path, params_path = E.make_videoio_files(tmp.name, E.SHAPE_VIDEOIO)
+        frames_np = E.make_motion_video(E.SHAPE_VIDEOIO)[0]
+        make_s = time.perf_counter() - t_start
+        N, H, W, _ = frames_np.shape
+        out_path = os.path.join(tmp.name, "out.avi")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        held, times = [], {}
+        t0 = time.perf_counter()
+        n_sync, cnt = run_counted(lambda: count_syncs(
+            lambda: held.append(E.forward_videoio(in_path, params_path, out_path, dev, times))))
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        out = held[0]
+        log(f"videoio path launches: {cnt}")
+        if (cnt["opencv_sep_filter"] != 1 or cnt["sep_filter routes"]["k5"] != 1
+                or any(cnt[k] for k in kernel_syms if k != "opencv_sep_filter")):
+            raise AssertionError(f"videoio path: sep_filter must launch once, on route k5 (the "
+                                 f"5x5 blur of the batch), and nothing else; got {cnt}")
+        y = out["out"]
+        if y.shape != (N, H // 2, W // 2, 1) or y.dtype != torch.uint8 or y.device != dev:
+            raise AssertionError(f"videoio path: output {tuple(y.shape)} {y.dtype} {y.device}")
+        t_chk = time.perf_counter()
+        if not np.array_equal(out["decoded"], frames_np):
+            raise AssertionError("videoio: the decoded HuffYUV frames differ from the video's")
+        prm = out["params"]
+        M = getRotationMatrix2D((W / 4, H / 4), 15.0, 0.9)
+        if prm["M"].dtype != np.float64 or not np.array_equal(prm["M"], M):
+            raise AssertionError(f"videoio: the YAML's M {prm['M']!r} is not {M!r} bit for bit")
+        if (prm["ksize"] != (5, 5) or prm["dsize"] != (W // 2, H // 2)
+                or prm["fourcc_out"] != "FFV1" or prm["fps"] != E.VIDEOIO_FPS):
+            raise AssertionError(f"videoio: the YAML's parameters {prm}")
+        if not torch.equal(y, E.forward(torch.from_numpy(out["decoded"]).to(dev))):
+            raise AssertionError("videoio: the card's output differs from entry.forward on the "
+                                 "card for the same batch")
+        ends = [0, N - 1]
+        check_equal(f"videoio forward, decoded frames {ends}, card against CPU", y[ends].cpu(),
+                    E.forward(torch.from_numpy(out["decoded"][ends])))
+        cap = VideoCapture(out_path)
+        back = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            back.append(f)
+        cap.release()
+        if len(back) != N:
+            raise AssertionError(f"videoio: {out_path} reads back {len(back)} frames of {N}")
+        for i, (f, o) in enumerate(zip(back, out["host"])):
+            if f.shape != (H // 2, W // 2, 3) or any(not np.array_equal(f[..., c], o)
+                                                     for c in range(3)):
+                raise AssertionError(f"videoio frame {i}: the FFV1 file's frame {f.shape} is "
+                                     f"not the output in three equal channels")
+        shown = highgui._windows.get("videoio")
+        if shown is None or not np.array_equal(shown, out["host"][-1]):
+            raise AssertionError("videoio: highgui's stored image is not the last output")
+        if highgui.waitKey(1) != -1:
+            raise AssertionError("videoio: waitKey(1) is not -1")
+        chk_s = time.perf_counter() - t_chk
+        sizes = (os.path.getsize(in_path), os.path.getsize(out_path))
+        log(f"videoio: {N} frames {W}x{H}: in.avi (HFYU) {sizes[0]} bytes, params.yml's M equal "
+            f"to getRotationMatrix2D bit for bit (files made in {make_s:.1f} s); the decoded "
+            f"frames equal to the video's; the card's output equal to entry.forward on the card "
+            f"and to the CPU's on decoded frames {ends}; out.avi (FFV1) {sizes[1]} bytes reads "
+            f"back as the output, bit for bit; highgui holds the last output, waitKey(1) = -1 "
+            f"({chk_s:.1f} s)")
+        t_prof = time.perf_counter()
+        busy, k_ms, f_ms = busy_share(
+            lambda: E.forward_videoio(in_path, params_path, os.path.join(tmp.name, "prof.avi"),
+                                      dev), iters=1, warmup=False, host_ops=False)
+        prof_s = time.perf_counter() - t_prof
+    finally:
+        tmp.cleanup()
+    nbytes = out["decoded"].size + y.numel()
+    b_ms = bound(nbytes, 0)[0]
+    log(f"videoio stage ms: read {times['read'] / N:.2f} a frame (the YAML, the HuffYUV decode), "
+        f"upload {times['upload']:.2f}, forward {times['forward']:.2f}, read-back "
+        f"{times['readback']:.2f}, write {times['write'] / N:.2f} a frame (the FFV1 encode, "
+        f"imshow) (host clock, each stage synchronised)  [{card}]")
+    log(f"videoio forward: {wall:.1f} ms for {N} frames = {N / wall * 1e3:.2f} frames/s end to "
+        f"end, {n_sync} host syncs, peak device memory {peak:.3f} GiB; the device part's bytes "
+        f"bound {b_ms:.4f} ms ({nbytes / 1e6:.1f} MB: the decoded frames read once, the output "
+        f"written once), share of bound {b_ms / wall:.2e}; profiled {f_ms:.1f} ms, device busy "
+        f"share {busy:.4f} (kernels {k_ms:.2f} ms); the FFmpeg adapter "
+        f"{'built' if videoio_ffmpeg.available() else 'did not build'} on this host  [{card}]")
+    wall_s = time.perf_counter() - t_start
+    log(f"phase 4z wall: {wall_s:.1f} s (the files {make_s:.1f} s, the run {wall / 1e3:.1f} s, "
+        f"the checks {chk_s:.1f} s, the profile {prof_s:.1f} s; budget "
+        f"{VIDEOIO_WALL_BUDGET_S:.0f} s)")
+    if wall_s > VIDEOIO_WALL_BUDGET_S:
+        raise AssertionError(f"phase 4z took {wall_s:.1f} s, over its budget")
     return cnt
 
 
@@ -3719,6 +3846,11 @@ def main() -> int:
     # the card (sep_filter k5 once), imencode('.png') on the host
     cfg26 = phase_codec(E, run_counted, count_syncs, dev, card, kernel_syms)
 
+    # -- 4z. a HuffYUV AVI in through VideoCapture, the flagship on the card
+    # with its parameters from a FileStorage YAML (sep_filter k5 once), an
+    # FFV1 AVI out through VideoWriter
+    cfg27 = phase_videoio(E, run_counted, count_syncs, dev, card, kernel_syms)
+
     # -- 5. timing
     timer = Timer(dev)
     g1 = gray[..., None].contiguous()
@@ -4533,7 +4665,7 @@ def main() -> int:
         "pyr_down": ("opencv_tpu_torch/csrc/pyrdown.cu",
                      "opencv_tpu/kernels/sepfilter.py:297", "opencv_pyr_down"),
     }
-    # launches: the kernel's count over the main paths (4a to 4y); the
+    # launches: the kernel's count over the main paths (4a to 4z); the
     # top-level numbers are the first shape of `cases`, which lists each
     # shape the main paths give the kernel
     shapes = {"sep_filter": ("sep_filter", "sep_filter sobel",
@@ -4549,7 +4681,7 @@ def main() -> int:
                              PYR_VIDEO_SHAPES[:3]))}
     main_paths = (flagship, cfg3, cfg4, cfg5, cfg2, cfg6, cfg7, cfg8, cfg9, cfg10, cfg11, cfg12,
                   cfg13, cfg14, cfg15, cfg16, cfg17, cfg18, cfg19, cfg20, cfg21, cfg22, cfg23,
-                  cfg24, cfg25, cfg26)
+                  cfg24, cfg25, cfg26, cfg27)
     kernels = []
     for name, (src, rep, sym) in meta.items():
         row = times[shapes[name][0]]
@@ -4559,11 +4691,12 @@ def main() -> int:
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")},
                         "cases": [times[s] for s in shapes[name]]})
-    # each kernel's launches by path: 4a-4r, then 4s to 4y one by one (4v's
+    # each kernel's launches by path: 4a-4r, then 4s to 4z one by one (4v's
     # sep_filter launches by route too)
     by_path = {"4a-4r": main_paths[:18], "4s stitch": (cfg19,), "4t gapi live": (cfg20,),
                "4t gapi loaded": (cfg21,), "4u track_dnn": (cfg22,), "4v objdetect": (cfg23,),
-               "4w fusion": (cfg24,), "4x videostab": (cfg25,), "4y codec": (cfg26,)}
+               "4w fusion": (cfg24,), "4x videostab": (cfg25,), "4y codec": (cfg26,),
+               "4z videoio": (cfg27,)}
     for k, (_, _, sym) in zip(kernels, meta.values()):
         k["launches_by_path"] = {p: sum(c[sym] for c in cs) for p, cs in by_path.items()}
     kernels[0]["launches_by_path"]["4v objdetect routes"] = dict(cfg23["sep_filter routes"])

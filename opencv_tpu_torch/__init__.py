@@ -55,7 +55,11 @@ threed (depth maps, the rasterizer, the TSDF Volume and ICP Odometry),
 classes; videostab (OnePassStabilizer over the port's GFTT, LK and
 warpAffine) and imgcodecs (PNG, BMP, PNM, Sun raster, JPEG, TIFF, GIF, EXR,
 WebP, HDR, PAM, JPEG 2000, AVIF, and the HuffYUV, FFV1 and MPEG-4 video
-codecs with the MP4 demuxer; their entropy loops are native host tails).
+codecs with the MP4 demuxer; their entropy loops are native host tails);
+and the last modules of the JAX package's surface: videoio (VideoCapture,
+VideoWriter, the registry and the FFmpeg adapter, built with gcc where
+FFmpeg's development files are), FileStorage, headless highgui, Mat and
+UMat, and the cv2 namespace modules (Error, ocl, samples, typing, ...).
 """
 
 from .constants import *  # noqa: F401,F403
@@ -983,3 +987,76 @@ from .imgcodecs import (  # noqa: F401,E402
     IMREAD_ANYCOLOR, IMREAD_COLOR, IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
 )
 from . import videostab  # noqa: F401,E402
+
+# ---------------------------------------------------------------------------
+# the last modules of the JAX package's surface: FileStorage, video IO (with
+# its FFmpeg adapter), headless highgui, Mat, and the cv2 namespace
+# submodules, each a copy (opencv_tpu/__init__.py:258, :393-407, :665-682,
+# :795, :966-973, :1172-1185)
+# ---------------------------------------------------------------------------
+from .persistence import FileStorage, FileNode, FILE_STORAGE_READ, FILE_STORAGE_WRITE  # noqa: F401,E402
+from .videoio import (  # noqa: F401,E402
+    VideoCapture, VideoWriter, VideoWriter_fourcc,
+    CAP_PROP_FRAME_WIDTH, CAP_PROP_FRAME_HEIGHT, CAP_PROP_FPS,
+    CAP_PROP_FRAME_COUNT, CAP_PROP_POS_FRAMES,
+)
+from .highgui import (  # noqa: F401,E402
+    imshow, waitKey, pollKey, namedWindow, destroyWindow,
+    destroyAllWindows, WINDOW_NORMAL, WINDOW_AUTOSIZE,
+    moveWindow, resizeWindow, setMouseCallback, createTrackbar,
+    getTrackbarPos, setTrackbarPos, getWindowProperty,
+    setWindowProperty, waitKeyEx, startWindowThread, setWindowTitle,
+    getWindowImageRect, setTrackbarMin, setTrackbarMax, displayOverlay,
+    displayStatusBar, addText, createButton, selectROI, selectROIs,
+    currentUIFramework,
+)
+
+import numpy as _np_mat  # noqa: E402
+
+
+class Mat(_np_mat.ndarray):
+    """cv2.Mat — numpy-compatible array marker (same contract as the
+    wheel's Mat: an ndarray subclass carrying wrap_channels)."""
+
+    def __new__(cls, arr=None, wrap_channels=False, **kwargs):
+        obj = _np_mat.asarray(arr if arr is not None else _np_mat.empty(0)).view(cls)
+        obj.wrap_channels = wrap_channels
+        return obj
+
+
+UMat = Mat
+
+
+def UMat_context():
+    """OpenCL context handle — 0 in this (non-OpenCL) build, same as a
+    wheel built without OpenCL."""
+    return 0
+
+
+def UMat_queue():
+    return 0
+
+
+class IStreamReader:
+    """Abstract byte-stream reader for VideoCapture(stream) use."""
+
+    def read(self, buffer, size):
+        raise NotImplementedError
+
+    def seek(self, offset, origin):
+        raise NotImplementedError
+
+
+from . import Error  # noqa: F401,E402
+from . import data  # noqa: F401,E402
+from . import instr  # noqa: F401,E402
+from . import ipp  # noqa: F401,E402
+from . import mat_wrapper  # noqa: F401,E402
+from . import misc  # noqa: F401,E402
+from . import ocl  # noqa: F401,E402
+from . import ogl  # noqa: F401,E402
+from . import qt  # noqa: F401,E402
+from . import samples  # noqa: F401,E402
+from . import typing  # noqa: F401,E402
+from . import version  # noqa: F401,E402
+from . import videoio_registry  # noqa: F401,E402

@@ -186,7 +186,11 @@ warps on the card; ``videostab_truth_report`` holds each motion to the
 video's shifts and the jitter to tests/test_video.py's gain.
 ``forward_codec`` takes JPEGs in (``make_codec_frames``: the motion
 frames through ``imencode('.jpg')``), decodes them on the host, runs the
-flagship :func:`forward` on the card and writes PNGs.
+flagship :func:`forward` on the card and writes PNGs.  ``forward_videoio``
+is the loop most OpenCV programs run, VideoCapture → the card →
+VideoWriter: it reads a HuffYUV AVI (``make_videoio_files``: the motion
+frames and a ``FileStorage`` YAML of the run's parameters), runs the
+flagship chain with the YAML's parameters and writes an FFV1 AVI.
 
 ``dryrun_multichip(n)`` is the twin of ``__graft_entry__.dryrun_multichip``
 on ``torch.distributed``: n spawned ranks (gloo on the CPU, NCCL with n
@@ -300,7 +304,9 @@ __all__ = ["SHAPE", "SHAPE_CFG2", "SHAPE_CFG3", "SHAPE_CFG4", "SHAPE_CFG5", "SHA
            "VIDEOSTAB_JITTER_GAIN", "forward_videostab", "entry_videostab", "motion_translation",
            "jitter_std", "videostab_truth_report",
            "SHAPE_CODEC", "CODEC_STAGES", "CODEC_PSNR_DB", "CODEC_PSNR_MARGIN_DB",
-           "make_codec_frames", "forward_codec", "psnr"]
+           "make_codec_frames", "forward_codec", "psnr",
+           "SHAPE_VIDEOIO", "VIDEOIO_STAGES", "VIDEOIO_FPS", "make_videoio_files",
+           "forward_videoio"]
 
 SHAPE = (8, 1080, 1920, 3)
 SHAPE_CFG2 = (4, 2160, 3840, 3)
@@ -4547,3 +4553,128 @@ def psnr(a, b) -> float:
     """PSNR of two u8 arrays of one shape, dB (inf where equal)."""
     mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
     return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+# ---------------------------------------------------------------------------
+# the video-file path: a HuffYUV AVI in through VideoCapture, the flagship on
+# the card with its parameters from a FileStorage YAML, an FFV1 AVI out
+# through VideoWriter
+# ---------------------------------------------------------------------------
+
+SHAPE_VIDEOIO = (8, 1080, 1920, 3)
+VIDEOIO_STAGES = ("read", "upload", "forward", "readback", "write")
+VIDEOIO_FPS = 25.0
+
+
+def make_videoio_files(dirpath, shape=SHAPE_VIDEOIO, seed: int = 0):
+    """Write the video-file path's two inputs into `dirpath` and return their
+    paths ``(in_path, params_path)``:
+
+    - ``in.avi``: ``make_motion_video(shape, seed)``'s frames through
+      ``VideoWriter`` with fourcc HFYU (HuffYUV, lossless) at
+      :data:`VIDEOIO_FPS`;
+    - ``params.yml``: a ``FileStorage`` YAML of the flagship's parameters:
+      ``ksize`` [5, 5] and ``dsize`` [W/2, H/2] (1 x 2 CV_32S matrices),
+      ``M`` = ``getRotationMatrix2D((W/4, H/4), 15, 0.9)`` (2 x 3 CV_64F),
+      ``fourcc_out`` FFV1 and ``fps``."""
+    import os
+    from .persistence import FILE_STORAGE_WRITE, FileStorage
+    from .videoio import VideoWriter, VideoWriter_fourcc
+    N, H, W, _ = shape
+    in_path = os.path.join(str(dirpath), "in.avi")
+    params_path = os.path.join(str(dirpath), "params.yml")
+    wr = VideoWriter(in_path, VideoWriter_fourcc(*"HFYU"), VIDEOIO_FPS, (W, H))
+    for f in make_motion_video(shape, seed)[0]:
+        wr.write(f)
+    wr.release()
+    fs = FileStorage(params_path, FILE_STORAGE_WRITE)
+    fs.write("ksize", np.array([[5, 5]], np.int32))
+    fs.write("dsize", np.array([[W // 2, H // 2]], np.int32))
+    fs.write("M", getRotationMatrix2D((W / 4, H / 4), 15.0, 0.9))
+    fs.write("fourcc_out", "FFV1")
+    fs.write("fps", VIDEOIO_FPS)
+    fs.release()
+    return in_path, params_path
+
+
+def forward_videoio(in_path, params_path, out_path, device="cuda",
+                    times: dict | None = None) -> dict:
+    """A video file in, a video file out, the flagship between them:
+
+    1. ``FileStorage(params_path, READ)`` reads the run's parameters;
+    2. ``VideoCapture(in_path)``'s frame count, width, height and FPS are
+       checked against them (the frame twice ``dsize``, the YAML's ``fps``);
+    3. ``read()`` runs until it returns False, and the frames are stacked;
+    4. one copy of the (N, H, W, 3) batch to `device` (pinned, to a card);
+    5. cvtColor BGR2GRAY → GaussianBlur(ksize) (``sep_filter`` k5 once on a
+       card) → resize(dsize) → warpAffine(M, dsize): :func:`forward`'s
+       chain with the YAML's values;
+    6. one read-back;
+    7. ``VideoWriter(out_path, fourcc_out, fps, dsize, isColor=False)``
+       writes each output frame, then ``release()``;
+    8. ``imshow("videoio", last)`` of the last output and ``waitKey(1)``.
+
+    Returns the decoded frames, the output on `device` (N, H/2, W/2, 1), its
+    host copy (N, H/2, W/2) and the parameters; `times` (if given) gathers
+    the host-clock ms of :data:`VIDEOIO_STAGES`."""
+    import time as _t
+    from .highgui import imshow, waitKey
+    from .persistence import FILE_STORAGE_READ, FileStorage
+    from .videoio import (CAP_PROP_FPS, CAP_PROP_FRAME_COUNT, CAP_PROP_FRAME_HEIGHT,
+                          CAP_PROP_FRAME_WIDTH, VideoCapture, VideoWriter, VideoWriter_fourcc)
+    dev = torch.device(device)
+    clock = {}
+
+    def lap(name, t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = _t.perf_counter()
+        clock[name] = (t - t0) * 1e3
+        return t
+
+    t = _t.perf_counter()
+    fs = FileStorage(params_path, FILE_STORAGE_READ)
+    params = {"ksize": tuple(int(v) for v in fs.getNode("ksize").mat().ravel()),
+              "dsize": tuple(int(v) for v in fs.getNode("dsize").mat().ravel()),
+              "M": fs.getNode("M").mat(),
+              "fourcc_out": fs.getNode("fourcc_out").string(),
+              "fps": fs.getNode("fps").real()}
+    fs.release()
+    dw, dh = params["dsize"]
+    cap = VideoCapture(in_path)
+    want = {CAP_PROP_FRAME_WIDTH: 2 * dw, CAP_PROP_FRAME_HEIGHT: 2 * dh,
+            CAP_PROP_FPS: params["fps"]}
+    got = {p: cap.get(p) for p in want}
+    n = int(cap.get(CAP_PROP_FRAME_COUNT))
+    if not cap.isOpened() or got != want or n < 1:
+        raise ValueError(f"{in_path}: {n} frames, properties {got}; the parameters want {want}")
+    frames = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        frames.append(f)
+    cap.release()
+    if len(frames) != n:
+        raise ValueError(f"{in_path}: {len(frames)} frames read of {n}")
+    decoded = np.stack(frames)
+    t = lap("read", t)
+    x = to_device(decoded, dev)
+    t = lap("upload", t)
+    g = cvtColor(x, K.COLOR_BGR2GRAY)
+    b = GaussianBlur(g, params["ksize"], 0)
+    y = warpAffine(resize(b, params["dsize"]), params["M"], params["dsize"])
+    t = lap("forward", t)
+    host = y[..., 0].cpu().numpy()
+    t = lap("readback", t)
+    wr = VideoWriter(out_path, VideoWriter_fourcc(*params["fourcc_out"]), params["fps"],
+                     params["dsize"], isColor=False)
+    for o in host:
+        wr.write(o)
+    wr.release()
+    imshow("videoio", host[-1])
+    waitKey(1)
+    lap("write", t)
+    if times is not None:
+        times.update(clock)
+    return {"decoded": decoded, "out": y, "host": host, "params": params}

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Run chosen path phases of ``chip_smoke.py`` alone on one card.
 
-    python3 perf/smoke_phases.py [s] [w] [x] [y]
+    python3 perf/smoke_phases.py [s] [w] [x] [y] [z]
 
 ``s`` stitching (4s), ``w`` RGB-D fusion (4w), ``x`` stabilisation (4x),
-``y`` JPEG in, PNG out (4y); all four when none is named.  Each is the
+``y`` JPEG in, PNG out (4y), ``z`` a HuffYUV AVI in, an FFV1 AVI out (4z);
+all five when none is named.  Each is the
 phase function ``chip_smoke.py`` runs, with the same launch counting, gates,
 logs and wall budget.  The kernels are built first, and the card is warmed
 as the earlier phases of a whole run would warm it (a small stabilisation,
@@ -26,7 +27,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as S  # noqa: E402
 
-PHASES = {"s": "phase_stitch", "w": "phase_fusion", "x": "phase_videostab", "y": "phase_codec"}
+PHASES = {"s": "phase_stitch", "w": "phase_fusion", "x": "phase_videostab", "y": "phase_codec",
+          "z": "phase_videoio"}
 
 
 def main(which) -> int:

@@ -3,7 +3,8 @@ with the MP4 demuxer) against opencv_tpu's and the cv2 oracle, and the
 codecs' native entropy loops against their plain twins, on the CPU.
 
 The JAX package's tests read and write these codecs through VideoCapture
-and VideoWriter (videoio, not yet ported); here the packets come from the
+and VideoWriter (the port's videoio is held to them in
+test_torch_videoio.py); here the packets come from the
 same cv2-written files through the JAX package's AVI parser and from each
 codec's own encoder, and go through both packages' codec functions: the
 bytes and the decoded frames are equal, and equal to cv2's frames wherever

@@ -674,12 +674,16 @@ def test_ann_index_equals_opencv_tpu(dist, tmp_path):
     assert idx[tcv][0].shape == (9, 5)
 
 
-# The top-level names of the JAX package that the port still lacks: only
-# those of the modules still to port (ROADMAP A10.3-A10.6), by module.  A name
-# of a ported area that is missing shows up here.  A top-level submodule
-# counts whether or not a test has imported it (an import makes it an
-# attribute of its package).
-STILL_TO_PORT = {
+# The top-level names of the JAX package that the port still lacks, by
+# module: none since the last modules (ROADMAP A10.3-A10.6) were ported.  A
+# name of a ported area that goes missing shows up in the test below.  A
+# top-level submodule counts whether or not a test has imported it (an
+# import makes it an attribute of its package).
+STILL_TO_PORT = {}
+# the port's own top-level names, which the JAX package has no twin of
+PORT_ONLY = ("entry",)
+# the 63 names of the last modules, by module
+SLICE27_NAMES = {
     "videoio": ("videoio", "videoio_registry", "videoio_ffmpeg", "CAP_PROP_FPS",
                 "CAP_PROP_FRAME_COUNT", "CAP_PROP_FRAME_HEIGHT", "CAP_PROP_FRAME_WIDTH",
                 "CAP_PROP_POS_FRAMES", "IStreamReader", "VideoCapture", "VideoWriter",
@@ -699,11 +703,40 @@ STILL_TO_PORT = {
 }
 
 
-def test_only_the_modules_still_to_port_are_missing():
+def _public_names(pkg):
     import pkgutil
-    listed = [n for names in STILL_TO_PORT.values() for n in names]
-    assert len(listed) == len(set(listed)) == 63
-    theirs = set(dir(jcv)) | {m.name for m in pkgutil.iter_modules(jcv.__path__)}
-    ours = set(dir(tcv)) | {m.name for m in pkgutil.iter_modules(tcv.__path__)}
-    missing = {n for n in theirs - ours if not n.startswith("_")}
-    assert sorted(missing - set(listed)) == []
+    names = set(dir(pkg)) | {m.name for m in pkgutil.iter_modules(pkg.__path__)}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_only_the_modules_still_to_port_are_missing():
+    """The two packages' public dir(), with their submodules, are equal,
+    but for the port's own PORT_ONLY."""
+    assert STILL_TO_PORT == {}
+    theirs, ours = _public_names(jcv), _public_names(tcv)
+    assert sorted(theirs - ours) == []
+    assert sorted(ours - theirs) == sorted(PORT_ONLY)
+
+
+@pytest.mark.parametrize("name", [n for names in SLICE27_NAMES.values() for n in names])
+def test_slice27_name_is_exported(name):
+    """Each name of the last modules is the port's own object of the JAX
+    package's kind: a module of the port, a class or function of the same
+    name and doc, a constant of the same value."""
+    import importlib
+    import types
+    assert len({n for names in SLICE27_NAMES.values() for n in names}) == 63
+    want = getattr(jcv, name) if hasattr(jcv, name) else \
+        importlib.import_module(f"opencv_tpu.{name}")
+    if isinstance(want, types.ModuleType):
+        got = importlib.import_module(f"opencv_tpu_torch.{name}")
+        assert getattr(tcv, name) is got
+        assert got.__name__ == "opencv_tpu_torch." + want.__name__.split(".", 1)[1]
+        return
+    got = getattr(tcv, name)
+    if isinstance(want, (type, types.FunctionType)):
+        assert type(got) is type(want) and got.__name__ == want.__name__
+        assert got.__module__.startswith("opencv_tpu_torch")
+        assert got.__doc__ == want.__doc__
+    else:
+        assert type(got) is type(want) and got == want
