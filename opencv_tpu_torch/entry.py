@@ -208,6 +208,7 @@ import torch
 
 from . import constants as K
 from .core.arrays import as_tensor, to_device
+from .utils.trace import region, trace_region
 from .features2d.orb import ORB_create
 from .kernels import fused_gray_gauss5_down2
 from .ops.canny import Canny
@@ -351,10 +352,12 @@ def warp(r):
     return warpAffine(r, M, (w, h))
 
 
+@region("entry.forward")
 def forward(imgs):
     return warp(preprocess(imgs))
 
 
+@region("entry.forward_fused")
 def forward_fused(imgs):
     return warp(preprocess_fused(imgs))
 
@@ -369,6 +372,7 @@ def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
     return ((v + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
 
 
+@region("entry.forward_resize_warp_4k")
 def forward_resize_warp_4k(x):
     """BASELINE config 2 over an (N, H, W, C) u8 batch (``bench.py:501-520``).
 
@@ -383,10 +387,11 @@ def forward_resize_warp_4k(x):
     r3 = resize(x, half, interpolation=K.INTER_CUBIC)
     wa = warpAffine(x, getRotationMatrix2D((W / 2, H / 2), 15.0, 0.9), (W, H))
     wp = warpPerspective(x, PERSPECTIVE_CFG2, (W, H))
-    totals = torch.stack([
-        _wrap_int32(r1.sum(dtype=torch.int64) + r2.sum(dtype=torch.int64)
-                    + r3.sum(dtype=torch.int64)),
-        _wrap_int32(wa.sum(dtype=torch.int64)), _wrap_int32(wp.sum(dtype=torch.int64))])
+    with trace_region("totals"):
+        totals = torch.stack([
+            _wrap_int32(r1.sum(dtype=torch.int64) + r2.sum(dtype=torch.int64)
+                        + r3.sum(dtype=torch.int64)),
+            _wrap_int32(wa.sum(dtype=torch.int64)), _wrap_int32(wp.sum(dtype=torch.int64))])
     return r1, r2, r3, wa, wp, totals
 
 
@@ -396,6 +401,7 @@ def entry_resize_warp_4k(device="cuda", shape=SHAPE_CFG2):
     return forward_resize_warp_4k, (torch.from_numpy(make_batch(shape)).to(device),)
 
 
+@region("entry.forward_pyr_corner_edge")
 def forward_pyr_corner_edge(x):
     """BASELINE config 3 over an (N, H, W, 1) u8 batch (``bench.py:447-454``).
 
@@ -416,6 +422,7 @@ def entry_pyr_corner_edge(device="cuda", shape=SHAPE_CFG3):
     return forward_pyr_corner_edge, (torch.from_numpy(make_batch(shape)).to(device),)
 
 
+@region("entry.forward_match_morph")
 def forward_match_morph(x, t):
     """BASELINE config 4 over an (N, H, W, 1) u8 batch and a u8 template
     (``bench.py:466-471``).
@@ -444,6 +451,7 @@ def entry_match_morph(device="cuda", shape=SHAPE_CFG4):
     return forward_match_morph, (torch.from_numpy(x).to(device), torch.from_numpy(t).to(device))
 
 
+@region("entry.forward_orb")
 def forward_orb(x, orb):
     """BASELINE config 5 over an (N, H, W) u8 batch (``bench.py:478-491``):
     ``orb.detect_and_compute_batch(x)``, a list of (keypoints, descriptors)
@@ -457,6 +465,7 @@ def entry_orb(device="cuda", shape=SHAPE_CFG5):
     return forward_orb, (torch.from_numpy(make_batch(shape)).to(device), ORB_create(nfeatures=500))
 
 
+@region("entry.forward_decode_color")
 def forward_decode_color(y, uv):
     """From NV12 to a binary map and its integral image: Y (N, H, W) and
     UV (N, H/2, W/2, 2) u8.
@@ -512,6 +521,7 @@ ENHANCE_STAGES = (
 ENHANCE_OUTPUTS = tuple(name for name, _ in ENHANCE_STAGES)
 
 
+@region("entry.forward_enhance")
 def forward_enhance(x):
     """Contrast enhancement and false colour over an (N, H, W, 3) u8 BGR
     batch, the front end that inspection, thermal, medical and low-light
@@ -725,6 +735,7 @@ MOTION_STAGES = (
 )
 
 
+@region("entry.forward_motion")
 def forward_motion(x):
     """Stabilisation and motion detection over an (N, H, W, 3) u8 BGR video
     (:data:`MOTION_STAGES`), frame 0 the reference.
@@ -1013,6 +1024,7 @@ LINES_STAGES = (
 )
 
 
+@region("entry.forward_lines")
 def forward_lines(x):
     """Lanes and round signs in an (N, H, W, 3) u8 BGR road video
     (:data:`LINES_STAGES`).
@@ -1356,6 +1368,7 @@ SEGMENT_STAGES = (
 )
 
 
+@region("entry.forward_segment")
 def forward_segment(x, model):
     """Cell segmentation of an (N, H, W, 3) u8 BGR video through a
     colour-cast camera, with `model` the camera's fitted
@@ -1631,6 +1644,7 @@ REGISTER_STAGES = (
 )
 
 
+@region("entry.forward_register")
 def forward_register(x, mpx: float = REGISTER_MPX):
     """Feature registration of consecutive frames of an (N, H, W, 3) u8 BGR
     video, as cv::Stitcher registers its images (:data:`REGISTER_STAGES`):
@@ -1802,6 +1816,7 @@ def track_state(x) -> dict:
     return {"x": x, "akaze": AKAZE_create(), "brisk": BRISK_create(), "kaze": KAZE_create()}
 
 
+@region("entry.forward_track")
 def forward_track(x):
     """Feature tracking between consecutive frames of an (N, H, W, 3) u8 BGR
     video at half size, as visual-odometry and SLAM front ends track
@@ -1928,6 +1943,7 @@ VIDEO_STAGES = (
 )
 
 
+@region("entry.forward_video")
 def forward_video(x):
     """Video analytics over an (N, H, W, 3) u8 BGR video from a shaking
     camera, frame 0 the reference (:data:`VIDEO_STAGES`).
@@ -2183,6 +2199,7 @@ def photo_state(x, face, wire) -> dict:
     return {"x": x, "face_in": face, "wire_in": wire}
 
 
+@region("entry.forward_photo")
 def forward_photo(x, face, wire):
     """HDR finishing of one exposure bracket (:data:`PHOTO_STAGES`): x (3,
     H, W, 3) u8 BGR, the masks (H, W) u8 in frame 1's coordinates.
@@ -2665,6 +2682,7 @@ def stereo_state(pair, rig) -> dict:
     return {"x": pair, "rig": rig}
 
 
+@region("entry.forward_stereo")
 def forward_stereo(pair, rig) -> dict:
     """Depth from one stereo pair (:data:`STEREO_STAGES`): ``pair`` (2, H, W,
     3) u8 BGR, camera 1 then camera 2; ``rig`` :func:`calibrate_rig`'s.
@@ -3311,6 +3329,7 @@ def _d_nms(st):
 _DETECT_FNS = {"blob": _d_blob, "net": _d_net, "decode": _d_decode, "nms": _d_nms}
 
 
+@region("entry.forward_detect")
 def forward_detect(frames, net, size=DETECT_SIZE, stages=DETECT_STAGES, state=None) -> dict:
     """Objects in a batch of BGR u8 frames, as a detector in front of a
     camera runs it: ``blobFromImages(frames, 1/255, size, swapRB=True)`` →
@@ -3341,6 +3360,7 @@ def entry_detect(device="cuda", shape=SHAPE_DETECT, seed: int = 0):
 SHAPE_STITCH = (8, 1080, 1920, 3)
 
 
+@region("entry.forward_stitch")
 def forward_stitch(frames) -> dict:
     """The frames of a panning camera stitched into one panorama, as
     OpenCV's samples/python/stitching.py runs ``Stitcher.create().stitch``:
@@ -3393,6 +3413,7 @@ def gapi_flagship(shape=SHAPE):
     return gapi.GComputation(gin, [out, gapi.g_op("pyrDown", g)])
 
 
+@region("entry.forward_gapi")
 def forward_gapi(batches, comp=None, device="cuda") -> list:
     """:func:`gapi_flagship`'s graph over host batches through
     ``gapi.Stream`` on `device`: the list of each batch's (warped, half)."""
@@ -3576,6 +3597,7 @@ def make_goturn_trackers(net, frame, boxes) -> list:
     return out
 
 
+@region("entry.forward_track_dnn")
 def forward_track_dnn(frames, trackers) -> dict:
     """Each tracker updated on frames 1.. in turn, as a multi-object
     tracker runs its single-object trackers: {"boxes": (N-1, T, 4) int64
@@ -4030,6 +4052,7 @@ def _qr_in(qr, roi, origin) -> tuple:
     return text, pts, straight
 
 
+@region("entry.forward_objdetect")
 def forward_objdetect(frames, chart, det: dict, times: dict | None = None) -> dict:
     """Each frame through ArucoDetector.detectMarkers, CharucoDetector
     .detectBoard (its own marker pass), QRCodeDetector.detectAndDecode (on
@@ -4254,6 +4277,7 @@ def depth_to_u16(depth: torch.Tensor) -> torch.Tensor:
     return torch.where(depth < FUSION_Z[1], mm, 0).to(torch.uint16)
 
 
+@region("entry.forward_fusion")
 def forward_fusion(scene: dict, volume, odometry, device="cuda", times: dict | None = None) -> dict:
     """KinectFusion's loop over the trajectory: each frame rendered on
     `device` and sent as u16 millimetres, Odometry.compute of each frame
@@ -4427,6 +4451,7 @@ VIDEOSTAB_CROP = 20
 VIDEOSTAB_JITTER_GAIN = 2.5
 
 
+@region("entry.forward_videostab")
 def forward_videostab(frames, radius: int = VIDEOSTAB_RADIUS, times: dict | None = None) -> dict:
     """The (N, H, W, 3) u8 BGR `frames` turned to gray on their device, then
     ``videostab.OnePassStabilizer(radius)``: GFTT (300 corners) and LK of
@@ -4513,6 +4538,7 @@ def make_codec_frames(shape=SHAPE_CODEC, seed: int = 0):
     return frames, [imencode(".jpg", f)[1].tobytes() for f in frames]
 
 
+@region("entry.forward_codec")
 def forward_codec(jpegs, device="cuda", times: dict | None = None) -> dict:
     """JPEG in, PNG out: ``imdecode`` of each of the `jpegs` on the host, one
     copy of the (N, H, W, 3) batch to `device` (through pinned memory to a
@@ -4597,6 +4623,7 @@ def make_videoio_files(dirpath, shape=SHAPE_VIDEOIO, seed: int = 0):
     return in_path, params_path
 
 
+@region("entry.forward_videoio")
 def forward_videoio(in_path, params_path, out_path, device="cuda",
                     times: dict | None = None) -> dict:
     """A video file in, a video file out, the flagship between them:

@@ -38,6 +38,7 @@ import torch
 from .. import constants as K
 from ..core.arrays import as_tensor, from_batched, to_batched
 from ..core.fixedpoint import alpha_max, descale, saturate_cast
+from ..utils.trace import region
 
 __all__ = ["cvtColor", "cvtColorTwoPlane"]
 
@@ -972,6 +973,7 @@ for _code, _yidx, _uidx, _bidx in [
 
 # --------------------------------------------------------------- public
 
+@region("cvtColor")
 def cvtColor(src, code: int, dstCn: int = 0):
     """Convert an image (or NHWC batch) between color spaces.
 

@@ -38,6 +38,7 @@ from ..core.arrays import dtype_name, to_batched, from_batched
 from ..core.borders import pad_nhwc
 from ..core.dispatch import lookup
 from ..core.fixedpoint import saturate_cast
+from ..utils.trace import region
 
 __all__ = ["getGaussianKernel", "GaussianBlur", "sepFilter2D", "filter2D", "blur",
            "boxFilter", "sqrBoxFilter"]
@@ -195,6 +196,7 @@ def _correlate2d_fft(x, kernel, anchor, border_type, dtype):
 # GaussianBlur
 # --------------------------------------------------------------------------
 
+@region("GaussianBlur")
 def GaussianBlur(src, ksize, sigmaX: float, sigmaY: float = 0.0,
                  borderType: int = K.BORDER_DEFAULT,
                  hint: int = K.ALGO_HINT_DEFAULT):

@@ -44,6 +44,7 @@ import torch
 from .. import constants as K
 from ..core.arrays import to_batched, from_batched
 from ..core.fixedpoint import saturate_cast
+from ..utils.trace import region
 
 __all__ = ["resize"]
 
@@ -359,6 +360,7 @@ def _resize_area_frac(x, dw, dh):
 # public entry
 # --------------------------------------------------------------------------
 
+@region("resize")
 def resize(src, dsize, fx: float = 0.0, fy: float = 0.0,
            interpolation: int = K.INTER_LINEAR):
     """cv2-compatible resize. ``dsize`` is (width, height) or None."""

@@ -47,6 +47,7 @@ from .. import constants as K
 from ..core.arrays import as_tensor, to_batched, from_batched, to_device
 from ..core.fixedpoint import saturate_cast
 from ..core.mathfuncs import fast_atan2
+from ..utils.trace import region
 from .resize import _interpolate_cubic, _interpolate_lanczos4
 
 __all__ = [
@@ -433,6 +434,7 @@ def _sat_i32(a):
 # public warps
 # --------------------------------------------------------------------------
 
+@region("warpAffine")
 def warpAffine(src, M, dsize, flags: int = K.INTER_LINEAR,
                borderMode: int = K.BORDER_CONSTANT, borderValue=0):
     """`cv::warpAffine` (imgwarp.cpp:2788). M is a host 2x3 array."""
@@ -489,6 +491,7 @@ def _perspective_q5(xn, yn, wd):
     return (*q(xn), *q(yn))
 
 
+@region("warpPerspective")
 def warpPerspective(src, M, dsize, flags: int = K.INTER_LINEAR,
                     borderMode: int = K.BORDER_CONSTANT, borderValue=0):
     """`cv::warpPerspective` (imgwarp.cpp:3370). M is a host 3x3 array."""

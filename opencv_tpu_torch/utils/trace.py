@@ -13,25 +13,38 @@ Three tiers, as in the JAX package:
    ``OPENCV_TPU_TRACE_LOCATION`` (default ``opencv_tpu_trace.json``) at
    exit.
 
-2. **Device annotation**: every `trace_region` is also a
-   ``torch.profiler.record_function``, so the work it encloses is labelled
-   in a ``torch.profiler`` trace (`profile_to`), on the CPU and on the card.
+2. **Device annotation**: while a ``torch.profiler`` runs, every
+   `trace_region` is also a ``torch.profiler.record_function``, so the
+   work it encloses is labelled in the trace (`profile_to`), on the CPU
+   and on the card.
 
 3. **Dispatch-tier instrumentation**: ``core.dispatch.lookup`` counts which
    tier (CUDA kernel or plain PyTorch) served each op; `tier_stats()` is
    ``core.dispatch.tier_stats()``, so the counters live in one place.
+
+**The off path.** Spans sit on the hot path (the entries and the public
+ops they call), so with the host buffer off and no profiler running a
+span costs one check of two flags and enters no
+``record_function`` (which alone costs some 10 us of host time).  Under
+``torch.compile`` or ``torch.export`` a span records nothing, so an
+exported program holds only the work.  A span launches nothing on the card
+and never waits for it.
 """
 
 from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import json
 import os
 import threading
 import time
 
 import torch
+# its `_is_profiler_enabled`: whether a torch profiler (or emit_nvtx) runs,
+# torch's own Python flag, which torch.compile reads as a constant
+from torch.autograd import profiler as _autograd_profiler
 
 from ..core import dispatch
 
@@ -51,7 +64,8 @@ def is_enabled() -> bool:
 
 
 def start() -> None:
-    """Begin recording host spans (device annotations are always on)."""
+    """Begin recording host spans (a span is a device annotation whenever
+    a torch profiler runs, whether or not this is on)."""
     global _ENABLED
     _ENABLED = True
 
@@ -71,36 +85,64 @@ def _depth() -> int:
     return getattr(_TLS, "depth", 0)
 
 
-@contextlib.contextmanager
-def trace_region(name: str, **args):
-    """`CV_TRACE_REGION` equivalent: label the region in a torch.profiler
-    trace and, when tracing is enabled, record a nested host span with
-    optional args (CV_TRACE_ARG)."""
-    with torch.profiler.record_function(name):
-        if not _ENABLED:
-            yield
-            return
-        _TLS.depth = _depth() + 1
-        t0 = _now_us()
-        try:
-            yield
-        finally:
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """One recording span: a ``record_function`` while a profiler runs,
+    and a host-buffer event while tracing is enabled."""
+
+    __slots__ = ("name", "args", "_rf", "_t0")
+
+    def __init__(self, name: str, args: dict):
+        self.name, self.args = name, args
+        self._rf = self._t0 = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if _ENABLED:
+            _TLS.depth = _depth() + 1
+            self._t0 = _now_us()
+        return self
+
+    def __exit__(self, *exc):
+        if self._t0 is not None:
             t1 = _now_us()
             _TLS.depth -= 1
-            ev = {"name": name, "ph": "X", "ts": t0, "dur": t1 - t0,
+            ev = {"name": self.name, "ph": "X", "ts": self._t0, "dur": t1 - self._t0,
                   "pid": os.getpid(), "tid": threading.get_ident(),
-                  "args": {"depth": _depth(), **args}}
+                  "args": {"depth": _depth(), **self.args}}
             with _LOCK:
                 _EVENTS.append(ev)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
+def trace_region(name: str, **args):
+    """`CV_TRACE_REGION` equivalent, a context manager: label the region in
+    a running torch.profiler trace and, when tracing is enabled, record a
+    nested host span with optional args (CV_TRACE_ARG).  Off both, or
+    under compile or export, it is a no-op."""
+    if not (_ENABLED or _autograd_profiler._is_profiler_enabled) \
+            or torch.compiler.is_compiling() \
+            or torch.compiler.is_exporting():
+        return _OFF
+    return _Span(name, args)
 
 
 def region(name: str):
-    """Decorator form of trace_region."""
+    """Decorator form of trace_region; the wrapper keeps the function's
+    name, doc, signature and ``__wrapped__``."""
     def deco(fn):
+        @functools.wraps(fn)
         def wrapped(*a, **kw):
+            if not (_ENABLED or _autograd_profiler._is_profiler_enabled):
+                return fn(*a, **kw)
             with trace_region(name):
                 return fn(*a, **kw)
-        wrapped.__name__ = getattr(fn, "__name__", name)
         return wrapped
     return deco
 

@@ -1,0 +1,10 @@
+"""Device ms a batch of the work attributed, by launch, to ``warpAffine``
+and ``warpPerspective`` stages (direct children of the entry's root
+span)."""
+
+from portbench.attribution import STAGES, attribution
+
+
+def read(run):
+    att = attribution(run)
+    return att.device_ms(STAGES["warp"]) if att else None
